@@ -1,0 +1,317 @@
+"""The PyTorch port's Naive Bayes train -> batch score held against the JAX
+package, on the CPU.
+
+Inputs: the churn runbook's data (resource/churn_nb/run.sh: 3000 rows,
+seed 29, 2400 train / 600 test) and seeded synthetic scoring tables.
+Model files and float64 predictions must be byte-identical; the float32
+scorer must keep the reference's own float32-vs-float64 contract
+(``BayesianPredictor.f32_score_parity_violations``) with zero violations.
+"""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from avenir_tpu.core.config import JobConfig as JaxConfig
+from avenir_tpu.core.metrics import Counters as JaxCounters
+from avenir_tpu.datagen import gen_telecom_churn as jax_gen_churn
+from avenir_tpu.models import bayesian as jb
+
+from avenir_tpu_torch import convert, datagen
+from avenir_tpu_torch.core.config import JobConfig
+from avenir_tpu_torch.core.metrics import Counters
+from avenir_tpu_torch.models import bayesian as tb
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RUNBOOK = os.path.join(REPO, "resource", "churn_nb")
+SCHEMA = os.path.join(RUNBOOK, "teleComChurn.json")
+CPU = torch.device("cpu")
+LN_HEALTHY_IEEE = np.log(1e-250)
+
+
+def _read(path):
+    with open(os.path.join(path, "part-r-00000"), "rb") as fh:
+        return fh.read()
+
+
+@pytest.fixture(scope="module")
+def runbook(tmp_path_factory):
+    """The runbook's data, written by the port's generator, and the
+    reference's model trained on it."""
+    d = tmp_path_factory.mktemp("churn_nb")
+    os.makedirs(d / "train")
+    os.makedirs(d / "test")
+    assert datagen.main(["telecom_churn", "3000", "--seed", "29",
+                         "--out", str(d / "all.csv")]) == 0
+    with open(d / "all.csv") as fh:
+        lines = fh.read().splitlines(keepends=True)
+    with open(d / "train" / "part-00000", "w") as fh:
+        fh.writelines(lines[:2400])
+    with open(d / "test" / "part-00000", "w") as fh:
+        fh.writelines(lines[2400:])
+    jb.BayesianDistribution(JaxConfig(
+        {"feature.schema.file.path": SCHEMA})).run(str(d / "train"),
+                                                   str(d / "model_jax"))
+    return d
+
+
+def test_datagen_matches_reference(runbook):
+    rows = jax_gen_churn(3000, seed=29)
+    with open(runbook / "all.csv") as fh:
+        assert fh.read() == "\n".join(",".join(r) for r in rows) + "\n"
+    assert datagen.gen_telecom_churn(50, seed=2) == jax_gen_churn(50, seed=2)
+
+
+@pytest.mark.parametrize("props", [
+    pytest.param({"pipeline.chunk.rows": "512"}, id="streamed-512-row-chunks"),
+    pytest.param({"pipeline.chunk.rows": "512",
+                  "pipeline.prefetch.depth": "0"}, id="streamed-serial"),
+    pytest.param({}, id="streamed-byte-chunks"),
+    pytest.param({"ingest.chunk.bytes": "20000"}, id="streamed-small-bytes"),
+])
+def test_trainer_model_byte_identical(runbook, tmp_path, props):
+    cfg = dict(props, **{"feature.schema.file.path": SCHEMA})
+    jax_out, port_out = tmp_path / "jax", tmp_path / "port"
+    jc = jb.BayesianDistribution(JaxConfig(dict(cfg))).run(
+        str(runbook / "train"), str(jax_out))
+    pc = tb.BayesianDistribution(JobConfig(dict(cfg)), device="cpu").run(
+        str(runbook / "train"), str(port_out))
+    assert _read(port_out) == _read(jax_out)
+    assert pc.as_dict() == jc.as_dict()
+    if "pipeline.chunk.rows" in props:
+        assert pc.get("Ingest", "Chunks") == 5      # 2400 rows / 512
+
+
+def test_trainer_monolithic_lines_identical(runbook):
+    """``train_lines`` on one encoded dataset (the one-shot path)."""
+    from avenir_tpu.core.binning import DatasetEncoder as JaxEncoder
+    from avenir_tpu_torch.core.binning import DatasetEncoder
+
+    train = str(runbook / "train")
+    jjob = jb.BayesianDistribution(JaxConfig({"feature.schema.file.path": SCHEMA}))
+    pjob = tb.BayesianDistribution(JobConfig({"feature.schema.file.path": SCHEMA}),
+                                   device="cpu")
+    want = jjob.train_lines(JaxEncoder(jjob.schema).encode_path(train), ",",
+                            JaxCounters())
+    ds = DatasetEncoder(pjob.schema).encode_path(train)
+    np.testing.assert_array_equal(
+        ds.x, JaxEncoder(jjob.schema).encode_path(train).x)
+    assert pjob.train_lines(ds, ",", Counters()) == want
+    with open(os.path.join(runbook / "model_jax", "part-r-00000")) as fh:
+        assert fh.read().splitlines() == want
+
+
+def test_trainer_falls_back_on_late_category(tmp_path):
+    """A class value first seen after chunk 0 overflows the streamed
+    trainer's class cap; the one-shot fallback must still give the
+    reference's bytes."""
+    rows = jax_gen_churn(600, seed=3)
+    rows = [r for r in rows if r[-1] == "N"][:300] + \
+        [r for r in rows if r[-1] == "Y"][:60]
+    with open(tmp_path / "in.csv", "w") as fh:
+        fh.write("\n".join(",".join(r) for r in rows) + "\n")
+    schema = tmp_path / "schema.json"
+    with open(SCHEMA) as fh:
+        text = fh.read()
+    with open(schema, "w") as fh:       # no declared class cardinality
+        fh.write(text.replace(',\n   "cardinality": ["N", "Y"]', ""))
+    cfg = {"feature.schema.file.path": str(schema),
+           "pipeline.chunk.rows": "100"}
+    jb.BayesianDistribution(JaxConfig(dict(cfg))).run(
+        str(tmp_path / "in.csv"), str(tmp_path / "jax"))
+    c = tb.BayesianDistribution(JobConfig(dict(cfg)), device="cpu").run(
+        str(tmp_path / "in.csv"), str(tmp_path / "port"))
+    assert _read(tmp_path / "port") == _read(tmp_path / "jax")
+    assert c.get("Ingest", "Chunks") == 0       # the fallback ran
+
+
+@pytest.mark.parametrize("precision", ["float64", "float32"])
+def test_predictor_runbook_outputs(runbook, tmp_path, precision):
+    """Prediction files through both packages: float64 byte-identical;
+    float32 within the reference's parity contract (against the
+    reference's float64 probabilities)."""
+    cfg = {"feature.schema.file.path": SCHEMA,
+           "bayesian.model.file.path": str(runbook / "model_jax"),
+           "bp.score.precision": precision}
+    jjob = jb.BayesianPredictor(JaxConfig(dict(cfg), "bp"))
+    pjob = tb.BayesianPredictor(JobConfig(dict(cfg), "bp"), device="cpu")
+    jc = jjob.run(str(runbook / "test"), str(tmp_path / "jax"))
+    pc = pjob.run(str(runbook / "test"), str(tmp_path / "port"))
+    lines = list(tb.read_lines(str(runbook / "test")))
+    records = [l.split(",") for l in lines]
+    ds, tables, probs, _, _ = pjob.score(records)
+    if precision == "float64":
+        assert _read(tmp_path / "port") == _read(tmp_path / "jax")
+        assert pc.as_dict() == jc.as_dict()
+        return
+    p64 = np.asarray(jb.BayesianPredictor._score_batch(
+        *map(jnp.asarray, (ds.x, ds.values) + tuple(tables)))[0])
+    post, prior, gpost, gprior, class_prior, is_cont = tables
+    lfp, lfpo = jb.BayesianPredictor.log_oracle(ds.x, ds.values, post, prior,
+                                                gpost, gprior, is_cont)
+    viol = jb.BayesianPredictor.f32_score_parity_violations(
+        p64, probs, lfp, lfpo, class_prior, ln_healthy=LN_HEALTHY_IEEE)
+    assert viol["healthy"] == 0 and viol["tail"] == 0, viol
+    assert viol["n_healthy"] > 0
+
+
+def _tables_case(kind):
+    """(x, values, post, prior, gauss_post, gauss_prior, class_prior,
+    is_cont) for the scoring cases."""
+    rng = np.random.default_rng({"tails": 17, "unseen": 5}[kind])
+    if kind == "tails":
+        # posteriors log-uniform over [1e-4, 1) over 24 features and
+        # Gaussian columns deep in the tail: products far outside f32
+        n, F, C, B = 512, 24, 2, 10
+        x = rng.integers(0, B, (n, F)).astype(np.int32)
+        values = rng.uniform(0, 100, (n, F))
+        post = 10.0 ** rng.uniform(-4, 0, (C, F, B))
+        prior = 10.0 ** rng.uniform(-4, 0, (F, B))
+        gauss_post = np.stack([rng.uniform(10, 50, (C, F)),
+                               rng.uniform(1, 8, (C, F))], -1)
+        gauss_prior = np.stack([rng.uniform(10, 50, F),
+                                rng.uniform(1, 8, F)], -1)
+        class_prior = np.asarray([0.9, 0.1])
+        is_cont = np.zeros(F, bool)
+        is_cont[-3:] = True
+    else:
+        # a bin never observed in training: zero posterior and prior
+        n, F, C, B = 64, 4, 2, 6
+        x = rng.integers(0, B - 1, (n, F)).astype(np.int32)
+        x[0, 1] = B - 1
+        values = rng.uniform(0, 10, (n, F))
+        post = rng.uniform(0.1, 1.0, (C, F, B))
+        post[:, 1, B - 1] = 0.0
+        prior = rng.uniform(0.1, 1.0, (F, B))
+        prior[1, B - 1] = 0.0
+        gauss_post = np.stack([rng.uniform(5, 9, (C, F)),
+                               rng.uniform(1, 2, (C, F))], -1)
+        gauss_prior = np.stack([rng.uniform(5, 9, F),
+                                rng.uniform(1, 2, F)], -1)
+        class_prior = np.asarray([0.5, 0.5])
+        is_cont = np.zeros(F, bool)
+    return x, values, post, prior, gauss_post, gauss_prior, class_prior, is_cont
+
+
+@pytest.mark.parametrize("kind", ["tails", "unseen", "runbook"])
+def test_score_batch_matches_reference(runbook, kind):
+    """The reference's tables go through ``convert``; the port's float64
+    scorer gives the reference's exact int probabilities, and its float32
+    scorer keeps the reference's parity contract."""
+    if kind == "runbook":
+        cfg = {"feature.schema.file.path": SCHEMA,
+               "bayesian.model.file.path": str(runbook / "model_jax")}
+        jjob = jb.BayesianPredictor(JaxConfig(cfg, "bp"))
+        from avenir_tpu.core.binning import DatasetEncoder as JaxEncoder
+        ds = JaxEncoder(jjob.schema).encode_path(str(runbook / "test"))
+        x, values = ds.x, ds.values
+        tables = jjob._build_tables(ds)
+    else:
+        x, values, *tables = _tables_case(kind)
+    j64, jprior, jpost = jb.BayesianPredictor._score_batch(
+        *map(jnp.asarray, [x, values] + list(tables)))
+    args = (torch.from_numpy(x), torch.from_numpy(values)) + \
+        convert.predictor_tables_to_device(tables, CPU)
+    p64, pprior, ppost = tb.BayesianPredictor._score_batch(*args)
+    np.testing.assert_array_equal(p64.numpy(), np.asarray(j64))
+    # feature probabilities: the same float64 products in the same order,
+    # but XLA's CPU float64 exp is not numpy's or torch's (they agree with
+    # each other bit for bit; XLA's differs by an ulp on some inputs), so
+    # each Gaussian factor may carry one ulp: 1e-14 relative covers 24
+    # factors of 2^-53 each
+    np.testing.assert_allclose(pprior.numpy(), np.asarray(jprior),
+                               rtol=1e-14, atol=0)
+    np.testing.assert_allclose(ppost.numpy(), np.asarray(jpost),
+                               rtol=1e-14, atol=0)
+
+    p32, fprior32, fpost32 = tb.BayesianPredictor._score_batch_f32(*args)
+    post, prior, gpost, gprior, class_prior, is_cont = tables
+    lfp, lfpo = jb.BayesianPredictor.log_oracle(x, values, post, prior,
+                                                gpost, gprior, is_cont)
+    viol = jb.BayesianPredictor.f32_score_parity_violations(
+        np.asarray(j64), p32.numpy(), lfp, lfpo, class_prior,
+        ln_healthy=LN_HEALTHY_IEEE)
+    assert viol["healthy"] == 0 and viol["tail"] == 0, viol
+    assert viol["n_healthy"] > 0
+    # the port's own copy of the checker and oracle agree with the reference
+    assert tb.BayesianPredictor.f32_score_parity_violations(
+        np.asarray(j64), p32.numpy(), lfp, lfpo, class_prior,
+        ln_healthy=LN_HEALTHY_IEEE) == viol
+    for a, b in zip(tb.BayesianPredictor.log_oracle(
+            x, values, post, prior, gpost, gprior, is_cont), (lfp, lfpo)):
+        np.testing.assert_array_equal(a, b)
+    if kind == "unseen":
+        assert (p32.numpy()[0] == 0).all() and (p64.numpy()[0] == 0).all()
+        assert fprior32.numpy()[0] == 0.0 and (fpost32.numpy()[0] == 0).all()
+
+
+@pytest.mark.parametrize("vals", [
+    pytest.param(np.array([np.nan, 1e300, -1e300, 12.9, -12.9, 2147483647.5,
+                           -2147483648.0]), id="float64"),
+    pytest.param(np.array([np.nan, 3e38, -3e38, 12.9, -12.9, 2147483520.0,
+                           2147483648.0], np.float32), id="float32"),
+])
+def test_java_int32_matches_reference(vals):
+    want = np.asarray(jb._java_int32(jnp.asarray(vals)))
+    np.testing.assert_array_equal(tb._java_int32(torch.from_numpy(vals)).numpy(),
+                                  want)
+    if vals.dtype == np.float64:
+        np.testing.assert_array_equal(tb._java_int32_np(vals),
+                                      jb._java_int32_np(vals))
+
+
+@pytest.mark.parametrize("a,b,vsq,cnt,mean", [
+    (7, 2, 10, 1, 3), (-7, 2, 50, 4, -3), (7, -2, 0, 3, 5), (-9, -4, 99, 9, 2),
+])
+def test_java_arithmetic_matches_reference(a, b, vsq, cnt, mean):
+    assert tb._jdiv(a, b) == jb._jdiv(a, b)
+    assert tb._jstd(vsq, cnt, mean) == jb._jstd(vsq, cnt, mean)
+
+
+def test_host_moments_match_reference():
+    rng = np.random.default_rng(4)
+    values = rng.integers(0, 30, (1000, 4)).astype(np.float64)
+    y = rng.integers(0, 3, 1000).astype(np.int32)
+    want = jb._host_moments(values, y, 3, [1, 3])
+    got = tb._host_moments(values, y, 3, [1, 3])
+    assert got.keys() == want.keys()
+    for j in want:
+        np.testing.assert_array_equal(got[j], want[j])
+
+
+def test_cli_runbook_cpu(runbook, tmp_path):
+    """``python -m avenir_tpu_torch ... --device cpu``, the runbook's two
+    commands: the same model and float64 predictions as the reference."""
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    nb = os.path.join(RUNBOOK, "nb.properties")
+    bp = os.path.join(RUNBOOK, "bp.properties")
+    shutil.copy(SCHEMA, tmp_path / "teleComChurn.json")
+    run = subprocess.run(
+        [sys.executable, "-c",
+         "import sys; from avenir_tpu_torch.cli import main; "
+         "sys.exit(main(sys.argv[1:6]) or main(sys.argv[6:]))",
+         "BayesianDistribution", f"-Dconf.path={nb}", str(runbook / "train"),
+         "model", "--device=cpu",
+         "org.avenir.bayesian.BayesianPredictor", f"-Dconf.path={bp}",
+         "-Dbayesian.model.file.path=model", "-Dbp.score.precision=float64",
+         str(runbook / "test"), "pred",
+         "--device", "cpu"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr
+    assert "Ingest\tChunks\t1" in run.stderr
+    assert "Validation\tCorrect" in run.stderr
+    assert _read(tmp_path / "model") == _read(runbook / "model_jax")
+    want = tmp_path / "pred_jax"
+    jb.BayesianPredictor(JaxConfig(
+        {"feature.schema.file.path": SCHEMA,
+         "bayesian.model.file.path": str(runbook / "model_jax"),
+         "bp.score.precision": "float64"}, "bp")).run(str(runbook / "test"),
+                                                      str(want))
+    assert _read(tmp_path / "pred") == _read(want)
