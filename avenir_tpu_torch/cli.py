@@ -9,15 +9,25 @@ asks for the CPU, and fail when there is no card.
 
 from __future__ import annotations
 
+import importlib
 import sys
 from typing import Dict, Optional
 
 from .core.config import load_job_config, parse_cli_args
 
-# reference driver class -> (job class in models.bayesian, config prefix)
+# reference driver class -> (module under models, job class, config prefix)
 JOBS: Dict[str, tuple] = {
-    "org.avenir.bayesian.BayesianDistribution": ("BayesianDistribution", ""),
-    "org.avenir.bayesian.BayesianPredictor": ("BayesianPredictor", "bp"),
+    "org.avenir.bayesian.BayesianDistribution":
+        ("bayesian", "BayesianDistribution", ""),
+    "org.avenir.bayesian.BayesianPredictor":
+        ("bayesian", "BayesianPredictor", "bp"),
+    "org.sifarish.feature.SameTypeSimilarity":
+        ("knn", "SameTypeSimilarity", ""),
+    "org.avenir.knn.FeatureCondProbJoiner":
+        ("knn", "FeatureCondProbJoiner", ""),
+    "org.avenir.knn.NearestNeighbor": ("knn", "NearestNeighbor", ""),
+    "org.avenir.cluster.AgglomerativeGraphical":
+        ("cluster", "AgglomerativeGraphical", ""),
 }
 
 
@@ -58,15 +68,15 @@ def main(argv: Optional[list] = None) -> int:
               "known jobs:\n  " + "\n  ".join(sorted(JOBS)), file=sys.stderr)
         return 2
     job_name, rest = argv[0], argv[1:]
-    clsname, prefix = resolve(job_name)
+    module, clsname, prefix = resolve(job_name)
     rest, device = _extract_device(rest)
     defines, positional = parse_cli_args(rest)
     if len(positional) < 2:
         print("expected <input path> <output path>", file=sys.stderr)
         return 2
     config = load_job_config(defines, prefix)
-    from .models import bayesian
-    job = getattr(bayesian, clsname)(config, device=device)
+    mod = importlib.import_module(f"{__package__}.models.{module}")
+    job = getattr(mod, clsname)(config, device=device)
     counters = job.run(positional[0], positional[1])
     print(counters.format(), file=sys.stderr)
     return 0

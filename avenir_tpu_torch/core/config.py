@@ -35,6 +35,11 @@ class JobConfig:
         v = self._raw(key)
         return default if v is self._MISSING else int(v)
 
+    def get_float(self, key: str,
+                  default: Optional[float] = None) -> Optional[float]:
+        v = self._raw(key)
+        return default if v is self._MISSING else float(v)
+
     def get_boolean(self, key: str, default: bool = False) -> bool:
         v = self._raw(key)
         if v is self._MISSING:
@@ -46,6 +51,9 @@ class JobConfig:
         if v is self._MISSING:
             raise KeyError(msg or f"missing required configuration parameter: {key}")
         return v
+
+    def must_float(self, key: str, msg: Optional[str] = None) -> float:
+        return float(self.must(key, msg))
 
     def field_delim_regex(self) -> str:
         return self.get("field.delim.regex", ",")

@@ -107,3 +107,10 @@ class CostBasedArbitrator:
         pos_cost = self.false_pos_cost * neg_prob + pos_prob
         return self.pos_class if pos_cost < neg_cost else self.neg_class
 
+    def classify(self, pos_prob: int) -> str:
+        """The kNN voter's single-probability form: positive above the
+        cost-weighted threshold (integer percent)."""
+        threshold = ((self.false_pos_cost * 100)
+                     // (self.false_pos_cost + self.false_neg_cost))
+        return self.pos_class if pos_prob > threshold else self.neg_class
+

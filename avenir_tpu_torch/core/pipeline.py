@@ -208,10 +208,12 @@ class ChunkTransfer:
         self._staging: dict = {}
         self._turn: dict = {}
 
-    def _slot(self, key, t: torch.Tensor):
+    def _slot(self, i: int, a: np.ndarray):
+        key = (i, a.shape, a.dtype.str)
         ring = self._staging.get(key)
         if ring is None:
-            ring = [[torch.empty(t.shape, dtype=t.dtype, pin_memory=True),
+            dtype = torch.from_numpy(np.empty(0, a.dtype)).dtype
+            ring = [[torch.empty(a.shape, dtype=dtype, pin_memory=True),
                      torch.cuda.Event()] for _ in range(self.SLOTS)]
             self._staging[key] = ring
             self._turn[key] = 0
@@ -224,14 +226,17 @@ class ChunkTransfer:
         n = arrs[0].shape[0]
         if any(a.shape[0] != n for a in arrs):
             raise ValueError("chunk arrays disagree on row count")
-        host = [torch.from_numpy(a) for a in arrs]
         if self.device.type != "cuda":
-            return tuple(host) + (None,)
+            # a read-only array (an mmapped cache chunk) is copied: a
+            # tensor must not alias memory it may not write
+            return tuple(torch.from_numpy(a if a.flags.writeable
+                                          else a.copy())
+                         for a in arrs) + (None,)
         out = []
-        for i, t in enumerate(host):
-            buf, event = self._slot((i, tuple(t.shape), t.dtype), t)
+        for i, a in enumerate(arrs):
+            buf, event = self._slot(i, a)
             event.synchronize()       # the previous copy out of buf is done
-            buf.copy_(t)
+            buf.numpy()[...] = a
             out.append(buf.to(self.device, non_blocking=True))
             event.record()
         return tuple(out) + (None,)

@@ -1,10 +1,11 @@
-"""Seeded telecom-churn rows: the port's copy of
-``avenir_tpu/datagen/generators.py::gen_telecom_churn``.
+"""Seeded datasets: the port's copies of the reference package's
+``gen_telecom_churn`` (``avenir_tpu/datagen/generators.py``) and the
+``blobs`` preset (``avenir_tpu/datagen/cli.py::_blobs``).
 
-The same seed gives the same rows as the reference package's generator
+The same seed gives the same rows as the reference package's generators
 (both draw from ``numpy.random.default_rng``).  Command line::
 
-    python -m avenir_tpu_torch.datagen telecom_churn N [--seed S] [--out FILE]
+    python -m avenir_tpu_torch.datagen telecom_churn|blobs N [--seed S] [--out FILE]
 """
 
 from __future__ import annotations
@@ -79,13 +80,27 @@ def gen_telecom_churn(n: int, seed: int = 42) -> List[List[str]]:
     return rows
 
 
-PRESETS = {"telecom_churn": gen_telecom_churn}
+def gen_blobs(n: int, seed: int = 41) -> List[List[str]]:
+    """Rows ``id,x,y,cls`` (resource/knn_classify/blobs.json): two
+    Gaussian blobs, class A around (0, 0) on even rows and class B around
+    (8, 8) on odd rows."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        c = "A" if i % 2 == 0 else "B"
+        cx = 0.0 if c == "A" else 8.0
+        rows.append([f"E{i}", f"{cx + rng.normal():.3f}",
+                     f"{cx + rng.normal():.3f}", c])
+    return rows
+
+
+PRESETS = {"telecom_churn": gen_telecom_churn, "blobs": gen_blobs}
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    usage = ("usage: python -m avenir_tpu_torch.datagen telecom_churn N "
-             "[--seed S] [--out FILE]")
+    usage = ("usage: python -m avenir_tpu_torch.datagen telecom_churn|blobs "
+             "N [--seed S] [--out FILE]")
     if not argv or argv[0] not in PRESETS:
         print(usage, file=sys.stderr)
         return 2

@@ -13,10 +13,18 @@ mode).  The model text format and every output byte are the reference's:
   products (float64, the strict-parity path) or a log-space sum
   (float32, the default), then arbitrates and writes one line per record.
 
+With ``ingest.cache.enable`` the first streamed training scan also
+writes the parse-once ingest cache (core.ingestcache), and later runs
+replay its mmapped matrices instead of parsing; the warm fold bins inside
+the count with kernel K2 (``ops.counting.feature_class_counts_rawbin``).
+
 Float32 matrix products never run here: the bin pick is a gather, which
-is exact, so TF32 cannot round it.  Not ported yet: text mode
-(``tabular.input=false``), the warm ingest-cache path, checkpoint/resume,
-row quarantine, the shared-scan FoldSpec, drift gauges and tracing spans.
+is exact, so TF32 cannot round it.  The float64 factors use XLA's float64
+``exp`` and the float32 log-space sums XLA's float32 ``log`` and its
+contracted multiply-adds (ops.xla_math), so the feature probabilities
+that ``output.feature.prob.only`` prints are the reference's bits.  Not
+ported yet: text mode (``tabular.input=false``), checkpoint/resume, row
+quarantine, the shared-scan FoldSpec, drift gauges and tracing spans.
 """
 
 from __future__ import annotations
@@ -35,7 +43,9 @@ from ..core.metrics import ConfusionMatrix, CostBasedArbitrator, Counters
 from ..core.schema import FeatureSchema
 from ..convert import predictor_tables_to_device
 from ..device import resolve_device
-from ..ops.counting import feature_class_counts, sharded_reduce
+from ..ops.counting import (feature_class_counts,
+                            feature_class_counts_rawbin, sharded_reduce)
+from ..ops.xla_math import exp_f64, fma_f32, log_f32
 
 _SQRT_2PI = math.sqrt(2.0 * math.pi)
 
@@ -98,6 +108,21 @@ def _nb_local(x, y, mask, n_class, max_bins, out=None):
     """The fold's ``local_fn``: one chunk's count table, added into
     ``out`` when given."""
     return feature_class_counts(x, y, n_class, max_bins, mask=mask, out=out)
+
+
+def _nb_local_rawbin(x, y, mask, n_class, max_bins, widths, out=None):
+    """The warm ingest-cache fold: ``x`` holds the cache's pre-bin raw
+    integers, binned inside the count (kernel K2 on the card)."""
+    return feature_class_counts_rawbin(x, y, n_class, max_bins, widths,
+                                       mask=mask, out=out)
+
+
+def rawbin_widths(enc: DatasetEncoder) -> Tuple[int, ...]:
+    """Per feature column, the divisor that turns the ingest cache's raw
+    integer into its bin: the bucket width, 1 for categorical codes (and
+    for continuous columns, whose raw entries are -1)."""
+    return tuple(int(f.bucketWidth) if f.is_bucket_width_defined() else 1
+                 for f in enc.feature_fields)
 
 
 def _host_moments(values: np.ndarray, y: np.ndarray, n_class: int,
@@ -244,8 +269,13 @@ class BayesianDistribution:
         bytes.  Count and class extents are capped from the schema and the
         first chunk; data that overflows a cap, a negative bin or an input
         the chunked encoder cannot take returns None, and the caller
-        re-runs the one-shot encode, so results always equal it."""
-        from ..core import pipeline
+        re-runs the one-shot encode, so results always equal it.
+
+        With the ingest cache enabled, a validated artifact for this input,
+        encoder, delimiter and ``chunk_rows`` is replayed instead
+        (``_train_warm``); on a miss this cold scan tees its encoded
+        chunks into a new artifact."""
+        from ..core import ingestcache, pipeline
         from ..core.binning import ChunkedEncodeUnsupported
 
         enc = DatasetEncoder(self.schema)
@@ -255,6 +285,15 @@ class BayesianDistribution:
         chunk_rows = self.config.pipeline_chunk_rows(row_bytes=4 * (F + 1))
         depth = self.config.pipeline_prefetch_depth()
         st = _NBStreamState(enc)
+
+        cache = ingestcache.IngestCache.from_config(self.config, in_path,
+                                                    enc, delim_in)
+        builder = None
+        if cache is not None:
+            scan = cache.load(chunk_rows)
+            if scan is not None:
+                return self._train_warm(scan, enc, st, counters, delim)
+            builder = cache.builder(chunk_rows)
         try:
             gen = enc.encode_path_chunks(in_path, delim_in,
                                          chunk_bytes=chunk_bytes,
@@ -270,13 +309,73 @@ class BayesianDistribution:
             def chunks():
                 for x, values, y, n in gen:
                     out = st.accept(x, values, y, n)
-                    if out is not None:
-                        yield out
+                    if out is None:
+                        continue
+                    if builder is not None:
+                        builder.add(x, values, y, n)
+                    yield out
 
             total = pipeline.streaming_fold(
                 chunks(), _nb_local,
                 static_args=(st.n_class_cap, st.bins_cap),
                 device=self.device, prefetch_depth=depth)
+        except ChunkedEncodeUnsupported:
+            if builder is not None:
+                builder.abort()
+            return None
+        if total is None:
+            if builder is not None:
+                builder.abort()
+            return None
+        if builder is not None:
+            builder.finish()
+        return self._streamed_model_lines(enc, st, total, counters, delim)
+
+    def _train_warm(self, scan, enc: DatasetEncoder, st: _NBStreamState,
+                    counters: Counters, delim: str) -> Optional[List[str]]:
+        """The warm half of ``_train_streamed``: replay the cache
+        artifact's recorded chunks off mmap, with no parse and no encode,
+        through the same stream state (caps, guards, host moments), so
+        every output byte equals the cold run's.  With the raw matrix
+        present and ``ingest.cache.fused`` on, the fold ships the pre-bin
+        integers and bins inside the count (``_nb_local_rawbin``);
+        otherwise it folds the stored binned matrix with ``_nb_local``."""
+        from ..core import ingestcache, pipeline
+        from ..core.binning import ChunkedEncodeUnsupported
+
+        scan.seed_encoder(enc)
+        depth = self.config.pipeline_prefetch_depth()
+        use_raw = (scan.xraw is not None and self.config.get_boolean(
+            ingestcache.KEY_CACHE_FUSED, True))
+        sl0 = scan.chunk_slice(0)
+        if sl0 is None:
+            return None
+        st.size_caps(np.asarray(sl0[0]))
+
+        def chunks():
+            for item in scan.chunks(with_raw=use_raw):
+                if use_raw:
+                    xraw, x, values, y, n, _ = item
+                else:
+                    x, values, y, n, _ = item
+                out = st.accept(x, values, y, n)
+                if out is None:
+                    continue
+                xs, ys = out
+                yield (xraw, ys) if use_raw else (xs, ys)
+
+        try:
+            if use_raw:
+                total = pipeline.streaming_fold(
+                    chunks(), _nb_local_rawbin,
+                    static_args=(st.n_class_cap, st.bins_cap,
+                                 rawbin_widths(enc)),
+                    device=self.device, prefetch_depth=depth)
+            else:
+                total = pipeline.streaming_fold(
+                    chunks(), _nb_local,
+                    static_args=(st.n_class_cap, st.bins_cap),
+                    device=self.device, prefetch_depth=depth)
         except ChunkedEncodeUnsupported:
             return None
         if total is None:
@@ -556,7 +655,7 @@ class BayesianPredictor:
             mean = params[..., 0]
             std = params[..., 1].clamp_min(1e-9)
             z = (v - mean) / std
-            return torch.exp(-0.5 * z * z) / (std * _SQRT_2PI)
+            return exp_f64(-0.5 * z * z) / (std * _SQRT_2PI)
 
         prior_f = torch.where(is_cont[None, :],
                               gauss(values, gauss_prior[None, :, :]),
@@ -602,7 +701,9 @@ class BayesianPredictor:
             mean = params[..., 0]
             std = params[..., 1].clamp_min(1e-9)
             z = (v - mean) / std
-            return -0.5 * z * z - torch.log(std) - half_log_2pi
+            # -0.5*z*z - log(std) with the multiply and the subtract in
+            # one rounding, as XLA's backend contracts them
+            return fma_f32(z, z * -0.5, -log_f32(std)) - half_log_2pi
 
         tiny = 1e-30
         prior_pick = prior[cols[None, :], xc]                           # [n, F]
@@ -610,14 +711,14 @@ class BayesianPredictor:
                          cols[None, None, :], xc[:, None, :]]          # [n, C, F]
         lprior_f = torch.where(
             is_cont[None, :], log_gauss(values, gauss_prior[None, :, :]),
-            torch.log(prior_pick.clamp_min(tiny)))
+            log_f32(prior_pick.clamp_min(tiny)))
         lfeat_prior = _sum_last(lprior_f)                               # [n]
         lpost_f = torch.where(
             is_cont[None, None, :],
             log_gauss(values[:, None, :], gauss_post[None]),
-            torch.log(post_pick.clamp_min(tiny)))
+            log_f32(post_pick.clamp_min(tiny)))
         lfeat_post = _sum_last(lpost_f)                                 # [n, C]
-        lratio = (lfeat_post + torch.log(class_prior)[None, :]
+        lratio = (lfeat_post + log_f32(class_prior)[None, :]
                   - lfeat_prior[:, None])
         probs = _java_int32(torch.exp(lratio) * 100)
         # a true zero posterior factor must give probability 0, as the
@@ -626,12 +727,13 @@ class BayesianPredictor:
         post_zero = ((~is_cont)[None, None, :] & (post_pick <= 0)).any(dim=2)
         prior_zero = ((~is_cont)[None, :] & (prior_pick <= 0)).any(dim=1)
         probs = torch.where(post_zero, torch.zeros_like(probs), probs)
-        # the feature probabilities exponentiate in float64: tail products
-        # below ~1e-38 would flush to 0 in float32
+        # the feature probabilities exponentiate in float64 (tail products
+        # below ~1e-38 would flush to 0 in float32), with XLA's exp: they
+        # are printed as they are in prob-only mode
         zero = torch.zeros((), dtype=torch.float64, device=dev)
         return (probs,
-                torch.where(prior_zero, zero, torch.exp(lfeat_prior.double())),
-                torch.where(post_zero, zero, torch.exp(lfeat_post.double())))
+                torch.where(prior_zero, zero, exp_f64(lfeat_prior.double())),
+                torch.where(post_zero, zero, exp_f64(lfeat_post.double())))
 
     @staticmethod
     def log_oracle(x, values, post, prior, gauss_post, gauss_prior,

@@ -1,1 +1,2 @@
-"""The port's compute engine: counting on one device and its kernels."""
+"""The port's compute engine on one device: counting, distances and
+their kernels."""

@@ -13,6 +13,7 @@ import shutil
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -221,14 +222,9 @@ def test_score_batch_matches_reference(runbook, kind):
     p64, pprior, ppost = tb.BayesianPredictor._score_batch(*args)
     np.testing.assert_array_equal(p64.numpy(), np.asarray(j64))
     # feature probabilities: the same float64 products in the same order,
-    # but XLA's CPU float64 exp is not numpy's or torch's (they agree with
-    # each other bit for bit; XLA's differs by an ulp on some inputs), so
-    # each Gaussian factor may carry one ulp: 1e-14 relative covers 24
-    # factors of 2^-53 each
-    np.testing.assert_allclose(pprior.numpy(), np.asarray(jprior),
-                               rtol=1e-14, atol=0)
-    np.testing.assert_allclose(ppost.numpy(), np.asarray(jpost),
-                               rtol=1e-14, atol=0)
+    # with the port's bit-exact copy of XLA's float64 exp (ops.xla_math)
+    np.testing.assert_array_equal(pprior.numpy(), np.asarray(jprior))
+    np.testing.assert_array_equal(ppost.numpy(), np.asarray(jpost))
 
     p32, fprior32, fpost32 = tb.BayesianPredictor._score_batch_f32(*args)
     post, prior, gpost, gprior, class_prior, is_cont = tables
@@ -315,3 +311,112 @@ def test_cli_runbook_cpu(runbook, tmp_path):
          "bp.score.precision": "float64"}, "bp")).run(str(runbook / "test"),
                                                       str(want))
     assert _read(tmp_path / "pred") == _read(want)
+
+
+# ---------------------------------------------------------------------------
+# XLA's float math: the feature probabilities printed by prob-only mode
+# ---------------------------------------------------------------------------
+
+def _bits_equal(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    same = got.view(np.uint8).reshape(got.shape + (-1,)) == \
+        want.view(np.uint8).reshape(want.shape + (-1,))
+    return same.all(-1) | (np.isnan(got) & np.isnan(want))
+
+
+def test_exp_f64_matches_xla_bit_for_bit():
+    """1.2M seeded inputs over the whole finite range, and the edges."""
+    import jax
+
+    from avenir_tpu_torch.ops import xla_math
+
+    rng = np.random.default_rng(7)
+    lo, hi = xla_math._LO, xla_math._HI
+    edges = [0.0, -0.0, np.inf, -np.inf, np.nan, 1.0, -1.0, 1e-300,
+             -745.2, 709.9]
+    for v in (lo, hi):
+        edges += [v, np.nextafter(v, -np.inf), np.nextafter(v, np.inf)]
+    x = np.concatenate([rng.uniform(-745, 709, 1_000_000),
+                        rng.uniform(-50, 5, 200_000), edges])
+    want = np.asarray(jax.jit(jnp.exp)(x))
+    got = xla_math.exp_f64(torch.from_numpy(x)).numpy()
+    assert _bits_equal(got, want).all()
+    with np.errstate(over="ignore"):
+        assert not _bits_equal(np.exp(x), want).all()  # libm is not XLA's
+
+
+def test_log_f32_and_fma_f32_match_xla_bit_for_bit():
+    import jax
+
+    from avenir_tpu_torch.ops import xla_math
+
+    rng = np.random.default_rng(8)
+    x = np.concatenate([
+        (10.0 ** rng.uniform(-45, 38.5, 500_000)).astype(np.float32),
+        rng.uniform(0.4, 1.6, 200_000).astype(np.float32),
+        np.float32([0, -0.0, np.inf, -np.inf, np.nan, -1, 1e-45, 1e-40,
+                    1.17549435e-38, 1, 2, 0.5, 3.4e38])])
+    want = np.asarray(jax.jit(jnp.log)(x))
+    assert _bits_equal(xla_math.log_f32(torch.from_numpy(x)).numpy(),
+                       want).all()
+    # XLA's backend contracts a*b+c into one FMA
+    a, b, c = (rng.standard_normal(300_000).astype(np.float32)
+               for _ in range(3))
+    want = np.asarray(jax.jit(lambda a, b, c: a * b + c)(a, b, c))
+    got = xla_math.fma_f32(*map(torch.from_numpy, (a, b, c))).numpy()
+    assert _bits_equal(got, want).all()
+
+
+@pytest.mark.parametrize("F,n_cont", [(2, 2), (6, 1), (13, 13)])
+def test_f32_feature_probabilities_match_reference(F, n_cont):
+    """The float32 scorer's float64 feature probabilities are the
+    reference's bits (XLA sums rows of up to 13 features left to right;
+    wider rows are ROADMAP queue 3's residue)."""
+    rng = np.random.default_rng(F)
+    n, C, B = 3000, 2, 7
+    x = rng.integers(0, B, (n, F)).astype(np.int32)
+    values = rng.uniform(-20, 120, (n, F))
+    post = 10.0 ** rng.uniform(-4, 0, (C, F, B))
+    prior = 10.0 ** rng.uniform(-4, 0, (F, B))
+    gpost = np.stack([rng.integers(0, 60, (C, F)).astype(float),
+                      rng.integers(0, 9, (C, F)).astype(float)], -1)
+    gprior = np.stack([rng.integers(0, 60, F).astype(float),
+                       rng.integers(0, 9, F).astype(float)], -1)
+    tables = (post, prior, gpost, gprior, rng.dirichlet(np.ones(C)),
+              np.arange(F) < n_cont)
+    _, jprior, jpost = jax.jit(jb.BayesianPredictor._score_batch_f32)(
+        *map(jnp.asarray, (x, values) + tables))
+    _, pprior, ppost = tb.BayesianPredictor._score_batch_f32(
+        torch.from_numpy(x), torch.from_numpy(values),
+        *convert.predictor_tables_to_device(tables, CPU))
+    np.testing.assert_array_equal(pprior.numpy(), np.asarray(jprior))
+    np.testing.assert_array_equal(ppost.numpy(), np.asarray(jpost))
+
+
+@pytest.mark.parametrize("precision", ["float32", "float64"])
+def test_prob_only_output_byte_identical(runbook, tmp_path, precision):
+    """``output.feature.prob.only`` prints the raw float64 feature
+    probabilities: the same bytes as the reference, on the churn runbook
+    (one Gaussian column) and on the kNN runbook's blobs (two)."""
+    blobs = str(tmp_path / "blobs")
+    os.makedirs(blobs)
+    with open(os.path.join(blobs, "part-00000"), "w") as fh:
+        fh.write("\n".join(",".join(r)
+                           for r in datagen.gen_blobs(400, seed=5)) + "\n")
+    blobs_schema = os.path.join(REPO, "resource", "knn_classify",
+                                "blobs.json")
+    jb.BayesianDistribution(JaxConfig({
+        "feature.schema.file.path": blobs_schema})).run(
+        blobs, str(tmp_path / "blobs_model"))
+    for schema, model, data in (
+            (SCHEMA, str(runbook / "model_jax"), str(runbook / "test")),
+            (blobs_schema, str(tmp_path / "blobs_model"), blobs)):
+        cfg = {"feature.schema.file.path": schema,
+               "bayesian.model.file.path": model,
+               "output.feature.prob.only": "true",
+               "bp.score.precision": precision}
+        jb.BayesianPredictor(JaxConfig(dict(cfg), "bp")).run(
+            data, str(tmp_path / "jax"))
+        tb.BayesianPredictor(JobConfig(dict(cfg), "bp"), device="cpu").run(
+            data, str(tmp_path / "port"))
+        assert _read(tmp_path / "port") == _read(tmp_path / "jax"), schema
