@@ -20,9 +20,10 @@ the count with kernel K2 (``ops.counting.feature_class_counts_rawbin``).
 
 Float32 matrix products never run here: the bin pick is a gather, which
 is exact, so TF32 cannot round it.  The float64 factors use XLA's float64
-``exp`` and the float32 log-space sums XLA's float32 ``log`` and its
-contracted multiply-adds (ops.xla_math), so the feature probabilities
-that ``output.feature.prob.only`` prints are the reference's bits.  Not
+``exp`` and the float32 log-space sums XLA's float32 ``log``, its
+contracted multiply-adds (ops.xla_math) and its order of summation
+(``_sum_last``), so the feature probabilities that
+``output.feature.prob.only`` prints are the reference's bits.  Not
 ported yet: text mode (``tabular.input=false``), checkpoint/resume, row
 quarantine, the shared-scan FoldSpec, drift gauges and tracing spans.
 """
@@ -96,12 +97,78 @@ def _prod_last(t: torch.Tensor) -> torch.Tensor:
     return p
 
 
-def _sum_last(t: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis, left to right."""
-    s = t[..., 0]
-    for k in range(1, t.shape[-1]):
-        s = s + t[..., k]
+def _sum_seq(t: torch.Tensor, s: Optional[torch.Tensor] = None
+             ) -> torch.Tensor:
+    """``s`` plus the columns of ``t``, left to right."""
+    for k in range(t.shape[-1]):
+        s = t[..., k] if s is None else s + t[..., k]
     return s
+
+
+def _sum_tree(v: torch.Tensor) -> torch.Tensor:
+    """A horizontal vector sum as x86 lowers LLVM's reassociating
+    ``vector.reduce.fadd``: lane i + lane i + w/2, halving w to 1."""
+    while v.shape[-1] > 1:
+        h = v.shape[-1] // 2
+        v = v[..., :h] + v[..., h:]
+    return v[..., 0]
+
+
+def _sum_lanes(t: torch.Tensor, vf: int, steps: int) -> torch.Tensor:
+    """``steps`` vector iterations of width ``vf`` over the first
+    ``vf * steps`` columns (lane i takes columns i, i + vf, ...), then the
+    horizontal sum."""
+    acc = t[..., :vf]
+    for j in range(1, steps):
+        acc = acc + t[..., j * vf:(j + 1) * vf]
+    return _sum_tree(acc)
+
+
+def _sum_window(t: torch.Tensor) -> torch.Tensor:
+    """XLA CPU's fused float32 row sum of at most 32 columns: LLVM's loop
+    vectorizer on the fully unrolled column loop (AVX-512 host, 256-bit
+    preferred vectors), read from the optimized IR of
+    ``jax.jit(BayesianPredictor._score_batch_f32)`` at every width."""
+    F = t.shape[-1]
+    if F < 16:                          # not vectorized along the row
+        return _sum_seq(t)
+    if F < 20:
+        # one 16-wide step, then the rest left to right (the 2-wide
+        # epilogue step at 18 and 19 columns adds in that same order)
+        return _sum_seq(t[..., 16:], _sum_lanes(t, 16, 1))
+    if F < 24:
+        # four interleaved 4-wide parts over columns 0-15, folded
+        # ((p0 + p1) + p2) + p3; a 4-wide epilogue step whose lane 0
+        # starts from that sum; the rest left to right
+        s = _sum_lanes(t, 4, 4)
+        s = _sum_tree(torch.cat([(s + t[..., 16])[..., None],
+                                 t[..., 17:20]], dim=-1))
+        return _sum_seq(t[..., 20:], s)
+    if F < 32:                          # three 8-wide steps, then the rest
+        return _sum_seq(t[..., 24:], _sum_lanes(t, 8, 3))
+    return _sum_lanes(t, 16, 2)
+
+
+def _sum_last(t: torch.Tensor) -> torch.Tensor:
+    """Float32 sum over the last axis in the order of XLA CPU's fused
+    reduction, so the float32 scorer's log-sums are the reference's bits
+    on the card and on the CPU alike.  Up to 32 columns: ``_sum_window``.
+    Wider: XLA's tree-reduction rewrite, read from the optimized HLO: the
+    row is padded to a multiple of 32 (half the padding, rounded down, on
+    the left), each 32-wide window is summed left to right, and the window
+    sums are reduced as a row of their own.  Bit-checked against
+    ``jax.jit`` at every width from 1 to 64 and at several up to 1,030.
+    The vector widths are LLVM's choice for the host CPU that ran XLA;
+    another host may vectorize otherwise (ROADMAP, queue 3)."""
+    F = t.shape[-1]
+    if F <= 32:
+        return _sum_window(t)
+    width = -(-F // 32) * 32
+    lo = (width - F) // 2
+    bounds = list(range(32 - lo, F, 32))
+    wins = [_sum_seq(t[..., a:b])
+            for a, b in zip([0] + bounds, bounds + [F])]
+    return _sum_last(torch.stack(wins, dim=-1))
 
 
 def _nb_local(x, y, mask, n_class, max_bins, out=None):

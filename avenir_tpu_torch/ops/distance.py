@@ -8,8 +8,8 @@ mismatch), weight-averaged over the attributes and scaled to int by
 
 - the fused engine, kernel K3 (``ops.topk.fused_pairwise_topk``), which
   never materializes the ``[nq, nt]`` block; taken automatically on a
-  CUDA device within K3's own limits where the measured crossover says it
-  is faster (``ops.topk.k3_applicable``);
+  CUDA device within K3's own limits (``ops.topk.k3_applicable``: the
+  measured crossover has K3 faster at every shape);
 - the sorted engine: ``_block_dist`` on a block of query rows (the
   euclidean cross term is one ``torch.matmul``, which the reference left
   to XLA outside Pallas), then ``topk_smallest``.
@@ -177,7 +177,7 @@ def pairwise_distances(qnum: np.ndarray, qcat: np.ndarray,
             raise ValueError("fused top-k not supported for this shape; "
                              "use topk_method='exact'")
         if topk_method == "fused" or k3_applicable(
-                algorithm, k0, qnum.shape[0], nt, n_num, n_cat, device=dev):
+                algorithm, k0, n_num, n_cat, device=dev):
             qn, qc, tn, tc, wc = dev_args()
             vals, idxs, suspect = fused_pairwise_topk(
                 qn, qc, tn, tc, wc, wsum, scale, k0, algorithm=algorithm)

@@ -7,9 +7,11 @@ Run from the root of a checkout on a machine with one CUDA card::
 
 It builds the port's CUDA kernels from ``avenir_tpu_torch/csrc`` (one
 ``nvcc`` per source, all at once), holds each kernel against its plain
-PyTorch version on the card and times both (K3 also over a grid of small
-query and candidate counts, the crossover behind the fused engine's
-gate), then drives every ported path on the card and again on the CPU:
+PyTorch version on the card and times both (K3 at its split and unsplit
+routes and over a grid of query and candidate counts, the crossover behind
+the fused engine's gate; the merge of K3's candidate segments at the main
+path's segment lists), then drives every ported path on the card and
+again on the CPU:
 
 1. telecom-churn Naive Bayes at the repo's benchmark size (50,000 seeded
    rows repeated to 2,000,000; the first 1.6M train in 131,072-row chunks,
@@ -20,8 +22,8 @@ gate), then drives every ported path on the card and again on the CPU:
    time with XLA's float math against torch's exp/log);
 2. the kNN classification job at the width of the repo's kNN benchmark
    (16,384 training and 16,384 test rows of 256 numeric features,
-   ``output.top.matches=16``, kernel K3), then top-16 voting, through
-   ``avenir_tpu_torch.cli.main``;
+   ``output.top.matches=16``, kernel K3 and its segment merge), then
+   top-16 voting, through ``avenir_tpu_torch.cli.main``;
 3. the ``resource/knn_classify/run.sh`` sequence at its 120-row size.
 
 Kernel counts are set to 0 just before each path and read just after.
@@ -58,6 +60,10 @@ COUNT_KERNEL = ("avenir_tpu_torch/csrc/histogram.cu",
                 "avenir_tpu/ops/pallas_count.py:53")
 TOPK_KERNEL = ("avenir_tpu_torch/csrc/topk.cu",
                "avenir_tpu/ops/pallas_topk.py:226")
+# the merge of K3's candidate segments: on the TPU the segments' lists
+# were merged outside the Pallas kernel by _lex_merge (pallas_topk.py:402)
+MERGE_KERNEL = ("avenir_tpu_torch/csrc/topk.cu",
+                "avenir_tpu/ops/pallas_topk.py:402")
 
 BASE_ROWS, TOTAL_ROWS, TRAIN_ROWS = 50_000, 2_000_000, 1_600_000
 CHUNK_ROWS = 131_072
@@ -318,13 +324,14 @@ def topk_uniform(torch, nq, nt, F, C, seed, cat_w=None):
 
 
 def topk_cases(torch):
-    """``(tag, algorithm, k, exact, sample, make)`` for every shape K3 is
-    held at.  ``make`` gives weight-folded operands on the card
+    """``(tag, algorithm, k, exact, sample, make, split)`` for every shape
+    K3 is held at.  ``make`` gives weight-folded operands on the card
     ``(qn, qc, tn, tc, cat_w, wsum)``; ``exact`` where the arithmetic is
     exact (integer-valued or duplicated inputs, pure categorical, the
     left-to-right manhattan sum) or the tolerance of bench.py:1136-1156
     applies; ``sample`` compares only the first rows with the plain
-    version."""
+    version; ``split`` forces the number of candidate segments (None:
+    ``ops.topk.k3_plan``'s choice)."""
     def gen(seed):
         return torch.Generator(device="cuda").manual_seed(seed)
 
@@ -357,22 +364,26 @@ def topk_cases(torch):
 
     return [
         ("main path: the kNN job's shape, bench.py:1119", "euclidean",
-         KNN_K, False, None, uniform(KNN_ROWS, KNN_ROWS, KNN_F, 0, 1)),
+         KNN_K, False, None, uniform(KNN_ROWS, KNN_ROWS, KNN_F, 0, 1), None),
+        ("one segment (forced) at the main path's shape", "euclidean", KNN_K,
+         False, None, uniform(KNN_ROWS, KNN_ROWS, KNN_F, 0, 1), 1),
+        ("split axis at a small query count", "euclidean", KNN_K, False,
+         None, uniform(64, 65536, KNN_F, 0, 9), None),
         ("mixed numeric + 4 weighted categorical", "euclidean", 9, False,
-         None, uniform(4096, 65536, 32, 4, 2, [0.5, 1.0, 1.5, 2.0])),
+         None, uniform(4096, 65536, 32, 4, 2, [0.5, 1.0, 1.5, 2.0]), None),
         ("manhattan", "manhattan", 16, True, None,
-         uniform(4096, 16384, 64, 0, 3)),
+         uniform(4096, 16384, 64, 0, 3), None),
         ("pure categorical", "euclidean", 5, True, None,
          uniform(4096, 65536, 0, 8, 4, [0.5, 0.75, 1.0, 1.25, 1.5, 1.75,
-                                        2.0, 3.0])),
+                                        2.0, 3.0]), None),
         ("k=64", "euclidean", 64, False, None,
-         uniform(2048, KNN_ROWS, KNN_F, 0, 5)),
+         uniform(2048, KNN_ROWS, KNN_F, 0, 5), None),
         ("duplicated candidate rows (ties)", "euclidean", 32, True, None,
-         ties),
+         ties, None),
         ("stride-128 adversarial layout", "euclidean", 8, True, None,
-         adversarial),
+         adversarial, None),
         ("segmented axis, bench.py:1244", "euclidean", KNN_K, False, 256,
-         uniform(2048, 1_050_000, 64, 0, 7)),
+         uniform(2048, 1_050_000, 64, 0, 7), None),
     ]
 
 
@@ -424,15 +435,17 @@ def topk_agree(torch, got, want, ops, algorithm, exact, label):
     return err, rows.numel()
 
 
-def run_topk_case(torch, topk, tag, algorithm, k, exact, sample, make
-                  ) -> dict:
+def run_topk_case(torch, topk, tag, algorithm, k, exact, sample, make,
+                  split=None) -> dict:
     """Hold K3 against its plain version, time both and the cross term's
     ``torch.matmul`` (a partial floor: the product alone), and compute
     the bound."""
     qn, qc, tn, tc, cw, wsum = make()
     nq, nt, F, C = qn.shape[0], tn.shape[0], qn.shape[1], qc.shape[1]
+    bm, splits, _ = topk.k3_plan(nq, nt, torch.cuda.get_device_properties(
+        0).multi_processor_count, split)
     kern = lambda: topk.fused_pairwise_topk(qn, qc, tn, tc, cw, wsum, 1000,
-                                            k, algorithm)
+                                            k, algorithm, split=split)
     ns = sample or nq
     plain = lambda: topk.plain_pairwise_topk(qn[:ns], qc[:ns], tn, tc, cw,
                                              wsum, 1000, k, algorithm)
@@ -451,11 +464,15 @@ def run_topk_case(torch, topk, tag, algorithm, k, exact, sample, make
     matmul_ms = (time_ms(torch, lambda: torch.matmul(qn, tn.T), reps)
                  if F and algorithm == "euclidean" and nq * nt <= 1 << 28
                  else None)
-    per_pair = (2 if algorithm == "euclidean" else 3) * F + 2 * C
+    # per numeric column: an FMA (2 ops) for euclidean; for manhattan an
+    # FADD for the difference and an FADD with |.|, two lane instructions
+    # at half the 67 TFLOP/s "FMA = 2 ops" rate, so 4 ops
+    per_pair = (2 if algorithm == "euclidean" else 4) * F + 2 * C
     bound_ms, bound_by = bound(
         4 * ((nq + nt) * (F + C) + C) + 8 * nq * k, per_pair * nq * nt)
     sample_note = f", plain on the first {ns} rows" if sample else ""
-    log(f"K3 [{tag}]: nq={nq} nt={nt} F={F} C={C} k={k} {algorithm}: "
+    log(f"K3 [{tag}]: nq={nq} nt={nt} F={F} C={C} k={k} {algorithm}, "
+        f"{bm}-row query tiles x {splits} candidate segments: "
         f"max abs err {err}, rows that differ {rows}/{ns}, suspect rows "
         f"{n_suspect}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
         f"{sample_note}, bound {bound_ms:.4f} ms ({bound_by}), "
@@ -466,13 +483,58 @@ def run_topk_case(torch, topk, tag, algorithm, k, exact, sample, make
     del qn, qc, tn, tc, v, i, pv, pi
     torch.cuda.empty_cache()
     return {"name": f"K3 fused_pairwise_topk [{tag}: nq={nq} nt={nt} F={F} "
-                    f"C={C} k={k} {algorithm}{sample_note}]",
+                    f"C={C} k={k} {algorithm}, S={splits}{sample_note}]",
             "route": "cuda", "source": TOPK_KERNEL[0],
             "replaces": TOPK_KERNEL[1], "kid": "K3",
             "launches": 0, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "matmul_ms": matmul_ms,
-            "rows_differ": rows, "suspect_rows": n_suspect}
+            "rows_differ": rows, "suspect_rows": n_suspect,
+            "bm": bm, "splits": splits}
+
+
+def run_merge_case(torch, topk, card) -> dict:
+    """The merge kernel at the main path's shape: the segment lists that
+    K3's plan gives the kNN job's 16,384 x 16,384 x 256 call, made by the
+    plain version on each segment, merged by the kernel and by its plain
+    version (exact: the keys are unique); timed beside ``torch.topk`` over
+    the lists laid side by side (the library yardstick, without the int32
+    split)."""
+    qn, qc, tn, tc, cw, wsum = topk_uniform(torch, KNN_ROWS, KNN_ROWS,
+                                            KNN_F, 0, 1)()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    _, splits, per = topk.k3_plan(KNN_ROWS, KNN_ROWS, sms)
+    keys = topk.plain_segment_keys(
+        qn, qc, tn, tc, cw, wsum, 1000, KNN_K,
+        topk.segment_bounds(KNN_ROWS, splits, per))
+    del qn, qc, tn, tc
+    got = topk.merge_topk_lists(keys)
+    want = topk.plain_merge_topk(keys)
+    torch.cuda.synchronize()
+    err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+    if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"merge kernel differs from its plain version "
+                             f"(max abs err {err})")
+    ms = time_ms(torch, lambda: topk.merge_topk_lists(keys), 50)
+    plain_ms = time_ms(torch, lambda: topk.plain_merge_topk(keys), 20)
+    flat = keys.permute(1, 0, 2).reshape(KNN_ROWS, -1).contiguous()
+    library_ms = time_ms(torch, lambda: torch.topk(
+        flat, KNN_K, dim=1, largest=False, sorted=True), 20)
+    n = splits * KNN_ROWS * KNN_K
+    bound_ms, bound_by = bound(8 * n + 8 * KNN_ROWS * KNN_K, 0)
+    log(f"K3 merge kernel [main path's segments: S={splits} nq={KNN_ROWS} "
+        f"k={KNN_K}]: exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"torch.topk {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}) [{card}]")
+    del keys, flat
+    torch.cuda.empty_cache()
+    return {"name": f"K3 merge_topk_lists [main path's segments: S={splits} "
+                    f"nq={KNN_ROWS} k={KNN_K}]",
+            "route": "cuda", "source": MERGE_KERNEL[0],
+            "replaces": MERGE_KERNEL[1], "kid": "K3merge",
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 CROSSOVER_NQ = (64, 1024, 4096, KNN_ROWS)
@@ -500,9 +562,8 @@ def k3_crossover(torch, topk, entries, card) -> None:
         f"nt={nt}: " + ", ".join(f"nq={nq} {ratio[nq, nt]:.2f}x"
                                  for nq in CROSSOVER_NQ)
         for nt in CROSSOVER_NT)
-    agree = sum(topk.k3_applicable("euclidean", KNN_K, nq, nt, KNN_F, 0,
-                                   "cuda") == (r > 1)
-                for (nq, nt), r in ratio.items())
+    agree = sum(topk.k3_applicable("euclidean", KNN_K, KNN_F, 0, "cuda")
+                == (r > 1) for r in ratio.values())
     log(f"K3 vs the sorted engine (plain ms / K3 ms, F={KNN_F}, k={KNN_K}; "
         f"above 1: K3 faster): {rows}; the engine gate (ops.topk."
         f"k3_applicable) picks the faster engine at {agree} of "
@@ -867,15 +928,17 @@ def knn_paths(torch, topk, card) -> dict:
     topk.reset_launch_counts()
     text, dist_s = job("SameTypeSimilarity", sim, inp,
                        os.path.join(d, "simi_cuda"), "cuda")
-    launches = {"K3": topk.K3_LAUNCHES}
+    launches = {"K3": topk.K3_LAUNCHES, "K3merge": topk.MERGE_LAUNCHES}
     fused = counter(text, "Distance", "Fused engine calls")
     reresolved = counter(text, "Distance", "Re-resolved rows")
-    log(f"kNN distance job launches: K3 {launches['K3']}; fused engine "
-        f"calls {fused}; suspect rows re-resolved by the sorted engine "
-        f"{reresolved}")
+    log(f"kNN distance job launches: K3 {launches['K3']}, merge "
+        f"{launches['K3merge']}; fused engine calls {fused}; suspect rows "
+        f"re-resolved by the sorted engine {reresolved}")
     if launches["K3"] < 1 or launches["K3"] != fused:
         raise AssertionError(f"K3 launched {launches['K3']} times for "
                              f"{fused} fused-engine calls")
+    if launches["K3merge"] < 1:
+        raise AssertionError("the kNN job's K3 call merged no segments")
     text_cpu, dist_cpu_s = job("SameTypeSimilarity", sim, inp,
                                os.path.join(d, "simi_cpu"), "cpu")
     if counter(text_cpu, "Basic", "Pairs emitted") != KNN_ROWS * KNN_K:
@@ -935,7 +998,8 @@ def knn_breakdown(torch, inp, sim, d, card) -> None:
         torch, lambda: run_job(["SameTypeSimilarity", f"-Dconf.path={sim}",
                                 inp, os.path.join(d, "simi_profiled"),
                                 "--device", "cuda"]),
-        {"K3 kernel": "topk_kernel"})
+        {"K3 kernel": "topk_kernel", "K3 layout prologue": "layout_kernel",
+         "K3 merge kernel": "merge_kernel"})
     log(f"kNN distance job breakdown: host parse + encode alone "
         f"{encode_s:.3f} s of a {wall_s:.3f} s profiled run [{card}]")
     report_device(by_kind, wall_s, "K3 kernel", card)
@@ -1033,6 +1097,7 @@ def main() -> int:
                histogram_cases(torch, main_path_chunk(train_dir))]
     for case in topk_cases(torch):
         entries.append(run_topk_case(torch, topk, *case))
+    entries.append(run_merge_case(torch, topk, card))
     k3_crossover(torch, topk, entries, card)
 
     # -- the main paths, on the card and on the CPU --------------------------

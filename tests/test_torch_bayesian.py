@@ -162,14 +162,15 @@ def test_predictor_runbook_outputs(runbook, tmp_path, precision):
     assert viol["n_healthy"] > 0
 
 
-def _tables_case(kind):
+def _tables_case(kind, F=24, C=2, n_cont=3):
     """(x, values, post, prior, gauss_post, gauss_prior, class_prior,
-    is_cont) for the scoring cases."""
+    is_cont) for the scoring cases; ``tails`` at ``F`` features, ``C``
+    classes and ``n_cont`` Gaussian columns."""
     rng = np.random.default_rng({"tails": 17, "unseen": 5}[kind])
     if kind == "tails":
-        # posteriors log-uniform over [1e-4, 1) over 24 features and
-        # Gaussian columns deep in the tail: products far outside f32
-        n, F, C, B = 512, 24, 2, 10
+        # posteriors log-uniform over [1e-4, 1) and Gaussian columns deep
+        # in the tail: products far outside f32
+        n, B = 512, 10
         x = rng.integers(0, B, (n, F)).astype(np.int32)
         values = rng.uniform(0, 100, (n, F))
         post = 10.0 ** rng.uniform(-4, 0, (C, F, B))
@@ -178,9 +179,8 @@ def _tables_case(kind):
                                rng.uniform(1, 8, (C, F))], -1)
         gauss_prior = np.stack([rng.uniform(10, 50, F),
                                 rng.uniform(1, 8, F)], -1)
-        class_prior = np.asarray([0.9, 0.1])
-        is_cont = np.zeros(F, bool)
-        is_cont[-3:] = True
+        class_prior = np.asarray({2: [0.9, 0.1], 3: [0.85, 0.1, 0.05]}[C])
+        is_cont = np.arange(F) >= F - n_cont
     else:
         # a bin never observed in training: zero posterior and prior
         n, F, C, B = 64, 4, 2, 6
@@ -370,8 +370,8 @@ def test_log_f32_and_fma_f32_match_xla_bit_for_bit():
 @pytest.mark.parametrize("F,n_cont", [(2, 2), (6, 1), (13, 13)])
 def test_f32_feature_probabilities_match_reference(F, n_cont):
     """The float32 scorer's float64 feature probabilities are the
-    reference's bits (XLA sums rows of up to 13 features left to right;
-    wider rows are ROADMAP queue 3's residue)."""
+    reference's bits on rows XLA sums left to right (up to 15 features;
+    wider rows: ``test_f32_wide_row_sums_match_reference``)."""
     rng = np.random.default_rng(F)
     n, C, B = 3000, 2, 7
     x = rng.integers(0, B, (n, F)).astype(np.int32)
@@ -391,6 +391,25 @@ def test_f32_feature_probabilities_match_reference(F, n_cont):
         *convert.predictor_tables_to_device(tables, CPU))
     np.testing.assert_array_equal(pprior.numpy(), np.asarray(jprior))
     np.testing.assert_array_equal(ppost.numpy(), np.asarray(jpost))
+
+
+@pytest.mark.parametrize("C", [2, 3])
+@pytest.mark.parametrize("n_cont", [0, 3], ids=["discrete", "gaussian"])
+@pytest.mark.parametrize("F", [14, 16, 17, 20, 23, 24, 31, 32, 33, 40, 48])
+def test_f32_wide_row_sums_match_reference(F, n_cont, C):
+    """The float32 scorer's feature probabilities on the ``tails`` tables
+    are the reference's bits at widths where XLA vectorizes the row's
+    log-sum (16-32 columns) or splits it into 32-wide windows (33 and
+    up): ``models.bayesian._sum_last`` follows that order."""
+    x, values, *tables = _tables_case("tails", F=F, C=C, n_cont=n_cont)
+    _, jprior, jpost = jax.jit(jb.BayesianPredictor._score_batch_f32)(
+        *map(jnp.asarray, [x, values] + tables))
+    _, pprior, ppost = tb.BayesianPredictor._score_batch_f32(
+        torch.from_numpy(x), torch.from_numpy(values),
+        *convert.predictor_tables_to_device(tables, CPU))
+    assert ppost.shape == (x.shape[0], C)
+    assert _bits_equal(pprior.numpy(), np.asarray(jprior)).all()
+    assert _bits_equal(ppost.numpy(), np.asarray(jpost)).all()
 
 
 @pytest.mark.parametrize("precision", ["float32", "float64"])

@@ -178,6 +178,103 @@ def test_adversarial_layout(weights, mesh1):
     assert jsus.all()
 
 
+# K3's split candidate axis: name -> (operands, k, algorithm, exact,
+# segment bounds [lo, hi) over the candidate rows)
+SPLIT_CASES = {
+    "S=1": (lambda: _rand(40, 700, 5, 2, seed=40), 8, "euclidean", False,
+            [(0, 700)]),
+    "S=2 manhattan": (lambda: _rand(40, 1100, 6, 2, seed=41), 9, "manhattan",
+                      False, [(0, 600), (600, 1100)]),
+    "S=7 short and empty segments": (
+        lambda: _rand(33, 900, 4, 1, seed=42), 16, "euclidean", False,
+        [(0, 0), (0, 5), (5, 300), (300, 300), (300, 310), (310, 800),
+         (800, 900)]),
+    "S=7 manhattan, short and empty segments": (
+        lambda: _rand(33, 900, 4, 1, seed=45), 16, "manhattan", False,
+        [(0, 5), (5, 5), (5, 128), (128, 256), (256, 260), (260, 900),
+         (900, 900)]),
+    "nt below k": (lambda: _rand(20, 12, 3, 1, seed=43), 20, "euclidean",
+                   False, [(0, 5), (5, 5), (5, 12)]),
+    "ties across segment borders": (
+        lambda: _repeat_candidates(_rand(30, 100, 4, 2, seed=44), 6), 8,
+        "euclidean", False, [(0, 3), (3, 303), (303, 600)]),
+    "integer-valued ties, manhattan": (
+        lambda: _repeat_candidates(_integer_valued(_rand(30, 90, 5, 2,
+                                                         seed=46)), 4),
+        12, "manhattan", True, [(0, 2), (2, 181), (181, 183), (183, 360)]),
+}
+
+
+@pytest.mark.parametrize("name", list(SPLIT_CASES))
+def test_split_path_matches_unsplit_and_reference(name, mesh1):
+    """The plain version of K3's split path (``plain_pairwise_topk`` per
+    segment, then the merge kernel's plain version) equals the unsplit
+    plain version exactly, and the JAX package's fused engine (Pallas in
+    interpret mode) under the one-unit contract."""
+    make, k, algorithm, exact, bounds = SPLIT_CASES[name]
+    ops = make()
+    qf, tf, wsum = distance._fold_weights(ops[0], ops[2], ops[4], ops[5],
+                                          algorithm)
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in
+            (qf, ops[1], tf, ops[3], ops[5].astype(np.float32))]
+    sv, si = topk.plain_split_pairwise_topk(*args, wsum, 1000, k, bounds,
+                                            algorithm)
+    pv, pi, _ = topk.plain_pairwise_topk(*args, wsum, 1000, k, algorithm)
+    assert torch.equal(sv, pv) and torch.equal(si, pi)
+    kk = min(k, len(tf))
+    ref = jax_pairwise(*ops, top_k=kk, mesh=mesh1, topk_method="fused",
+                       algorithm=algorithm)
+    _agree((sv[:, :kk].numpy(), si[:, :kk].numpy()), ref, ops, algorithm,
+           exact=exact)
+    assert (sv[:, kk:] == 2 ** 31 - 1).all() and (si[:, kk:] == -1).all()
+
+
+def test_merge_of_sorted_key_lists():
+    """The merge kernel's plain version, and its wrapper on CPU tensors:
+    the k smallest unique keys of S sorted lists, empty slots last."""
+    rng = np.random.default_rng(9)
+    S, nq, k = 5, 7, 6
+    sent = np.iinfo(np.int64).max
+    keys = np.full((S, nq, k), sent, np.int64)
+    for s in range(S):
+        for r in range(nq):
+            n = rng.integers(0, k + 1)                 # short and empty lists
+            idx = rng.choice(1000, n, replace=False) + 1000 * s
+            v = rng.integers(0, 5, n)                  # ties across lists
+            keys[s, r, :n] = np.sort((v << 32) | idx)
+    v, i = topk.plain_merge_topk(torch.from_numpy(keys))
+    flat = np.sort(keys.transpose(1, 0, 2).reshape(nq, -1), axis=1)[:, :k]
+    empty = flat == sent
+    np.testing.assert_array_equal(v.numpy(),
+                                  np.where(empty, 2 ** 31 - 1, flat >> 32))
+    np.testing.assert_array_equal(i.numpy(),
+                                  np.where(empty, -1, flat & 0xFFFFFFFF))
+    for got, want in zip(topk.merge_topk_lists(torch.from_numpy(keys)),
+                         (v, i)):
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError):
+        topk.merge_topk_lists(torch.from_numpy(keys).int())
+
+
+@pytest.mark.parametrize("nq,nt,split,want", [
+    (16384, 16384, None, (128, 3, 43)),     # the kNN job: 128 query tiles
+    (64, 65536, None, (64, 256, 2)),        # one query tile: a split axis
+    (2048, 1_050_000, None, (128, 33, 249)),  # 528 blocks: 4 whole waves
+    (4096, 16384, None, (128, 12, 11)),
+    (64, 65536, 1, (64, 1, 512)),           # forced unsplit
+    (64, 1000, None, (64, 8, 1)),           # no more segments than tiles
+    (40000, 2048, None, (128, 1, 16)),      # enough query tiles alone
+    (10, 0, None, (64, 1, 0)),
+])
+def test_k3_plan(nq, nt, split, want):
+    bm, splits, per = topk.k3_plan(nq, nt, 132, split)
+    assert (bm, splits, per) == want
+    bounds = topk.segment_bounds(nt, splits, per)
+    assert bounds[0][0] == 0 and bounds[-1][1] == nt
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert all(hi > lo for lo, hi in bounds) or nt == 0
+
+
 def test_suspect_rows_reresolve_with_unfolded_operands(monkeypatch):
     """Rows the fused engine flags go through the sorted engine with the
     unfolded operands (a folded tnum would apply the weights twice), and
@@ -293,29 +390,32 @@ def test_gates_match_reference():
     (("cosine", 16, 16384, 8, 0, 1000), False),
 ])
 def test_k3_gate_uses_the_kernels_own_limits(args, want):
-    alg, k, nt, n_num, n_cat, scale = args
-    nq = 1 << 16                    # past the crossover at every width
+    alg, k, _, n_num, n_cat, _ = args
     assert topk.k3_supported(alg, k, n_num, n_cat) == want
-    assert topk.k3_applicable(alg, k, nq, nt, n_num, n_cat, "cuda") == want
-    assert not topk.k3_applicable(alg, k, nq, nt, n_num, n_cat, "cpu")
+    assert topk.k3_applicable(alg, k, n_num, n_cat, "cuda") == want
+    assert not topk.k3_applicable(alg, k, n_num, n_cat, "cpu")
 
 
 # (nq, nt, F, k, K3 measured faster): chip_smoke.py's crossover grid and
-# kernel shapes on an H100 (PERF.md, the K3 engine crossover)
+# kernel shapes on an H100 (PERF.md, the K3 engine crossover): K3 is the
+# faster engine at every point, so the gate takes it wherever it fits
 @pytest.mark.parametrize("nq,nt,F,k,faster", [
-    (64, 256, 256, 16, True), (64, 2048, 256, 16, False),
-    (64, 65536, 256, 16, False), (1024, 256, 256, 16, True),
-    (1024, 2048, 256, 16, False), (1024, 65536, 256, 16, False),
+    (64, 256, 256, 16, True), (64, 2048, 256, 16, True),
+    (64, 16384, 256, 16, True), (64, 65536, 256, 16, True),
+    (1024, 256, 256, 16, True), (1024, 2048, 256, 16, True),
+    (1024, 65536, 256, 16, True), (4096, 256, 256, 16, True),
     (4096, 2048, 256, 16, True), (4096, 65536, 256, 16, True),
     (16384, 2048, 256, 16, True), (16384, 65536, 256, 16, True),
-    (2048, 16384, 256, 64, False), (2048, 1_050_000, 64, 16, True),
+    (2048, 16384, 256, 64, True), (2048, 1_050_000, 64, 16, True),
     (1024, 65536, 2, 8, True), (4096, 16384, 64, 16, True),
     (4096, 65536, 0, 5, True),
 ])
 def test_k3_gate_follows_the_measured_crossover(nq, nt, F, k, faster):
     n_cat = 0 if F else 8
-    assert topk.k3_applicable("euclidean", k, nq, nt, F, n_cat,
-                              "cuda") == faster
+    assert topk.k3_applicable("euclidean", k, F, n_cat, "cuda") == faster
+    # the plan K3 runs such a shape with: whole segments, none empty
+    bm, splits, per = topk.k3_plan(nq, nt, 132)
+    assert splits * per * 128 >= nt > (splits - 1) * per * 128
 
 
 def test_forced_fused_errors_match_reference(mesh1):
