@@ -7,7 +7,10 @@ Run from the root of a checkout on a machine with one CUDA card::
 
 It builds the port's CUDA kernels from ``avenir_tpu_torch/csrc`` (one
 ``nvcc`` per source, all at once), holds each kernel against its plain
-PyTorch version on the card and times both (K3 at its split and unsplit
+PyTorch version on the card and times both (K1 and K2 at each of their
+table routes, with a hot-cell case and K2 over the whole int32 range, by
+call time, by the kernel's own device time and at one row, the launch
+floor, all by ``avenir_tpu_torch/timing.py``; K3 at its split and unsplit
 routes and over a grid of query and candidate counts, the crossover behind
 the fused engine's gate; the merge of K3's candidate segments at the main
 path's segment lists), then drives every ported path on the card and
@@ -48,6 +51,8 @@ import subprocess
 import sys
 import time
 
+from avenir_tpu_torch.timing import kernel_device_ms, time_ms
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 SCHEMA = os.path.join(ROOT, "resource", "churn_nb", "teleComChurn.json")
@@ -73,6 +78,11 @@ NB_CACHE_CFG = dict(NB_CFG, **{"ingest.cache.enable": "true",
                                "ingest.cache.dir":
                                    os.path.join(WORK, "ingestcache")})
 KNN_ROWS, KNN_F, KNN_K = 16_384, 256, 16
+I32_MIN, I32_MAX = -2 ** 31, 2 ** 31 - 1
+# K2's int32-range case: small, odd and the largest widths, and enough bins
+# (a 128 KB table, one block's) that quotients up to 2,047 are counted
+EXTREME_WIDTHS = (1, 2, 7, 200, 65_537, 1_000_000_007, 2 ** 30, I32_MAX)
+B_EXTREME = 2048
 EXACT_CDIST = "donot_use_mm_for_euclid_dist"   # differences, not the expansion
 
 
@@ -86,21 +96,6 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60
     ).stdout.strip().splitlines()[0]
-
-
-def time_ms(torch, fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events,
-    after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
 
 
 def bound(nbytes: float, ops: float) -> tuple:
@@ -191,12 +186,19 @@ def main_path_warm_chunk(torch, train_dir: str, cache_cfg: dict):
 def histogram_cases(torch, chunk):
     """``(kid, tag, C, B, widths, make_inputs)`` for every shape K1 and K2
     are held at before the main paths run: the main path's first cold
-    chunk (its real codes), the whole churn training set and the wide
+    chunk (its real codes), the whole churn training set, the same shape
+    with every row in one cell (the atomics' worst case) and the wide
     table of the reference's wide-count benchmark (bench.py:1427), with
-    masks, -1 codes, out-of-range bins and classes; and one table too
-    large for a block's shared memory, which takes the kernel's
-    global-memory path.  K2's main-path chunk exists only once the cache
-    is written (``main_path_warm_chunk``)."""
+    masks, -1 codes, out-of-range bins and classes; a 256 KB table, too
+    large for a block's shared memory, which takes the cluster route; a
+    2 MB table, too large for a cluster's, which takes the global route;
+    and K2 over edge and random values of the whole int32 range at widths
+    up to 2^31 - 1.  K2's main-path chunk exists only once the cache is
+    written (``main_path_warm_chunk``)."""
+    import numpy as np
+
+    from avenir_tpu_torch.ops.counting import bin_raw
+
     xs, ys, C, B, churn_w = chunk
     F = xs.shape[1]
 
@@ -215,40 +217,91 @@ def histogram_cases(torch, chunk):
             return x, y, mask
         return make
 
+    def hot():
+        return (torch.full((TRAIN_ROWS, F), B // 2, dtype=torch.int8,
+                           device="cuda"),
+                torch.full((TRAIN_ROWS,), C - 1, dtype=torch.int8,
+                           device="cuda"), None)
+
+    def extremes():
+        """K2 over the whole int32 range: per column a width (1 to
+        2^31 - 1), half the rows from the column's edge values (0, +-1,
+        INT32_MIN, INT32_MAX, and -1, 0, +1 around every multiple k*w,
+        k <= B, of both signs) and half random int32.  The plain binning
+        is first held to Java truncation in int64 on the host."""
+        rng = np.random.default_rng(8)
+        n = 1 << 20
+        cols = []
+        for w in EXTREME_WIDTHS:
+            k = np.arange(B_EXTREME + 1, dtype=np.int64)[:, None] * w
+            edges = np.concatenate([
+                [0, 1, -1, I32_MIN, I32_MAX, I32_MIN + 1, I32_MAX - 1],
+                (k + np.array([-1, 0, 1])).ravel()])
+            edges = np.concatenate([edges, -edges])
+            edges = edges[(edges >= I32_MIN) & (edges <= I32_MAX)]
+            cols.append(np.where(rng.random(n) < 0.5,
+                                 rng.choice(edges, n),
+                                 rng.integers(I32_MIN, I32_MAX, n,
+                                              endpoint=True)))
+        raw = np.stack(cols, axis=1)
+        w = np.asarray(EXTREME_WIDTHS, np.int64)[None, :]
+        java = np.sign(raw) * (np.abs(raw) // w)
+        x = torch.from_numpy(raw.astype(np.int32)).cuda()
+        if not np.array_equal(bin_raw(x, EXTREME_WIDTHS).cpu().numpy(),
+                              java):
+            raise AssertionError("bin_raw is not Java truncation on the "
+                                 "card")
+        y = torch.from_numpy(rng.integers(-1, 3, n).astype(np.int32)).cuda()
+        mask = torch.from_numpy(rng.random(n) < 0.9).cuda()
+        return x, y, mask
+
     i8, i32 = torch.int8, torch.int32
     wide_w = tuple(1 + (7 * f) % 40 for f in range(32))
     return [
         ("K1", "main-path chunk 0", C, B, None, real),
         ("K1", "churn", C, B, None, synth(TRAIN_ROWS, F, C, i8, -1, B + 2, 1)),
+        ("K1", "hot cell: churn shape, one class and one code", C, B, None,
+         hot),
         ("K1", "wide", 8, 32, None, synth(TOTAL_ROWS, 32, 8, i32, -1, 34, 2)),
-        ("K1", "global-memory table", 8, 128, None,
+        ("K1", "256 KB table", 8, 128, None,
          synth(1 << 18, 64, 8, i32, -1, 130, 3)),
+        ("K1", "2 MB table", 8, 1024, None,
+         synth(1 << 18, 64, 8, i32, -1, 1026, 6)),
         # the warm path's dtype and widths; raw values past the top bin
         ("K2", "churn", C, B, churn_w,
          synth(TRAIN_ROWS, F, C, i32, -40, B * max(churn_w), 4)),
         ("K2", "wide", 8, 32, wide_w,
          synth(TOTAL_ROWS, 32, 8, i32, -400, 1300, 5)),
+        ("K2", "int32 extremes: INT32_MIN/MAX, +-(k*w+-1), widths to 2^31-1",
+         2, B_EXTREME, EXTREME_WIDTHS, extremes),
     ]
 
 
 def run_histogram_case(torch, histogram, kid, tag, C, B, widths,
                        make_inputs) -> dict:
     """Hold K1 or K2 against its plain version on the same inputs (exact
-    equality: the counts are integers); time the kernel, the plain
+    equality: the counts are integers); time the call (``ms``), the
+    kernel's own device time (``device_ms``), both again at one row
+    (``floor_ms``, ``floor_device_ms``: the launch floor), the plain
     version and ``torch.bincount`` over the composite key; compute the
     bound."""
     x, y, mask = make_inputs()
     n, F = x.shape
     dev = x.device
+
+    def call(x, y, mask, out=None):
+        if kid == "K1":
+            return histogram.wide_feature_class_counts(x, y, C, B, mask=mask,
+                                                       out=out)
+        return histogram.wide_feature_class_counts_rawbin(
+            x, y, C, B, widths, mask=mask, out=out)
+
+    kern = lambda out=None: call(x, y, mask, out)
     if kid == "K1":
-        kern = lambda out=None: histogram.wide_feature_class_counts(
-            x, y, C, B, mask=mask, out=out)
         plain = lambda: histogram.plain_feature_class_counts(x, y, C, B, mask)
         binned = x.long()
         name = "wide_feature_class_counts"
     else:
-        kern = lambda out=None: histogram.wide_feature_class_counts_rawbin(
-            x, y, C, B, widths, mask=mask, out=out)
         plain = lambda: histogram.plain_feature_class_counts_rawbin(
             x, y, C, B, widths, mask)
         wt = torch.tensor(widths, dtype=torch.int32, device=dev)
@@ -278,9 +331,21 @@ def run_histogram_case(torch, histogram, kid, tag, C, B, widths,
         raise AssertionError(f"bincount yardstick disagrees at {tag}")
 
     acc = torch.zeros((C, F, B), dtype=torch.int32, device=dev)
-    ms = time_ms(torch, lambda: kern(out=acc), 50)
-    plain_ms = time_ms(torch, plain, 5)
-    library_ms = time_ms(torch, lambda: torch.bincount(
+    ms = time_ms(lambda: kern(out=acc), 200, warmup_s=0.2)
+    device_ms = kernel_device_ms(lambda: kern(out=acc), 50,
+                                 "histogram_kernel")
+    one = (x[:1], y[:1], None if mask is None else mask[:1])
+    floor_ms = time_ms(lambda: call(*one, out=acc), 200,
+                       warmup_s=0.2)
+    floor_device_ms = kernel_device_ms(lambda: call(*one, out=acc),
+                                       50, "histogram_kernel")
+    plan = histogram.histogram_plan(
+        n, F, C, B, x.element_size(),
+        *histogram._device_info(dev.index), rawbin=kid == "K2")
+    table = histogram.ROUTES[plan.route] + (
+        f" of {plan.cluster} blocks" if plan.cluster > 1 else "")
+    plain_ms = time_ms(plain, 5)
+    library_ms = time_ms(lambda: torch.bincount(
         key, minlength=C * F * B), 20)
 
     nbytes = (n * F * x.element_size() + n * y.element_size()
@@ -290,14 +355,16 @@ def run_histogram_case(torch, histogram, kid, tag, C, B, widths,
     bound_ms, bound_by = bound(nbytes, n * F * (4 if widths else 3))
     dtype = str(x.dtype).replace("torch.", "")
     masked = ", mask" if mask is not None else ""
-    del x, y, mask, got, want, binned, key, valid, acc
+    del x, y, mask, got, want, binned, key, valid, acc, one
     torch.cuda.empty_cache()
     return {"name": f"{kid} {name} [{tag}: n={n} F={F} C={C} B={B} "
                     f"{dtype}{masked}]",
             "route": "cuda", "source": COUNT_KERNEL[0],
             "replaces": COUNT_KERNEL[1], "kid": kid,
             "launches": 0, "max_abs_err": max_abs_err,
-            "ms": ms, "plain_ms": plain_ms,
+            "ms": ms, "device_ms": device_ms, "floor_ms": floor_ms,
+            "floor_device_ms": floor_device_ms, "table": table,
+            "grid": plan.grid, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
 
@@ -459,9 +526,9 @@ def run_topk_case(torch, topk, tag, algorithm, k, exact, sample, make,
                            (qn[:ns], qc[:ns], tn, tc, cw, wsum), algorithm,
                            exact, tag)
     reps = max(2, min(20, int(2e11 // max(nq * nt * max(F, 1), 1))))
-    ms = time_ms(torch, kern, reps)
-    plain_ms = time_ms(torch, plain, reps)
-    matmul_ms = (time_ms(torch, lambda: torch.matmul(qn, tn.T), reps)
+    ms = time_ms(kern, reps)
+    plain_ms = time_ms(plain, reps)
+    matmul_ms = (time_ms(lambda: torch.matmul(qn, tn.T), reps)
                  if F and algorithm == "euclidean" and nq * nt <= 1 << 28
                  else None)
     # per numeric column: an FMA (2 ops) for euclidean; for manhattan an
@@ -515,10 +582,10 @@ def run_merge_case(torch, topk, card) -> dict:
     if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
         raise AssertionError(f"merge kernel differs from its plain version "
                              f"(max abs err {err})")
-    ms = time_ms(torch, lambda: topk.merge_topk_lists(keys), 50)
-    plain_ms = time_ms(torch, lambda: topk.plain_merge_topk(keys), 20)
+    ms = time_ms(lambda: topk.merge_topk_lists(keys), 50)
+    plain_ms = time_ms(lambda: topk.plain_merge_topk(keys), 20)
     flat = keys.permute(1, 0, 2).reshape(KNN_ROWS, -1).contiguous()
-    library_ms = time_ms(torch, lambda: torch.topk(
+    library_ms = time_ms(lambda: torch.topk(
         flat, KNN_K, dim=1, largest=False, sorted=True), 20)
     n = splits * KNN_ROWS * KNN_K
     bound_ms, bound_by = bound(8 * n + 8 * KNN_ROWS * KNN_K, 0)
@@ -614,7 +681,7 @@ def scorer_cost(torch, ds, tables, card: str) -> None:
         nb.exp_f64, nb.log_f32, nb.fma_f32 = fns
         try:
             for prec, fn in scorers:
-                ms[label, prec] = time_ms(torch, lambda: fn(x, values, *tabs),
+                ms[label, prec] = time_ms(lambda: fn(x, values, *tabs),
                                           10)
         finally:
             nb.exp_f64, nb.log_f32, nb.fma_f32 = shipped
@@ -625,9 +692,12 @@ def scorer_cost(torch, ds, tables, card: str) -> None:
             f"exp/log [{card}]")
 
 
-def nb_breakdown(torch, train_dir: str, base_cfg: dict, card: str) -> None:
+def nb_breakdown(torch, train_dir: str, base_cfg: dict, cache_cfg: dict,
+                 card: str) -> None:
     """Where the training time goes: the host encode alone (host clock),
-    then one more training run on the card under ``torch.profiler``."""
+    then one more cold training run on the card under ``torch.profiler``,
+    and one more warm run off the ingest cache (K2's device time per
+    launch on the main path; its copies: the chunks', no widths)."""
     from avenir_tpu_torch.core.binning import DatasetEncoder
     from avenir_tpu_torch.core.config import JobConfig
     from avenir_tpu_torch.core.schema import FeatureSchema
@@ -647,6 +717,14 @@ def nb_breakdown(torch, train_dir: str, base_cfg: dict, card: str) -> None:
         {"histogram kernel": "histogram_kernel"})
     log(f"train breakdown: host encode alone {encode_s:.3f} s of a "
         f"{wall_s:.3f} s profiled train run [{card}]")
+    report_device(by_kind, wall_s, "histogram kernel", card)
+    by_kind, wall_s = profile_device(
+        torch, lambda: BayesianDistribution(
+            JobConfig(dict(cache_cfg)), device="cuda").run(
+            train_dir, os.path.join(WORK, "model_warm_profiled")),
+        {"histogram kernel": "histogram_kernel"})
+    log(f"warm train breakdown (off the ingest cache, K2): a {wall_s:.3f} s "
+        f"profiled run [{card}]")
     report_device(by_kind, wall_s, "histogram kernel", card)
 
 
@@ -821,7 +899,7 @@ def nb_paths(torch, histogram, train_dir, test_dir, card) -> dict:
         f"float64 (cpu): {n_test / score64_cpu_s:.0f} rows/s")
     log("NB model (cold, cache-writing, warm), float64 predictions and both "
         "prob-only outputs: byte-identical cuda vs cpu")
-    nb_breakdown(torch, train_dir, base_cfg, card)
+    nb_breakdown(torch, train_dir, base_cfg, cache_cfg, card)
     return launches
 
 
@@ -1087,9 +1165,12 @@ def main() -> int:
 
     def histogram_entry(case) -> dict:
         e = run_histogram_case(torch, histogram, *case)
-        log(f"{e['name']}: exact; kernel {e['ms']:.4f} ms, plain "
-            f"{e['plain_ms']:.4f} ms, bincount {e['library_ms']:.4f} ms, "
-            f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}) [{card}]")
+        log(f"{e['name']}: exact; {e['table']}, {e['grid']} blocks; call "
+            f"{e['ms']:.4f} ms, device {e['device_ms']:.4f} ms; at one row "
+            f"call {e['floor_ms']:.4f} ms, device "
+            f"{e['floor_device_ms']:.4f} ms; plain {e['plain_ms']:.4f} ms, "
+            f"bincount {e['library_ms']:.4f} ms, bound {e['bound_ms']:.4f} "
+            f"ms ({e['bound_by']}) [{card}]")
         return e
 
     # -- kernels against their plain versions -------------------------------
