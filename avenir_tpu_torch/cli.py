@@ -1,10 +1,17 @@
 """Job driver: ``python -m avenir_tpu_torch <Job|FQCN> -Dconf.path=<props>
-<in> <out> [--device cpu|cuda]``.
+<in> <out> [--device cpu|cuda] [--resume] [--trace <out.json>]``.
 
 The same invocation, ``.properties`` files, schema JSONs and in/out
 directory layout as the reference package's ``python -m avenir_tpu``; job
 counters print to stderr.  Jobs run on ``cuda:0`` unless ``--device cpu``
 asks for the CPU, and fail when there is no card.
+
+``--resume`` sets ``checkpoint.resume=true``: a streaming job restarts
+from its sidecar checkpoint when one exists (core.checkpoint).
+``--trace <out.json>`` turns the tracer on and writes its spans as
+Chrome/Perfetto trace JSON when the job ends (core.obs).  Before the job
+is built, the resilience keys are applied: ``retry.*`` (core.resilience)
+and ``fault.inject.plan`` (core.faultinject).
 """
 
 from __future__ import annotations
@@ -60,24 +67,75 @@ def _extract_device(argv):
     return out, device
 
 
+def _extract_value_flag(argv, flag: str):
+    """Pull ``flag <value>`` / ``flag=<value>`` out of an argument
+    vector; returns (remaining argv, value or None)."""
+    out, value, i = [], None, 0
+    while i < len(argv):
+        a = argv[i]
+        if a == flag:
+            if i + 1 >= len(argv):
+                raise SystemExit(f"{flag} requires an output path")
+            value = argv[i + 1]
+            i += 2
+            continue
+        if a.startswith(flag + "="):
+            value = a.partition("=")[2]
+            if not value:
+                raise SystemExit(f"{flag} requires an output path")
+        else:
+            out.append(a)
+        i += 1
+    return out, value
+
+
+def extract_resume_flag(argv):
+    """Pull ``--resume`` out of an argument vector; returns (remaining
+    argv, bool)."""
+    out = [a for a in argv if a != "--resume"]
+    return out, len(out) != len(argv)
+
+
+def configure_resilience(config) -> None:
+    """Apply the retry policy and the fault plan of ``config`` to this
+    process."""
+    from .core import faultinject, resilience
+    resilience.configure_from_config(config)
+    faultinject.configure_from_config(config)
+
+
 def main(argv: Optional[list] = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
         print("usage: python -m avenir_tpu_torch <JobClass> "
-              "-Dconf.path=<props> <in> <out> [--device cpu|cuda]\n"
+              "-Dconf.path=<props> <in> <out> [--device cpu|cuda] "
+              "[--resume] [--trace <out.json>]\n"
               "known jobs:\n  " + "\n  ".join(sorted(JOBS)), file=sys.stderr)
         return 2
     job_name, rest = argv[0], argv[1:]
     module, clsname, prefix = resolve(job_name)
     rest, device = _extract_device(rest)
+    rest, trace_path = _extract_value_flag(rest, "--trace")
+    rest, resume = extract_resume_flag(rest)
     defines, positional = parse_cli_args(rest)
     if len(positional) < 2:
         print("expected <input path> <output path>", file=sys.stderr)
         return 2
     config = load_job_config(defines, prefix)
+    if resume:
+        config.set("checkpoint.resume", "true")
+    from .core import obs
+    obs.configure_from_config(config, force_enable=bool(trace_path))
+    configure_resilience(config)
     mod = importlib.import_module(f"{__package__}.models.{module}")
     job = getattr(mod, clsname)(config, device=device)
-    counters = job.run(positional[0], positional[1])
+    try:
+        counters = job.run(positional[0], positional[1])
+    finally:
+        if trace_path:
+            n = obs.get_tracer().export_chrome_trace(trace_path)
+            print(f"obs: wrote {n} trace events to {trace_path}",
+                  file=sys.stderr)
     print(counters.format(), file=sys.stderr)
     return 0
 

@@ -27,6 +27,9 @@ class JobConfig:
                 return v
         return self.props.get(key, self._MISSING)
 
+    def set(self, key: str, value) -> None:
+        self.props[key] = str(value)
+
     def get(self, key: str, default: Optional[str] = None) -> Optional[str]:
         v = self._raw(key)
         return default if v is self._MISSING else v

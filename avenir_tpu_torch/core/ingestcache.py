@@ -260,6 +260,7 @@ class MatrixCacheBuilder:
         rename the stage into place.  True when a complete artifact for
         this build's key is in place."""
         from .io import OutputWriter
+        from .obs import get_tracer
 
         if self._aborted or self._writers is None or not sum(self._counts):
             self.abort()
@@ -282,14 +283,17 @@ class MatrixCacheBuilder:
                             if enc.class_field is not None else None),
         }
         try:
-            for w in self._writers.values():
-                w.close()
-            self._writers = None
-            with OutputWriter(self._stage, name=META_NAME,
-                              mark_success=True) as mw:
-                mw.write(json.dumps(meta, indent=1))
-            return _publish_dir(self._stage, self.cache.dir,
-                                self._is_current)
+            with get_tracer().span("ingest.cache.publish",
+                                   path=self.cache.dir,
+                                   rows=meta["n_rows"]):
+                for w in self._writers.values():
+                    w.close()
+                self._writers = None
+                with OutputWriter(self._stage, name=META_NAME,
+                                  mark_success=True) as mw:
+                    mw.write(json.dumps(meta, indent=1))
+                return _publish_dir(self._stage, self.cache.dir,
+                                    self._is_current)
         except Exception:  # noqa: BLE001 — a torn publish misses next run
             self.abort()
             return False
@@ -315,6 +319,8 @@ class IngestCache:
 
     def load(self, chunk_rows: Optional[int]) -> Optional[CachedScan]:
         """A :class:`CachedScan` on a full hit, else None."""
+        from .obs import get_tracer
+
         meta = _load_validated_meta(self.dir)
         if meta is None or meta.get("kind") != "encoded":
             return None
@@ -329,9 +335,11 @@ class IngestCache:
         if chunk_rows is not None and meta.get("chunk_rows") != chunk_rows:
             return None
         try:
-            return CachedScan(self.dir, meta)
+            scan = CachedScan(self.dir, meta)
         except (OSError, ValueError):
             return None
+        get_tracer().gauge("ingest.cache.hit", 1)
+        return scan
 
     def builder(self, chunk_rows: int) -> MatrixCacheBuilder:
         return MatrixCacheBuilder(self, chunk_rows)

@@ -9,8 +9,10 @@ written to a temporary file in the same directory and published with
 the final name.  Every output directory also gets the reference's
 ``_MANIFEST`` sidecar (per-part byte length and sha1).  The ingest cache
 validates its artifacts against it (``validate_artifact_dir``);
-``read_lines`` does not validate job inputs yet, and the in-memory
-artifact store is not ported.
+``read_lines`` does not validate job inputs yet (nor does the port read
+``io.require.success``), and the in-memory artifact store is not ported.
+Recovery events of the streaming checkpoint count in the process-global
+``Durability`` group.
 """
 
 from __future__ import annotations
@@ -22,15 +24,24 @@ import re
 import tempfile
 from typing import Dict, Iterable, Iterator, List, Optional
 
+from .metrics import Counters
+
 SUCCESS_NAME = "_SUCCESS"
 MANIFEST_NAME = "_MANIFEST"
 MANIFEST_VERSION = 1
+
+_DURABILITY = Counters()
 
 
 class TornArtifactError(RuntimeError):
     """An artifact directory failed validation: a part whose size or sha1
     disagrees with the ``_MANIFEST``, a part the manifest does not list,
     or a listed part that is gone."""
+
+
+def _durability_counters() -> Counters:
+    """The process-global ``Durability`` counter group."""
+    return _DURABILITY
 
 
 def _input_files(path: str) -> List[str]:
@@ -52,16 +63,6 @@ def read_lines(path: str) -> Iterator[str]:
                 line = line.rstrip("\n")
                 if line:
                     yield line
-
-
-def read_buffer(path: str) -> bytes:
-    """The bytes of a file, or of every part file of a directory joined by
-    newlines (the chunked encoder splits this buffer into row chunks)."""
-    parts = []
-    for fp in _input_files(path):
-        with open(fp, "rb") as fh:
-            parts.append(fh.read())
-    return b"\n".join(parts)
 
 
 def is_plain_delim(delim_regex: str) -> bool:

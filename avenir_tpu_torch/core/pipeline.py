@@ -15,6 +15,16 @@ bit-identical to the one-shot pass (integer adds commute).  The reference
 pads chunks to a fixed capacity so XLA compiles one shape; PyTorch runs
 eagerly, so the port does not pad, and ``mask`` is None (every row
 valid).
+
+The resilience hooks are the reference's: ``chunk_faults`` applies the
+fault plan (core.faultinject) to each byte chunk, ``ChunkTransfer`` fires
+the ``h2d`` point, a ``worker_death`` ends the prefetch worker without a
+relay and the consumer's watchdog reports it, and items wrapped in
+:class:`Checkpointed` make ``streaming_fold`` snapshot the carry and hand
+it to a checkpointer one chunk later (:class:`AsyncCheckpointSaver`), so
+the card does not wait on a checkpoint.  Spans (core.obs): ``ingest.h2d``
+per transfer, ``ingest.fold`` per fold, ``checkpoint.save`` per save, and
+the ``ingest.prefetch.queue.depth`` gauge.
 """
 
 from __future__ import annotations
@@ -25,6 +35,9 @@ from typing import Callable, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from . import faultinject
+from .obs import get_tracer
 
 # config keys (the .properties surface; JobConfig prefix fallback applies)
 KEY_CHUNK_ROWS = "pipeline.chunk.rows"
@@ -81,6 +94,33 @@ def row_chunk_ends(buf: bytes, chunk_rows: int) -> List[int]:
     return ends
 
 
+def first_nonblank_line(chunk: bytes) -> bytes:
+    """The first non-empty line of a byte chunk (b"" if none), found
+    without splitting the whole chunk."""
+    pos = 0
+    while pos < len(chunk):
+        nl = chunk.find(b"\n", pos)
+        if nl < 0:
+            return chunk[pos:]
+        if nl > pos:
+            return chunk[pos:nl]
+        pos = nl + 1
+    return b""
+
+
+def chunk_faults(chunk: bytes, index: int) -> bytes:
+    """Apply the per-chunk fault plan to one byte chunk: ``slow``
+    stalls, ``worker_death`` ends the producing thread without a relay,
+    ``corrupt`` mangles the bytes.  The identity when no plan is
+    configured."""
+    fi = faultinject.get_injector()
+    if fi is None:
+        return chunk
+    fi.fire("slow", index)
+    fi.fire("worker_death", index)
+    return fi.mangle("corrupt", index, chunk)
+
+
 def split_field_lines(lines: List[str], delim_regex: str):
     """``(fields, bulk)`` for a chunk of non-blank lines: a 2-D string
     ndarray made with one whole-chunk split when the delimiter is one plain
@@ -125,14 +165,17 @@ _DONE = object()
 
 
 def drive_prefetched(chunks: Iterable, produce: Callable, consume: Callable,
-                     depth: int) -> None:
+                     depth: int, tracer=None, parent=None) -> None:
     """Run ``consume(produce(chunk))`` over a chunk stream: serially when
     ``depth <= 0``, else with ``produce`` (and the chunk generator's own
     work) on a worker thread feeding a queue of at most ``depth`` items.
     An exception on either side reaches the caller.  The consumer's
     bounded wait doubles as a liveness check, so a worker that dies
-    without relaying its error is reported instead of blocking forever;
-    on the way out the worker is told to stop and drained until it ends."""
+    without relaying its error (an injected ``worker_death``) is
+    reported instead of blocking forever; on the way out the worker is
+    told to stop and drained until it ends.  The worker's spans parent
+    to ``parent``."""
+    tracer = tracer or get_tracer()
     if depth <= 0:
         for item in chunks:
             consume(produce(item))
@@ -143,12 +186,18 @@ def drive_prefetched(chunks: Iterable, produce: Callable, consume: Callable,
     worker_exc: list = [None]
 
     def worker():
+        tracer.adopt(parent)
         try:
             for item in chunks:
                 if stop.is_set():
                     return
                 q.put(produce(item))
+                tracer.gauge("ingest.prefetch.queue.depth", q.qsize())
             q.put(_DONE)
+        except faultinject.SimulatedWorkerDeath:
+            # the injected hard death: end without relaying anything, as
+            # if the relay itself had failed
+            return
         except BaseException as exc:  # noqa: BLE001 — relayed to the caller
             worker_exc[0] = exc      # the side cell first: it cannot block
             q.put(_PrefetchError(exc))
@@ -171,6 +220,7 @@ def drive_prefetched(chunks: Iterable, produce: Callable, consume: Callable,
                 break
             if isinstance(item, _PrefetchError):
                 raise item.exc
+            tracer.gauge("ingest.prefetch.queue.depth", q.qsize())
             consume(item)
     finally:
         stop.set()
@@ -199,12 +249,17 @@ class ChunkTransfer:
     CUDA event and the buffer's next use waits on that event first (the
     reference guards its host staging the same way, in
     ``HostStager.committed``).  On the CPU the arrays are wrapped as they
-    are.  One transfer object serves one producing thread."""
+    are.  One transfer object serves one producing thread.
+
+    Each call fires the ``h2d`` fault point first: a transfer failure is
+    not retried (re-sending a half-sent buffer is not defined), so the
+    job fails fast and leaves its checkpoint for ``--resume``."""
 
     SLOTS = 2
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, tracer=None):
         self.device = device
+        self.tracer = tracer or get_tracer()
         self._staging: dict = {}
         self._turn: dict = {}
 
@@ -222,24 +277,28 @@ class ChunkTransfer:
         return ring[i]
 
     def __call__(self, arrs: Tuple[np.ndarray, ...]) -> tuple:
-        arrs = tuple(np.ascontiguousarray(a) for a in arrs)
-        n = arrs[0].shape[0]
-        if any(a.shape[0] != n for a in arrs):
-            raise ValueError("chunk arrays disagree on row count")
-        if self.device.type != "cuda":
-            # a read-only array (an mmapped cache chunk) is copied: a
-            # tensor must not alias memory it may not write
-            return tuple(torch.from_numpy(a if a.flags.writeable
-                                          else a.copy())
-                         for a in arrs) + (None,)
-        out = []
-        for i, a in enumerate(arrs):
-            buf, event = self._slot(i, a)
-            event.synchronize()       # the previous copy out of buf is done
-            buf.numpy()[...] = a
-            out.append(buf.to(self.device, non_blocking=True))
-            event.record()
-        return tuple(out) + (None,)
+        fi = faultinject.get_injector()
+        if fi is not None:
+            fi.fire("h2d")
+        with self.tracer.span("ingest.h2d"):
+            arrs = tuple(np.ascontiguousarray(a) for a in arrs)
+            n = arrs[0].shape[0]
+            if any(a.shape[0] != n for a in arrs):
+                raise ValueError("chunk arrays disagree on row count")
+            if self.device.type != "cuda":
+                # a read-only array (an mmapped cache chunk) is copied: a
+                # tensor must not alias memory it may not write
+                return tuple(torch.from_numpy(a if a.flags.writeable
+                                              else a.copy())
+                             for a in arrs) + (None,)
+            out = []
+            for i, a in enumerate(arrs):
+                buf, event = self._slot(i, a)
+                event.synchronize()     # the previous copy out of buf is done
+                buf.numpy()[...] = a
+                out.append(buf.to(self.device, non_blocking=True))
+                event.record()
+            return tuple(out) + (None,)
 
 
 class ChunkFold:
@@ -250,24 +309,61 @@ class ChunkFold:
     ``carry + psum(...)`` to get the same in-place accumulate.)"""
 
     def __init__(self, local_fn: Callable, static_args: tuple = (),
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None, tracer=None,
+                 parent=None):
         self.local_fn = local_fn
         self.static_args = tuple(static_args)
         self.device = device
+        self.tracer = tracer or get_tracer()
+        self.parent = parent
         self.carry: Optional[torch.Tensor] = None
+        self._host: Optional[torch.Tensor] = None
 
     def seed(self, carry_host: np.ndarray) -> None:
-        """Start from a host count table (e.g. one the reference package
-        computed): later chunks accumulate on top of it."""
+        """Start from a host count table (a checkpointed carry, or one the
+        reference package computed): later chunks accumulate on top of
+        it, so a resumed stream continues where the checkpointed one
+        stopped."""
         from ..convert import count_table_to_device
         self.carry = count_table_to_device(carry_host, self.device)
 
+    def snapshot(self):
+        """A copy of the carry on its way to the host, or None before the
+        first fold.  On CUDA the copy goes into a pinned buffer with
+        ``non_blocking=True`` and records an event: it is queued after
+        this fold and before the next one, which adds into the carry in
+        place, so it holds exactly this state, and the caller does not
+        wait for it.  :meth:`host_copy` waits for the event later.  One
+        pinned buffer serves every snapshot: the saver materializes a
+        snapshot before it takes the next."""
+        if self.carry is None:
+            return None
+        if not self.carry.is_cuda:
+            return self.carry.clone(), None
+        if self._host is None or self._host.shape != self.carry.shape:
+            self._host = torch.empty(self.carry.shape, dtype=self.carry.dtype,
+                                     pin_memory=True)
+        self._host.copy_(self.carry, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return self._host, event
+
+    @staticmethod
+    def host_copy(snap) -> np.ndarray:
+        """A snapshot as a numpy array of its own."""
+        t, event = snap
+        if event is not None:
+            event.synchronize()
+        return t.numpy().copy()
+
     def fold(self, dev: tuple) -> None:
         *arrays, mask = dev
-        if self.carry is None:
-            self.carry = self.local_fn(*arrays, mask, *self.static_args)
-        else:
-            self.local_fn(*arrays, mask, *self.static_args, out=self.carry)
+        with self.tracer.span("ingest.fold", parent=self.parent):
+            if self.carry is None:
+                self.carry = self.local_fn(*arrays, mask, *self.static_args)
+            else:
+                self.local_fn(*arrays, mask, *self.static_args,
+                              out=self.carry)
 
     def block(self) -> None:
         if self.carry is not None and self.carry.is_cuda:
@@ -278,10 +374,52 @@ class ChunkFold:
         return None if self.carry is None else self.carry.cpu().numpy()
 
 
-def streaming_fold(chunks: Iterable[Tuple[np.ndarray, ...]],
-                   local_fn: Callable, static_args: tuple = (),
+class Checkpointed:
+    """A chunk item carrying a checkpoint token (core.checkpoint): the
+    producer wraps the chunk arrays it wants a checkpoint after, and
+    ``streaming_fold`` snapshots the carry once that chunk's fold is
+    queued and writes it one chunk later."""
+
+    __slots__ = ("arrays", "token")
+
+    def __init__(self, arrays: tuple, token):
+        self.arrays = arrays
+        self.token = token
+
+
+class AsyncCheckpointSaver:
+    """The deferred save of a checkpoint: ``push`` parks a (token,
+    snapshot) pair, and ``flush``, called at every later consume and once
+    after the stream ends, copies the snapshot to the host and writes the
+    sidecar.  By then the next fold is queued, so the wait overlaps work
+    on the card instead of draining the pipeline."""
+
+    __slots__ = ("_ck", "_tracer", "_to_host", "_pending")
+
+    def __init__(self, checkpointer, tracer, to_host: Callable):
+        self._ck = checkpointer
+        self._tracer = tracer
+        self._to_host = to_host      # snapshot -> host numpy carry
+        self._pending = None
+
+    def push(self, token, snapshot) -> None:
+        self.flush()                 # never hold more than one
+        self._pending = (token, snapshot)
+
+    def flush(self) -> None:
+        if self._pending is None:
+            return
+        tok, snap = self._pending
+        self._pending = None
+        with self._tracer.span("checkpoint.save", chunk=tok.chunk_index):
+            self._ck.save(tok, self._to_host(snap))
+
+
+def streaming_fold(chunks: Iterable, local_fn: Callable,
+                   static_args: tuple = (),
                    device: Optional[torch.device] = None,
-                   prefetch_depth: int = DEFAULT_PREFETCH_DEPTH
+                   prefetch_depth: int = DEFAULT_PREFETCH_DEPTH,
+                   checkpointer=None, initial_carry=None
                    ) -> Optional[np.ndarray]:
     """Fold row chunks into one count table on ``device``.
 
@@ -292,14 +430,40 @@ def streaming_fold(chunks: Iterable[Tuple[np.ndarray, ...]],
     folded with ``local_fn(*arrays, mask, *static_args)``.  Returns the
     table as a host numpy array, or None for an empty stream.  An
     exception in the generator reaches the caller whichever thread raised
-    it."""
-    transfer = ChunkTransfer(device)
-    cf = ChunkFold(local_fn, static_args=static_args, device=device)
+    it.
 
-    def consume(dev):
+    Items may be :class:`Checkpointed`: after folding such a chunk the
+    carry is snapshotted and, one consume later, handed with the token to
+    ``checkpointer.save``.  ``initial_carry`` (a host table from a loaded
+    checkpoint) seeds the fold, so a resumed stream, empty when the kill
+    came after the last chunk, continues from the checkpointed state."""
+    tracer = get_tracer()
+    parent = tracer.current_span_id()
+    transfer = ChunkTransfer(device, tracer=tracer)
+    cf = ChunkFold(local_fn, static_args=static_args, device=device,
+                   tracer=tracer, parent=parent)
+    if initial_carry is not None:
+        cf.seed(initial_carry)
+    saver = (AsyncCheckpointSaver(checkpointer, tracer, ChunkFold.host_copy)
+             if checkpointer is not None else None)
+
+    def produce(item):
+        if isinstance(item, Checkpointed):
+            return transfer(item.arrays), item.token
+        return transfer(item), None
+
+    def consume(pair):
+        dev, token = pair
         cf.fold(dev)
         if prefetch_depth <= 0:
             cf.block()
+        if saver is not None:
+            saver.flush()
+            if token is not None:
+                saver.push(token, cf.snapshot())
 
-    drive_prefetched(chunks, transfer, consume, prefetch_depth)
+    drive_prefetched(chunks, produce, consume, prefetch_depth,
+                     tracer=tracer, parent=parent)
+    if saver is not None:
+        saver.flush()
     return cf.result()

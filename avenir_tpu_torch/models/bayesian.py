@@ -13,6 +13,16 @@ mode).  The model text format and every output byte are the reference's:
   products (float64, the strict-parity path) or a log-space sum
   (float32, the default), then arbitrates and writes one line per record.
 
+Training parses with the native C ingest (core.binning, ``native/``),
+``ingest.parse.threads`` chunks at a time, and carries the reference's
+resilience layer: the sidecar checkpoint every
+``checkpoint.interval.chunks`` chunks and ``--resume`` from it
+(core.checkpoint), row quarantine under ``ingest.error.budget`` with
+per-row salvage of a rejected chunk (core.resilience), the retried read
+and the fault points (core.faultinject), and the reference's spans
+(``job:BayesianDistribution``, ``phase:train``/``load``/``emit``,
+``ingest.*``, ``checkpoint.save``; core.obs).
+
 With ``ingest.cache.enable`` the first streamed training scan also
 writes the parse-once ingest cache (core.ingestcache), and later runs
 replay its mmapped matrices instead of parsing; the warm fold bins inside
@@ -24,8 +34,8 @@ is exact, so TF32 cannot round it.  The float64 factors use XLA's float64
 contracted multiply-adds (ops.xla_math) and its order of summation
 (``_sum_last``), so the feature probabilities that
 ``output.feature.prob.only`` prints are the reference's bits.  Not
-ported yet: text mode (``tabular.input=false``), checkpoint/resume, row
-quarantine, the shared-scan FoldSpec, drift gauges and tracing spans.
+ported yet: text mode (``tabular.input=false``), the shared-scan FoldSpec
+and the drift gauges.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ from ..core.binning import DatasetEncoder, EncodedDataset
 from ..core.config import JobConfig
 from ..core.io import read_lines, split_line, write_output
 from ..core.metrics import ConfusionMatrix, CostBasedArbitrator, Counters
+from ..core.obs import get_tracer, traced_run
 from ..core.schema import FeatureSchema
 from ..convert import predictor_tables_to_device
 from ..device import resolve_device
@@ -184,6 +195,16 @@ def _nb_local_rawbin(x, y, mask, n_class, max_bins, widths, out=None):
                                        mask=mask, out=out)
 
 
+def _aborting_salvage(builder, inner):
+    """A salvage callable that first aborts the ingest-cache build: the
+    artifact must equal a clean encode of the input bytes, and a
+    salvaged (quarantined) chunk means this scan's output does not."""
+    def salvage(chunk):
+        builder.abort()
+        return inner(chunk)
+    return salvage
+
+
 def rawbin_widths(enc: DatasetEncoder) -> Tuple[int, ...]:
     """Per feature column, the divisor that turns the ingest cache's raw
     integer into its bin: the bucket width, 1 for categorical codes (and
@@ -311,39 +332,81 @@ class BayesianDistribution:
             config.must("feature.schema.file.path"))
         self.device = resolve_device(device)
 
+    @traced_run
     def run(self, in_path: str, out_path: str) -> Counters:
         counters = Counters()
         delim_in = self.config.field_delim_regex()
         delim = self.config.field_delim_out()
-        lines = self._train_streamed(in_path, delim_in, delim, counters)
-        if lines is None:
-            ds = self._encode_monolithic(in_path, delim_in)
-            lines = self.train_lines(ds, delim, counters)
-        write_output(out_path, lines)
+        tracer = get_tracer()
+        with tracer.span("phase:train"):
+            lines = self._train_streamed(in_path, delim_in, delim, counters,
+                                         out_path=out_path)
+            if lines is None:
+                with tracer.span("phase:load"):
+                    ds = self._encode_monolithic(in_path, out_path, delim_in,
+                                                 counters)
+                lines = self.train_lines(ds, delim, counters)
+        with tracer.span("phase:emit"):
+            write_output(out_path, lines)
         return counters
 
-    def _encode_monolithic(self, in_path: str, delim_in: str) -> EncodedDataset:
-        """The one-shot encode, for inputs the chunked path cannot take."""
-        return DatasetEncoder(self.schema).encode_path(in_path, delim_in)
+    def _encode_monolithic(self, in_path: str, out_path: str,
+                           delim_in: str, counters: Counters
+                           ) -> EncodedDataset:
+        """The one-shot encode, for inputs the chunked path cannot take.
+        With an ``ingest.error.budget`` it first moves malformed rows to
+        the quarantine sidecar, as the chunked path does per chunk."""
+        from ..core.resilience import RowQuarantine, row_guard
+
+        enc = DatasetEncoder(self.schema)
+        quarantine = RowQuarantine.from_config(
+            self.config, out_path + ".quarantine")
+        if quarantine is None:
+            return enc.encode_path(in_path, delim_in)
+        guard = row_guard(enc)
+        good, bad = [], []
+        for line in read_lines(in_path):
+            fields = split_line(line, delim_in)
+            if guard(fields):
+                good.append(fields)
+            else:
+                bad.append(line)
+        if bad:
+            quarantine.record(bad, "rows rejected by schema guard")
+        quarantine.admit(len(good))
+        quarantine.finish(counters)
+        return enc.encode(good)
 
     def _train_streamed(self, in_path: str, delim_in: str, delim: str,
-                        counters: Counters) -> Optional[List[str]]:
-        """Chunked training through ``core.pipeline``: the encode, guards
-        and host moments of chunk c+1 run on the prefetch worker while
-        chunk c is copied and counted on the device.  Chunks are
+                        counters: Counters, out_path: Optional[str] = None
+                        ) -> Optional[List[str]]:
+        """Chunked training through ``core.pipeline``: the C encode,
+        guards and host moments of chunk c+1 run on the prefetch worker
+        while chunk c is copied and counted on the device.  Chunks are
         ``pipeline.chunk.rows`` rows (or derived from
         ``pipeline.device.budget.bytes``), else ``ingest.chunk.bytes``
-        bytes.  Count and class extents are capped from the schema and the
-        first chunk; data that overflows a cap, a negative bin or an input
-        the chunked encoder cannot take returns None, and the caller
-        re-runs the one-shot encode, so results always equal it.
+        bytes, and ``ingest.parse.threads`` > 1 parses them in parallel.
+        Count and class extents are capped from the schema and the first
+        chunk; data that overflows a cap, a negative bin or an input the
+        chunked encoder cannot take returns None, and the caller re-runs
+        the one-shot encode, so results always equal it.
 
         With the ingest cache enabled, a validated artifact for this input,
         encoder, delimiter and ``chunk_rows`` is replayed instead
         (``_train_warm``); on a miss this cold scan tees its encoded
-        chunks into a new artifact."""
+        chunks into a new artifact.
+
+        With ``checkpoint.interval.chunks`` set, a sidecar (carry,
+        encoder, stream state, quarantine counts, byte offset) is written
+        every N folded chunks, and ``--resume`` restarts mid-file with
+        byte-identical output; with ``ingest.error.budget`` set,
+        malformed rows go to a quarantine sidecar instead of failing the
+        chunk."""
         from ..core import ingestcache, pipeline
         from ..core.binning import ChunkedEncodeUnsupported
+        from ..core.checkpoint import StreamCheckpointer
+        from ..core.parparse import parse_threads_from_config
+        from ..core.resilience import RowQuarantine, salvage_chunk
 
         enc = DatasetEncoder(self.schema)
         F = len(enc.feature_fields)
@@ -351,44 +414,100 @@ class BayesianDistribution:
         # device-budget row estimate: an int32 x row + y
         chunk_rows = self.config.pipeline_chunk_rows(row_bytes=4 * (F + 1))
         depth = self.config.pipeline_prefetch_depth()
-        st = _NBStreamState(enc)
+        sidecar_base = out_path if out_path is not None else in_path
+        ck = StreamCheckpointer.from_config(
+            self.config, kind="nb-train", in_path=in_path,
+            default_path=sidecar_base + ".ckpt",
+            params={"chunk_bytes": chunk_bytes, "chunk_rows": chunk_rows,
+                    "delim": delim_in})
+        quarantine = RowQuarantine.from_config(
+            self.config, sidecar_base + ".quarantine")
 
+        st = _NBStreamState(enc)
+        start_offset = 0
+        initial_carry = None
+        resumed = False
+        if ck is not None and ck.resume:
+            payload = ck.load()
+            if payload is not None:
+                # the checkpointed encoder and stream state replace the
+                # fresh ones: vocabularies, caps, moments and budget
+                # counts continue where the checkpoint left them
+                enc = payload["state"]["enc"]
+                st = payload["state"]["st"]
+                if quarantine is not None and payload["state"].get("q"):
+                    quarantine.restore(payload["state"]["q"])
+                initial_carry = payload["carry"]
+                start_offset = payload["offset"]
+                resumed = True
+
+        # a resumed run keeps the cold path: its offset is into the raw
+        # file, not the cache
         cache = ingestcache.IngestCache.from_config(self.config, in_path,
                                                     enc, delim_in)
         builder = None
-        if cache is not None:
+        if cache is not None and not resumed:
             scan = cache.load(chunk_rows)
             if scan is not None:
-                return self._train_warm(scan, enc, st, counters, delim)
+                lines = self._train_warm(scan, enc, st, counters, delim,
+                                         quarantine)
+                if lines is not None and ck is not None:
+                    ck.complete()
+                return lines
             builder = cache.builder(chunk_rows)
+
+        salvage = (salvage_chunk(enc, quarantine, delim_in)
+                   if quarantine is not None else None)
+        if builder is not None and salvage is not None:
+            salvage = _aborting_salvage(builder, salvage)
         try:
-            gen = enc.encode_path_chunks(in_path, delim_in,
-                                         chunk_bytes=chunk_bytes,
-                                         chunk_rows=chunk_rows)
-            first, gen = pipeline.peek(gen)
-            if first is None:
-                return None
-            # declared categorical cardinalities are pre-seeded into the
-            # vocab, so the emit loop walks len(vocab) bins even when the
-            # data uses fewer: the count table must cover them
-            st.size_caps(first[0])
+            gen = enc.encode_path_chunks(
+                in_path, delim_in, chunk_bytes=chunk_bytes,
+                chunk_rows=chunk_rows, start_offset=start_offset,
+                with_offsets=True, salvage=salvage,
+                parse_threads=parse_threads_from_config(self.config))
+            if not resumed:
+                first, gen = pipeline.peek(gen)
+                if first is None:
+                    return None
+                # declared categorical cardinalities are pre-seeded into
+                # the vocab, so the emit loop walks len(vocab) bins even
+                # when the data uses fewer: the count table must cover them
+                st.size_caps(first[0])
 
             def chunks():
-                for x, values, y, n in gen:
+                # a checkpoint token pickles the host state here, when
+                # the chunk is produced: a prefetch worker running ahead
+                # cannot leak a later chunk's state into it
+                for x, values, y, n, idx, end in gen:
+                    if quarantine is not None:
+                        quarantine.admit(n)
                     out = st.accept(x, values, y, n)
                     if out is None:
                         continue
                     if builder is not None:
                         builder.add(x, values, y, n)
-                    yield out
+                    if ck is not None and ck.due(idx):
+                        token = ck.token(idx, end, {
+                            "enc": enc, "st": st,
+                            "q": (quarantine.state()
+                                  if quarantine is not None else None)})
+                        yield pipeline.Checkpointed(out, token)
+                    else:
+                        yield out
 
             total = pipeline.streaming_fold(
                 chunks(), _nb_local,
                 static_args=(st.n_class_cap, st.bins_cap),
-                device=self.device, prefetch_depth=depth)
+                device=self.device, prefetch_depth=depth,
+                checkpointer=ck, initial_carry=initial_carry)
         except ChunkedEncodeUnsupported:
             if builder is not None:
                 builder.abort()
+            if ck is not None:
+                # the fallback run supersedes any sidecar this attempt
+                # wrote: a stale checkpoint must not shadow it
+                ck.complete()
             return None
         if total is None:
             if builder is not None:
@@ -396,20 +515,28 @@ class BayesianDistribution:
             return None
         if builder is not None:
             builder.finish()
-        return self._streamed_model_lines(enc, st, total, counters, delim)
+        if quarantine is not None:
+            quarantine.finish(counters)
+        lines = self._streamed_model_lines(enc, st, total, counters, delim)
+        if ck is not None:
+            ck.complete()
+        return lines
 
     def _train_warm(self, scan, enc: DatasetEncoder, st: _NBStreamState,
-                    counters: Counters, delim: str) -> Optional[List[str]]:
+                    counters: Counters, delim: str,
+                    quarantine=None) -> Optional[List[str]]:
         """The warm half of ``_train_streamed``: replay the cache
         artifact's recorded chunks off mmap, with no parse and no encode,
-        through the same stream state (caps, guards, host moments), so
-        every output byte equals the cold run's.  With the raw matrix
-        present and ``ingest.cache.fused`` on, the fold ships the pre-bin
-        integers and bins inside the count (``_nb_local_rawbin``);
-        otherwise it folds the stored binned matrix with ``_nb_local``."""
+        through the same stream state (caps, guards, host moments,
+        quarantine accounting), so every output byte equals the cold
+        run's.  With the raw matrix present and ``ingest.cache.fused`` on,
+        the fold ships the pre-bin integers and bins inside the count
+        (``_nb_local_rawbin``); otherwise it folds the stored binned
+        matrix with ``_nb_local``."""
         from ..core import ingestcache, pipeline
         from ..core.binning import ChunkedEncodeUnsupported
 
+        tracer = get_tracer()
         scan.seed_encoder(enc)
         depth = self.config.pipeline_prefetch_depth()
         use_raw = (scan.xraw is not None and self.config.get_boolean(
@@ -425,7 +552,10 @@ class BayesianDistribution:
                     xraw, x, values, y, n, _ = item
                 else:
                     x, values, y, n, _ = item
-                out = st.accept(x, values, y, n)
+                with tracer.span("ingest.cache.read", rows=n):
+                    if quarantine is not None:
+                        quarantine.admit(n)
+                    out = st.accept(x, values, y, n)
                 if out is None:
                     continue
                 xs, ys = out
@@ -447,6 +577,8 @@ class BayesianDistribution:
             return None
         if total is None:
             return None
+        if quarantine is not None:
+            quarantine.finish(counters)
         return self._streamed_model_lines(enc, st, total, counters, delim)
 
     def _streamed_model_lines(self, enc: DatasetEncoder,
@@ -882,6 +1014,7 @@ class BayesianPredictor:
         return (ds, tables, probs.cpu().numpy(), feat_prior.cpu().numpy(),
                 feat_post.cpu().numpy())
 
+    @traced_run
     def run(self, in_path: str, out_path: str) -> Counters:
         """Score ``in_path`` and write one prediction line per record."""
         counters = Counters()

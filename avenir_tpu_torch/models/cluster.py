@@ -41,6 +41,7 @@ from typing import Dict, List, Optional
 from ..core.config import JobConfig
 from ..core.io import read_lines, split_line, write_output
 from ..core.metrics import Counters
+from ..core.obs import traced_run
 from ..device import resolve_device
 
 
@@ -135,6 +136,7 @@ class AgglomerativeGraphical:
     def _new_id(self) -> str:
         return "%032x" % self.rng.getrandbits(128)
 
+    @traced_run
     def run(self, in_path: str, out_path: str) -> Counters:
         counters = Counters()
         delim_regex = self.config.field_delim_regex()

@@ -38,6 +38,7 @@ import numpy as np
 from ..core.config import JobConfig
 from ..core.io import _input_files, read_lines, split_line, write_output
 from ..core.metrics import ConfusionMatrix, CostBasedArbitrator, Counters
+from ..core.obs import traced_run
 from ..core.schema import FeatureSchema
 from ..device import resolve_device
 from ..ops.distance import pairwise_distances
@@ -98,6 +99,7 @@ class SameTypeSimilarity:
                else np.zeros((len(records), 0), dtype=np.int32))
         return num, cat, np.asarray(num_w), np.asarray(cat_w)
 
+    @traced_run
     def run(self, in_path: str, out_path: str) -> Counters:
         counters = Counters()
         delim_regex = self.config.field_delim_regex()
@@ -203,6 +205,7 @@ class FeatureCondProbJoiner:
         self.config = config
         self.device = resolve_device(device)
 
+    @traced_run
     def run(self, in_path: str, out_path: str) -> Counters:
         counters = Counters()
         delim_regex = self.config.field_delim_regex()
@@ -423,6 +426,7 @@ class NearestNeighbor:
         parts.append(predicted)
         return delim.join(parts), predicted
 
+    @traced_run
     def run(self, in_path: str, out_path: str) -> Counters:
         counters = Counters()
         delim_regex = self.config.field_delim_regex()

@@ -18,18 +18,26 @@ again on the CPU:
 
 1. telecom-churn Naive Bayes at the repo's benchmark size (50,000 seeded
    rows repeated to 2,000,000; the first 1.6M train in 131,072-row chunks,
-   the last 400k are scored): cold training (kernel K1), the same training
-   with the ingest cache on and then warm off the cache (kernel K2, then
-   held at the cache's own first chunk), and float64 / float32 scoring,
-   with and without ``output.feature.prob.only`` (and each scorer's device
-   time with XLA's float math against torch's exp/log);
+   the last 400k are scored): cold training (the native C ingest, then
+   kernel K1), the same training with the ingest cache on and then warm
+   off the cache (kernel K2, then held at the cache's own first chunk),
+   and float64 / float32 scoring, with and without
+   ``output.feature.prob.only`` (and each scorer's device time with XLA's
+   float math against torch's exp/log); then the native ingest at
+   ``ingest.parse.threads`` 1 and 4 (rows/s, the encoder's share, the
+   device's idle share; the model held to the numpy-encoded one), kill ->
+   ``--resume`` after an ``h2d@9`` fault and a ``worker_death@8`` (and a
+   sidecar carried card to CPU and back), a checkpointed run's rate, and row
+   quarantine of 300 malformed rows under ``ingest.error.budget=0.01``
+   (model and sidecar, card against CPU);
 2. the kNN classification job at the width of the repo's kNN benchmark
    (16,384 training and 16,384 test rows of 256 numeric features,
    ``output.top.matches=16``, kernel K3 and its segment merge), then
    top-16 voting, through ``avenir_tpu_torch.cli.main``;
 3. the ``resource/knn_classify/run.sh`` sequence at its 120-row size.
 
-Kernel counts are set to 0 just before each path and read just after.
+Kernel counts (and the native encoder's call count) are set to 0 just
+before each path and read just after.
 Outputs must be byte-identical between the card and the CPU, except kNN
 pair lines whose distance lands on an int-scale rounding boundary: those
 may differ by one unit, and a float64 oracle must confirm them.
@@ -46,6 +54,7 @@ import io
 import json
 import math
 import os
+import pickle
 import shutil
 import subprocess
 import sys
@@ -692,32 +701,44 @@ def scorer_cost(torch, ds, tables, card: str) -> None:
             f"exp/log [{card}]")
 
 
-def nb_breakdown(torch, train_dir: str, base_cfg: dict, cache_cfg: dict,
-                 card: str) -> None:
-    """Where the training time goes: the host encode alone (host clock),
-    then one more cold training run on the card under ``torch.profiler``,
-    and one more warm run off the ingest cache (K2's device time per
-    launch on the main path; its copies: the chunks', no widths)."""
+def native_breakdown(torch, train_dir: str, threads: int, card: str
+                     ) -> None:
+    """Where the cold training time goes at ``ingest.parse.threads`` =
+    ``threads``: the native chunk encode alone (host clock), its share of
+    one more cold training run on the card under ``torch.profiler``, and
+    the device's busy and idle share in that run."""
     from avenir_tpu_torch.core.binning import DatasetEncoder
     from avenir_tpu_torch.core.config import JobConfig
     from avenir_tpu_torch.core.schema import FeatureSchema
     from avenir_tpu_torch.models.bayesian import BayesianDistribution
 
+    cfg = dict(NB_CFG, **{"ingest.parse.threads": str(threads)})
     enc = DatasetEncoder(FeatureSchema.from_file(SCHEMA))
     t = time.perf_counter()
-    rows = sum(c[3] for c in enc.encode_path_chunks(train_dir, ",",
-                                                     chunk_rows=CHUNK_ROWS))
+    rows = sum(c[3] for c in enc.encode_path_chunks(
+        train_dir, ",", chunk_rows=CHUNK_ROWS, parse_threads=threads))
     encode_s = time.perf_counter() - t
     if rows != TRAIN_ROWS:
         raise AssertionError(f"encoder saw {rows} rows, not {TRAIN_ROWS}")
     by_kind, wall_s = profile_device(
         torch, lambda: BayesianDistribution(
-            JobConfig(dict(base_cfg)), device="cuda").run(
-            train_dir, os.path.join(WORK, "model_profiled")),
+            JobConfig(cfg), device="cuda").run(
+            train_dir, os.path.join(WORK, f"model_profiled_t{threads}")),
         {"histogram kernel": "histogram_kernel"})
-    log(f"train breakdown: host encode alone {encode_s:.3f} s of a "
-        f"{wall_s:.3f} s profiled train run [{card}]")
+    log(f"NB cold train breakdown, parse threads {threads}: native encode "
+        f"alone {encode_s:.3f} s ({TRAIN_ROWS / encode_s:.0f} rows/s), "
+        f"encoder share {encode_s / wall_s:.4f} of a {wall_s:.3f} s profiled "
+        f"train run [{card}]")
     report_device(by_kind, wall_s, "histogram kernel", card)
+
+
+def warm_breakdown(torch, train_dir: str, cache_cfg: dict, card: str) -> None:
+    """One more warm run off the ingest cache under ``torch.profiler``
+    (K2's device time per launch on the main path; its copies: the
+    chunks', no widths)."""
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.models.bayesian import BayesianDistribution
+
     by_kind, wall_s = profile_device(
         torch, lambda: BayesianDistribution(
             JobConfig(dict(cache_cfg)), device="cuda").run(
@@ -784,6 +805,7 @@ def nb_paths(torch, histogram, train_dir, test_dir, card) -> dict:
     """NB cold training (K1), then with the ingest cache on, cold and
     warm (K2), then scoring; every output held against the CPU run.
     Returns the main-path launches ``{"K1": n, "K2": n}``."""
+    from avenir_tpu_torch import native
     from avenir_tpu_torch.core.config import JobConfig
     from avenir_tpu_torch.core.io import read_lines, split_line
     from avenir_tpu_torch.models.bayesian import (BayesianDistribution,
@@ -815,17 +837,23 @@ def nb_paths(torch, histogram, train_dir, test_dir, card) -> dict:
     def w(name):
         return os.path.join(WORK, name)
 
-    # -- cold training: K1 ------------------------------------------------
+    # -- cold training: the native C ingest, then K1 ------------------------
     histogram.reset_launch_counts()
+    native.reset_call_counts()
     counters, train_s = train("cuda", w("model_cuda"))
     launches = {"K1": histogram.K1_LAUNCHES}
     log(f"NB cold train launches: K1 {histogram.K1_LAUNCHES}, K2 "
-        f"{histogram.K2_LAUNCHES}; chunks {counters.get('Ingest', 'Chunks')}")
+        f"{histogram.K2_LAUNCHES}; native encode calls "
+        f"{native.ENCODE_CALLS}; chunks {counters.get('Ingest', 'Chunks')}")
     if (launches["K1"] != n_chunks or histogram.K2_LAUNCHES
             or counters.get("Ingest", "Chunks") != n_chunks):
         raise AssertionError(f"K1 launched {launches['K1']} times on the "
                              f"cold path; expected one per chunk "
                              f"({n_chunks})")
+    if native.ENCODE_CALLS != n_chunks:
+        raise AssertionError(f"the native encoder ran {native.ENCODE_CALLS} "
+                             f"times on the cold path; expected one per "
+                             f"chunk ({n_chunks})")
 
     # -- the ingest cache: a cold run writes it, a warm run replays it: K2
     _, cache_cold_s = train("cuda", w("model_cache_cold"), cache_cfg)
@@ -899,8 +927,212 @@ def nb_paths(torch, histogram, train_dir, test_dir, card) -> dict:
         f"float64 (cpu): {n_test / score64_cpu_s:.0f} rows/s")
     log("NB model (cold, cache-writing, warm), float64 predictions and both "
         "prob-only outputs: byte-identical cuda vs cpu")
-    nb_breakdown(torch, train_dir, base_cfg, cache_cfg, card)
+    warm_breakdown(torch, train_dir, cache_cfg, card)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# NB on the native ingest: parse threads, kill -> resume, quarantine
+# ---------------------------------------------------------------------------
+
+BAD_ROWS = 300          # malformed rows in the quarantine phase's input
+BAD_CHUNKS = (3, 10)    # the chunks (of the clean input) that hold them
+
+
+def numpy_encoded_model(train_dir: str) -> bytes:
+    """The model of the numpy one-shot encode (``io.read_field_matrix``,
+    then ``DatasetEncoder.encode``), counted in one pass on the card: the
+    native ingest's plain version at the main path's size."""
+    from avenir_tpu_torch.core.binning import DatasetEncoder
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.core.io import read_field_matrix, write_output
+    from avenir_tpu_torch.core.metrics import Counters
+    from avenir_tpu_torch.core.schema import FeatureSchema
+    from avenir_tpu_torch.models.bayesian import BayesianDistribution
+
+    ds = DatasetEncoder(FeatureSchema.from_file(SCHEMA)).encode(
+        read_field_matrix(train_dir, ","))
+    lines = BayesianDistribution(JobConfig(dict(NB_CFG)), device="cuda") \
+        .train_lines(ds, ",", Counters())
+    out = os.path.join(WORK, "model_numpy")
+    write_output(out, lines)
+    return read_bytes(out)
+
+
+def write_dirty_data(train_dir: str) -> str:
+    """The training input with ``BAD_ROWS`` malformed rows (short rows and
+    unparseable numbers, alternately) spread over two chunks."""
+    with open(os.path.join(train_dir, "part-00000")) as fh:
+        lines = fh.read().splitlines()
+    per = BAD_ROWS // len(BAD_CHUNKS)
+    at = {c * CHUNK_ROWS + 17 + i * (CHUNK_ROWS // per)
+          for c in BAD_CHUNKS for i in range(per)}
+    out = []
+    for i, line in enumerate(lines):
+        out.append(line)
+        if i in at:
+            out.append("garbage,row" if i % 2 else
+                       line.rsplit(",", 2)[0] + ",noNum,Y")
+    dirty_dir = os.path.join(WORK, "dirty")
+    os.makedirs(dirty_dir)
+    with open(os.path.join(dirty_dir, "part-00000"), "w") as fh:
+        fh.write("\n".join(out) + "\n")
+    return dirty_dir
+
+
+def nb_native_paths(torch, histogram, train_dir: str, card: str) -> None:
+    """The cold training path's native ingest and resilience layer on the
+    card: ``ingest.parse.threads`` 1 and 4 (models, launches, rows/s,
+    encoder share, device idle share); kill -> ``--resume`` after an
+    ``h2d`` fault (through the CLI) and a prefetch worker death, and
+    across devices both ways; a checkpointed run's rate beside the clean
+    run's; row quarantine under an error budget, card against CPU.  Every
+    model must equal the clean cold model."""
+    from avenir_tpu_torch import native
+    from avenir_tpu_torch.core import faultinject
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.core.io import _durability_counters
+    from avenir_tpu_torch.models.bayesian import BayesianDistribution
+
+    n_chunks = math.ceil(TRAIN_ROWS / CHUNK_ROWS)
+    clean = read_bytes(os.path.join(WORK, "model_cuda"))
+
+    def w(name):
+        return os.path.join(WORK, name)
+
+    def train(device, out, cfg, src=train_dir):
+        t = time.perf_counter()
+        counters = BayesianDistribution(JobConfig(dict(cfg)),
+                                        device=device).run(src, out)
+        return counters, time.perf_counter() - t
+
+    # -- parse threads 1 and 4 ----------------------------------------------
+    if numpy_encoded_model(train_dir) != clean:
+        raise AssertionError("the native-encoded model differs from the "
+                             "numpy-encoded one")
+    for threads in (1, 4):
+        cfg = dict(NB_CFG, **{"ingest.parse.threads": str(threads)})
+        histogram.reset_launch_counts()
+        native.reset_call_counts()
+        _, train_s = train("cuda", w(f"model_t{threads}"), cfg)
+        k1, calls = histogram.K1_LAUNCHES, native.ENCODE_CALLS
+        if k1 != n_chunks or histogram.K2_LAUNCHES or calls != n_chunks:
+            raise AssertionError(f"parse threads {threads}: K1 {k1}, native "
+                                 f"encode calls {calls}; expected "
+                                 f"{n_chunks} each")
+        # the clean cold model equals the CPU run's (nb_paths checks it)
+        if read_bytes(w(f"model_t{threads}")) != clean:
+            raise AssertionError(f"parse threads {threads}: model differs "
+                                 f"from the clean cold model")
+        log(f"NB cold train, native ingest, parse threads {threads}: "
+            f"{TRAIN_ROWS / train_s:.0f} rows/s ({train_s:.3f} s); K1 "
+            f"launches {k1}, native encode calls {calls}; model "
+            f"byte-identical to the CPU run and to the numpy-encoded model "
+            f"[{card}]")
+        native_breakdown(torch, train_dir, threads, card)
+
+    # -- checkpointing, kill -> resume ----------------------------------------
+    ck_cfg = dict(NB_CFG, **{"checkpoint.interval.chunks": "3"})
+    _, clean_s = train("cuda", w("model_clean_again"), NB_CFG)
+    _, ck_s = train("cuda", w("model_ckpt"), ck_cfg)
+    if read_bytes(w("model_ckpt")) != clean or os.path.exists(
+            w("model_ckpt") + ".ckpt"):
+        raise AssertionError("the checkpointed run's model differs or its "
+                             "sidecar was left")
+    log(f"NB cold train with checkpoint.interval.chunks=3: "
+        f"{TRAIN_ROWS / ck_s:.0f} rows/s ({ck_s:.3f} s) beside "
+        f"{TRAIN_ROWS / clean_s:.0f} rows/s ({clean_s:.3f} s) without "
+        f"[{card}]")
+
+    cli_base = ["BayesianDistribution"] + [f"-D{k}={v}"
+                                           for k, v in ck_cfg.items()]
+    # (plan, the error it must die with, where it dies, where it resumes);
+    # the first goes through the command line, the sidecar of the last two
+    # crosses devices
+    kills = (("h2d@9", faultinject.InjectedFault, "cuda", "cuda"),
+             ("worker_death@8", RuntimeError, "cuda", "cuda"),
+             ("h2d@9", faultinject.InjectedFault, "cuda", "cpu"),
+             ("h2d@9", faultinject.InjectedFault, "cpu", "cuda"))
+    for n, (plan, dies_with, kill_on, resume_on) in enumerate(kills):
+        out = w(f"model_kill_{n}")
+        try:
+            if n == 0:
+                run_job(cli_base + [f"-Dfault.inject.plan={plan}", train_dir,
+                                    out])
+            else:
+                faultinject.set_injector(faultinject.FaultInjector(
+                    faultinject.parse_plan(plan)))
+                train(kill_on, out, ck_cfg)
+        except dies_with as e:
+            died = f"{type(e).__name__}: {e}"
+            if dies_with is RuntimeError and "died without" not in died:
+                raise
+        else:
+            raise AssertionError(f"{plan}: the run did not die")
+        finally:
+            faultinject.set_injector(None)
+        if not os.path.exists(out + ".ckpt"):
+            raise AssertionError(f"{plan}: the killed run left no sidecar")
+        with open(out + ".ckpt", "rb") as fh:
+            left = n_chunks - (pickle.load(fh)["chunk_index"] + 1)
+        durability = _durability_counters().as_dict().get("Durability", {})
+        histogram.reset_launch_counts()
+        native.reset_call_counts()
+        if n == 0:
+            run_job(cli_base + [train_dir, out, "--resume"])
+        else:
+            train(resume_on, out, dict(ck_cfg, **{"checkpoint.resume":
+                                                  "true"}))
+        if read_bytes(out) != clean or os.path.exists(out + ".ckpt"):
+            raise AssertionError(f"{plan}: the resumed model differs from "
+                                 f"the clean run, or the sidecar was left")
+        # the run went on from the sidecar: it parsed and folded only the
+        # chunks the sidecar did not cover, and refused no generation (a
+        # sidecar that failed to load would restart the run from the top
+        # and still write the clean model)
+        k1 = histogram.K1_LAUNCHES
+        calls = native.ENCODE_CALLS
+        if (calls != left or k1 != (left if resume_on == "cuda" else 0)
+                or _durability_counters().as_dict().get("Durability", {})
+                != durability):
+            raise AssertionError(
+                f"{plan}: resumed on {resume_on} with {calls} native encode "
+                f"calls and {k1} K1 launches, the sidecar leaving {left} "
+                f"chunks; Durability "
+                f"{_durability_counters().as_dict().get('Durability')}")
+        log(f"kill -> resume ({plan}, killed on {kill_on} by {died}; "
+            f"resumed on {resume_on} from the sidecar, {left} of {n_chunks} "
+            f"chunks left: native encode calls {calls}, K1 launches {k1}): "
+            f"model byte-identical to the clean run, no sidecar left "
+            f"[{card}]")
+
+    # -- row quarantine ----------------------------------------------------
+    dirty_dir = write_dirty_data(train_dir)
+    q_cfg = dict(NB_CFG, **{"ingest.error.budget": "0.01"})
+    sidecars = {}
+    for dev in ("cuda", "cpu"):
+        out = w(f"model_quarantine_{dev}")
+        counters, q_s = train(dev, out, q_cfg, src=dirty_dir)
+        if counters.get("Ingest", "Quarantined rows") != BAD_ROWS:
+            raise AssertionError(f"{dev}: quarantined "
+                                 f"{counters.get('Ingest', 'Quarantined rows')}"
+                                 f" rows, not {BAD_ROWS}")
+        with open(out + ".quarantine", "rb") as fh:
+            sidecars[dev] = fh.read()
+        if dev == "cuda":
+            log(f"NB cold train with {BAD_ROWS} malformed rows quarantined: "
+                f"{TRAIN_ROWS / q_s:.0f} rows/s ({q_s:.3f} s) [{card}]")
+    if (read_bytes(w("model_quarantine_cuda"))
+            != read_bytes(w("model_quarantine_cpu"))
+            or sidecars["cuda"] != sidecars["cpu"]):
+        raise AssertionError("quarantine: model or sidecar differs between "
+                             "cuda and cpu")
+    if read_bytes(w("model_quarantine_cuda")) != clean:
+        raise AssertionError("quarantine: the model differs from the clean "
+                             "input's")
+    log(f"row quarantine (ingest.error.budget=0.01, {BAD_ROWS} bad rows): "
+        f"model and .quarantine sidecar byte-identical cuda vs cpu, model "
+        f"equal to the clean input's [{card}]")
 
 
 # ---------------------------------------------------------------------------
@@ -1183,6 +1415,7 @@ def main() -> int:
 
     # -- the main paths, on the card and on the CPU --------------------------
     launches = nb_paths(torch, histogram, train_dir, test_dir, card)
+    nb_native_paths(torch, histogram, train_dir, card)
     # K2 at the warm path's own first chunk, from the cache it replayed
     entries.append(histogram_entry(
         main_path_warm_chunk(torch, train_dir, NB_CACHE_CFG)))

@@ -6,6 +6,11 @@ tests/test_knn.py.  The JAX side runs both of its exact engines as its
 own tests run them: the sorted engine, and the fused Pallas kernel in
 interpret mode on a one-device mesh.
 
+The engines' parity cases (``test_engines_match_reference``) take the
+reference's answers from a fresh interpreter (``reference_answers``), set
+up as tests/conftest.py sets up this one: the answer the port is held to
+cannot depend on what earlier tests left in this process's JAX runtime.
+
 Tolerance: the reference's own kNN contract (ops/distance.py:454-458).
 Two implementations compute the float32 cross term in different orders,
 so a distance that lands on an int-scale rounding boundary may differ by
@@ -16,6 +21,9 @@ integer-valued every sum is exact and the results must be equal.
 """
 
 import math
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -65,15 +73,20 @@ def _agree(got, want, operands, algorithm="euclidean", exact=False):
         return
     assert np.abs(gv.astype(np.int64) - wv).max(initial=0) <= 1
     rows = np.flatnonzero((gv != wv).any(1) | (gi != wi).any(1))
-    assert rows.size <= max(1, len(gv) // 100), f"{rows.size} rows differ"
-    if rows.size:
-        qn, qc, tn, tc, nw, cw = operands
-        d = _oracle(qn[rows], qc[rows], tn, tc, nw, cw, algorithm)
-        k = gv.shape[1]
-        best = np.sort(d, axis=1)[:, :k]
-        for j in range(rows.size):
-            for idx in (gi[rows[j]], wi[rows[j]]):
-                assert np.abs(np.sort(d[j, idx]) - best[j]).max() <= 1
+    if not rows.size:
+        return
+    qn, qc, tn, tc, nw, cw = operands
+    d = _oracle(qn[rows], qc[rows], tn, tc, nw, cw, algorithm)
+    k = gv.shape[1]
+    best = np.sort(d, axis=1)[:, :k]
+    ok = np.array([[np.abs(np.sort(d[j, idx[rows[j]]]) - best[j]).max() <= 1
+                    for idx in (gi, wi)] for j in range(rows.size)])
+    # which side the oracle confirms, so a failure names the side that
+    # moved
+    assert rows.size <= max(1, len(gv) // 100), (
+        f"{rows.size} rows differ ({rows.tolist()}); oracle-confirmed: "
+        f"got {int(ok[:, 0].sum())}, want {int(ok[:, 1].sum())}")
+    assert ok.all(), f"rows {rows[~ok.all(1)].tolist()} fail the oracle"
 
 
 def _both_jax(operands, k, mesh1, algorithm="euclidean", fused=True):
@@ -130,15 +143,107 @@ CASES = {
 }
 
 
+# Answers computed in a fresh interpreter set up as tests/conftest.py sets
+# up this one (8 virtual CPU devices, x64, the one-device mesh).  argv[1]
+# is the .npz to write; argv[3] is "reference" (the JAX package's answers
+# to every case of CASES) or "port:<case>:<method>" (the port's answer to
+# one case).
+_FRESH_SCRIPT = """
+import os, sys
+flags = os.environ.get("XLA_FLAGS", "")
+if "xla_force_host_platform_device_count" not in flags:
+    os.environ["XLA_FLAGS"] = (
+        flags + " --xla_force_host_platform_device_count=8").strip()
+import jax
+jax.config.update("jax_platforms", "cpu")
+import avenir_tpu
+avenir_tpu.enable_x64()
+import numpy as np
+from avenir_tpu.parallel import make_mesh
+sys.path.insert(0, os.path.dirname(os.path.abspath(sys.argv[2])))
+import test_torch_distance as t
+out = {}
+if sys.argv[3] == "reference":
+    mesh1 = make_mesh(devices=jax.devices()[:1])
+    for name, (make, k, algorithm, exact, jax_fused) in t.CASES.items():
+        refs = t._both_jax(make(), k, mesh1, algorithm, fused=jax_fused)
+        for i, (v, idx) in enumerate(refs):
+            out[f"{name}/{i}/v"] = np.asarray(v)
+            out[f"{name}/{i}/i"] = np.asarray(idx)
+else:
+    _, name, method = sys.argv[3].split(":")
+    make, k, algorithm, _, _ = t.CASES[name]
+    v, idx = t._port(make(), k, method, algorithm)
+    out["v"], out["i"] = np.asarray(v), np.asarray(idx)
+np.savez(sys.argv[1], **out)
+"""
+
+
+def _fresh(out_dir, mode):
+    """Run ``_FRESH_SCRIPT`` in ``mode``; returns its arrays."""
+    out = os.path.join(str(out_dir), mode.replace(":", "_") + ".npz")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+    run = subprocess.run([sys.executable, "-c", _FRESH_SCRIPT, out,
+                          os.path.abspath(__file__), mode],
+                         cwd=repo, env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert run.returncode == 0, run.stderr
+    return np.load(out)
+
+
+@pytest.fixture(scope="module")
+def reference_answers(tmp_path_factory):
+    """``{case: [(values, indices), ...]}``: the JAX package's sorted
+    engine (and its fused engine where the case runs it) on every case
+    of CASES, from a fresh interpreter."""
+    z = _fresh(tmp_path_factory.mktemp("reference"), "reference")
+    answers = {}
+    for name in CASES:
+        n = sum(1 for key in z.files if key.startswith(f"{name}/")) // 2
+        answers[name] = [(z[f"{name}/{i}/v"], z[f"{name}/{i}/i"])
+                         for i in range(n)]
+    return answers
+
+
+def _moved(a, b):
+    """How many rows of two (values, indices) answers differ."""
+    return int(((a[0] != b[0]).any(1) | (a[1] != b[1]).any(1)).sum())
+
+
+def _which_side_moved(name, method, got, refs, ops, mesh1, tmp_dir):
+    """For a failed parity case: the port's answer recomputed in a fresh
+    interpreter and the reference's recomputed in this one, each held
+    against the answer the case used."""
+    make, k, algorithm, _, jax_fused = CASES[name]
+    z = _fresh(tmp_dir, f"port:{name}:{method}")
+    port_rows = _moved((np.asarray(got[0]), np.asarray(got[1])),
+                       (z["v"], z["i"]))
+    here = _both_jax(ops, k, mesh1, algorithm, fused=jax_fused)
+    ref_rows = [_moved((np.asarray(v), np.asarray(i)), ref)
+                for (v, i), ref in zip(here, refs)]
+    return (f"port {method}: {port_rows} rows differ from a fresh "
+            f"interpreter's answer; reference (this process against a fresh "
+            f"interpreter): {ref_rows} rows differ")
+
+
 @pytest.mark.parametrize("name", list(CASES))
-def test_engines_match_reference(name, mesh1):
+def test_engines_match_reference(name, reference_answers, mesh1, tmp_path):
     make, k, algorithm, exact, jax_fused = CASES[name]
     ops = make()
-    refs = _both_jax(ops, k, mesh1, algorithm, fused=jax_fused)
+    refs = reference_answers[name]
+    assert len(refs) == (2 if jax_fused else 1)
     for method in ("fused", "sorted"):
         got = _port(ops, k, method, algorithm)
         for ref in refs:
-            _agree(got, ref, ops, algorithm, exact=exact)
+            try:
+                _agree(got, ref, ops, algorithm, exact=exact)
+            except AssertionError as e:
+                # name the side whose answer depends on this process
+                where = _which_side_moved(name, method, got, refs, ops,
+                                          mesh1, tmp_path)
+                raise AssertionError(f"{e}\n{where}") from None
 
 
 def _adversarial(weights):
