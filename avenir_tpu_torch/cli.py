@@ -1,5 +1,8 @@
 """Job driver: ``python -m avenir_tpu_torch <Job|FQCN> -Dconf.path=<props>
-<in> <out> [--device cpu|cuda] [--resume] [--trace <out.json>]``.
+<in> <out> [--device cpu|cuda] [--resume] [--trace <out.json>]``, and the
+prediction server: ``python -m avenir_tpu_torch serve
+-Dconf.path=<serve.properties> [--device cpu|cuda] [--trace <out.json>]
+[--metrics-out <series.jsonl>]`` (serve.server).
 
 The same invocation, ``.properties`` files, schema JSONs and in/out
 directory layout as the reference package's ``python -m avenir_tpu``; job
@@ -10,8 +13,10 @@ asks for the CPU, and fail when there is no card.
 from its sidecar checkpoint when one exists (core.checkpoint).
 ``--trace <out.json>`` turns the tracer on and writes its spans as
 Chrome/Perfetto trace JSON when the job ends (core.obs).  Before the job
-is built, the resilience keys are applied: ``retry.*`` (core.resilience)
-and ``fault.inject.plan`` (core.faultinject).
+is built, the resilience keys are applied: ``sanitize.locks``
+(core.sanitizer), ``retry.*`` (core.resilience), ``fault.inject.plan``
+(core.faultinject), ``io.require.success`` (core.io) and ``flight.*``
+(core.flight).
 """
 
 from __future__ import annotations
@@ -48,8 +53,9 @@ def resolve(name: str) -> tuple:
                      + "\n  ".join(sorted(JOBS)))
 
 
-def _extract_device(argv):
-    """Pull ``--device X`` / ``--device=X`` out of an argument vector."""
+def extract_device_flag(argv):
+    """Pull ``--device X`` / ``--device=X`` out of an argument vector;
+    returns (remaining argv, device or None)."""
     out, device, i = [], None, 0
     while i < len(argv):
         a = argv[i]
@@ -89,6 +95,17 @@ def _extract_value_flag(argv, flag: str):
     return out, value
 
 
+def extract_trace_flag(argv):
+    """Pull ``--trace <out.json>`` out of an argument vector."""
+    return _extract_value_flag(argv, "--trace")
+
+
+def extract_metrics_out_flag(argv):
+    """Pull ``--metrics-out <path>`` out of an argument vector: the path
+    of the periodic telemetry exporter's JSONL series (core.telemetry)."""
+    return _extract_value_flag(argv, "--metrics-out")
+
+
 def extract_resume_flag(argv):
     """Pull ``--resume`` out of an argument vector; returns (remaining
     argv, bool)."""
@@ -97,11 +114,16 @@ def extract_resume_flag(argv):
 
 
 def configure_resilience(config) -> None:
-    """Apply the retry policy and the fault plan of ``config`` to this
-    process."""
-    from .core import faultinject, resilience
+    """Apply the resilience config surfaces of ``config`` to this process
+    (lock sanitizer, retry policy, fault plan, the io durability strict
+    mode, the flight recorder) before any engine or server is built, so
+    ``sanitize.locks=true`` catches every lock."""
+    from .core import faultinject, flight, io, resilience, sanitizer
+    sanitizer.configure_from_config(config)
     resilience.configure_from_config(config)
     faultinject.configure_from_config(config)
+    io.configure_from_config(config)
+    flight.configure_from_config(config)
 
 
 def main(argv: Optional[list] = None) -> int:
@@ -110,12 +132,19 @@ def main(argv: Optional[list] = None) -> int:
         print("usage: python -m avenir_tpu_torch <JobClass> "
               "-Dconf.path=<props> <in> <out> [--device cpu|cuda] "
               "[--resume] [--trace <out.json>]\n"
+              "       python -m avenir_tpu_torch serve "
+              "-Dconf.path=<serve.properties> [--device cpu|cuda] "
+              "[--trace <out.json>] [--metrics-out <series.jsonl>]\n"
               "known jobs:\n  " + "\n  ".join(sorted(JOBS)), file=sys.stderr)
         return 2
     job_name, rest = argv[0], argv[1:]
+    if job_name == "serve":
+        # the online prediction server (serve.server)
+        from .serve.server import serve_main
+        return serve_main(rest)
     module, clsname, prefix = resolve(job_name)
-    rest, device = _extract_device(rest)
-    rest, trace_path = _extract_value_flag(rest, "--trace")
+    rest, device = extract_device_flag(rest)
+    rest, trace_path = extract_trace_flag(rest)
     rest, resume = extract_resume_flag(rest)
     defines, positional = parse_cli_args(rest)
     if len(positional) < 2:

@@ -1,5 +1,5 @@
 """Text I/O: the port's copy of the parts of ``avenir_tpu/core/io.py`` the
-Naive Bayes jobs use.
+ported jobs and the server use.
 
 Delimited records come in from a file or from every part file of a job
 output directory (non-hidden files, sorted); job output goes out as
@@ -7,12 +7,15 @@ output directory (non-hidden files, sorted); job output goes out as
 written to a temporary file in the same directory and published with
 ``fsync`` and ``os.replace``, so a crash never leaves a torn file under
 the final name.  Every output directory also gets the reference's
-``_MANIFEST`` sidecar (per-part byte length and sha1).  The ingest cache
-validates its artifacts against it (``validate_artifact_dir``);
-``read_lines`` does not validate job inputs yet (nor does the port read
-``io.require.success``), and the in-memory artifact store is not ported.
-Recovery events of the streaming checkpoint count in the process-global
-``Durability`` group.
+``_MANIFEST`` sidecar (per-part byte length and sha1).
+
+A directory input is validated on read (``_input_files``), as the
+reference does: with ``io.require.success=true``
+(:func:`configure_from_config`) a directory without ``_SUCCESS`` is
+refused, and a part whose size or sha1 disagrees with the ``_MANIFEST``
+raises :class:`TornArtifactError`.  Recovery and validation events count
+in the ``Durability`` group of the process-global telemetry registry.
+The in-memory artifact store is not ported.
 """
 
 from __future__ import annotations
@@ -22,35 +25,65 @@ import json
 import os
 import re
 import tempfile
-from typing import Dict, Iterable, Iterator, List, Optional
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
-from .metrics import Counters
+KEY_REQUIRE_SUCCESS = "io.require.success"
 
 SUCCESS_NAME = "_SUCCESS"
 MANIFEST_NAME = "_MANIFEST"
 MANIFEST_VERSION = 1
 
-_DURABILITY = Counters()
-
 
 class TornArtifactError(RuntimeError):
     """An artifact directory failed validation: a part whose size or sha1
     disagrees with the ``_MANIFEST``, a part the manifest does not list,
-    or a listed part that is gone."""
+    a listed part that is gone, or (with ``io.require.success``) a
+    missing ``_SUCCESS`` marker.  Every construction marks the flight
+    recorder's ring (core.flight), as the reference's does."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        from . import flight
+        try:
+            flight.trigger("torn_artifact", detail=str(self))
+        except Exception:                               # noqa: BLE001
+            pass        # the black box must never mask the real error
 
 
-def _durability_counters() -> Counters:
-    """The process-global ``Durability`` counter group."""
-    return _DURABILITY
+_REQUIRE_SUCCESS = False
+
+
+def set_require_success(flag: bool) -> bool:
+    """Install the strict ``_SUCCESS``-marker mode for directory inputs;
+    returns the previous setting so callers can restore it."""
+    global _REQUIRE_SUCCESS
+    prev = _REQUIRE_SUCCESS
+    _REQUIRE_SUCCESS = bool(flag)
+    return prev
+
+
+def configure_from_config(config) -> None:
+    """Apply the ``io.*`` config surface (the CLI entry points call it
+    next to the resilience configure)."""
+    set_require_success(config.get_boolean(KEY_REQUIRE_SUCCESS, False))
+
+
+def _durability_counters():
+    """The process-global ``Durability`` counter group (it rides the
+    telemetry registry, so ``--metrics-out`` exports recovery events)."""
+    from . import telemetry
+    return telemetry.get_metrics().counters
 
 
 def _input_files(path: str) -> List[str]:
     if os.path.isdir(path):
-        return sorted(
+        files = sorted(
             os.path.join(path, f)
             for f in os.listdir(path)
             if not f.startswith(("_", ".")) and os.path.isfile(os.path.join(path, f))
         )
+        validate_artifact_dir(path, files)
+        return files
     return [path]
 
 
@@ -140,40 +173,74 @@ def load_manifest(dir_path: str) -> Optional[dict]:
             raise ValueError("manifest has no parts table")
         return doc
     except (ValueError, OSError) as e:
+        _durability_counters().incr("Durability", "Torn artifacts")
         raise TornArtifactError(f"{mpath} is unreadable ({e}): artifact "
                                 f"torn; re-run the producing job") from None
 
 
+#: validation memo: (dir abspath) -> (manifest stat sig, part stat sigs),
+#: so repeated reads of an unchanged artifact hash its parts once
+_VALIDATED: Dict[str, Tuple] = {}
+_VALIDATED_CAP = 256
+
+
+def _stat_sig(path: str):
+    st = os.stat(path)
+    return (st.st_size, st.st_mtime_ns)
+
+
+def _torn(message: str) -> TornArtifactError:
+    _durability_counters().incr("Durability", "Torn artifacts")
+    return TornArtifactError(message)
+
+
 def validate_artifact_dir(path: str, files: List[str]) -> None:
-    """Check every part in ``files`` against the directory's
-    ``_MANIFEST`` (byte length and sha1), and that every listed part
-    still exists.  A directory without a manifest passes.  Raises
+    """Durability validation of one directory input: the strict
+    ``_SUCCESS`` check (``io.require.success=true``), then, when a
+    ``_MANIFEST`` is present, every part in ``files`` against it (byte
+    length and sha1) and every listed part still on disk.  Raises
     :class:`TornArtifactError` naming the path and the part."""
-    doc = load_manifest(path)
-    if doc is None:
+    if _REQUIRE_SUCCESS and not os.path.exists(
+            os.path.join(path, SUCCESS_NAME)):
+        _durability_counters().incr("Durability", "Unmarked inputs refused")
+        raise TornArtifactError(
+            f"{path}: no {SUCCESS_NAME} marker — the producing job did not "
+            f"complete (half-written upstream output?); re-run the "
+            f"producer or unset {KEY_REQUIRE_SUCCESS}")
+    mpath = os.path.join(path, MANIFEST_NAME)
+    if not os.path.exists(mpath):
         return
-    parts = doc["parts"]
+    ap = os.path.abspath(path)
+    sig = (_stat_sig(mpath), tuple(_stat_sig(fp) for fp in files))
+    if _VALIDATED.get(ap) == sig:
+        return
+    parts = load_manifest(path)["parts"]
     for fp in files:
         name = os.path.basename(fp)
         rec = parts.get(name)
         if not isinstance(rec, dict):
-            raise TornArtifactError(f"{path}: part {name} is not in "
-                                    f"{MANIFEST_NAME}")
+            raise _torn(f"{path}: part {name} is not in {MANIFEST_NAME}")
         size = os.path.getsize(fp)
         if size != rec.get("bytes"):
-            raise TornArtifactError(
-                f"{path}: part {name} is {size} bytes but {MANIFEST_NAME} "
-                f"records {rec.get('bytes')}")
+            raise _torn(f"{path}: part {name} is {size} bytes but "
+                        f"{MANIFEST_NAME} records {rec.get('bytes')}")
         if _sha1_file(fp) != rec.get("sha1"):
-            raise TornArtifactError(f"{path}: part {name} checksum mismatch "
-                                    f"against {MANIFEST_NAME}")
+            raise _torn(f"{path}: part {name} checksum mismatch against "
+                        f"{MANIFEST_NAME}")
     lost = sorted(set(parts) - {os.path.basename(fp) for fp in files})
     if lost:
-        raise TornArtifactError(f"{path}: {MANIFEST_NAME} records part(s) "
-                                f"{', '.join(lost)} that no longer exist")
+        raise _torn(f"{path}: {MANIFEST_NAME} records part(s) "
+                    f"{', '.join(lost)} that no longer exist")
+    if len(_VALIDATED) >= _VALIDATED_CAP:
+        _VALIDATED.clear()
+    _VALIDATED[ap] = sig
+    _durability_counters().incr("Durability", "Artifacts validated")
 
 
-def _atomic_write_text(path: str, text: str) -> None:
+def atomic_write_text(path: str, text: str) -> None:
+    """Write ``text`` to ``path`` through a same-directory temporary file,
+    ``fsync`` and ``os.replace``: a crash leaves the old file or the new
+    one, never a torn one."""
     d = os.path.dirname(os.path.abspath(path))
     fd, tmp = tempfile.mkstemp(prefix="." + os.path.basename(path) + ".",
                                dir=d)
@@ -238,7 +305,7 @@ class OutputWriter:
             "sha1": _sha1_file(self.file_path)}
         parts = {n: rec for n, rec in parts.items()
                  if os.path.exists(os.path.join(self.out_path, n))}
-        _atomic_write_text(mpath, json.dumps(
+        atomic_write_text(mpath, json.dumps(
             {"version": MANIFEST_VERSION, "parts": parts}, indent=1))
 
     def close(self, success_marker: bool = True) -> None:

@@ -11,9 +11,10 @@
 
 from __future__ import annotations
 
-import threading
 from collections import defaultdict
 from typing import Dict, Iterator, Tuple
+
+from . import sanitizer
 
 
 class Counters:
@@ -22,7 +23,7 @@ class Counters:
 
     def __init__(self):
         self._groups: Dict[str, Dict[str, int]] = defaultdict(lambda: defaultdict(int))
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("core.counters")
 
     def incr(self, group: str, name: str, amount: int = 1) -> None:
         with self._lock:

@@ -21,7 +21,10 @@ resilience layer: the sidecar checkpoint every
 per-row salvage of a rejected chunk (core.resilience), the retried read
 and the fault points (core.faultinject), and the reference's spans
 (``job:BayesianDistribution``, ``phase:train``/``load``/``emit``,
-``ingest.*``, ``checkpoint.save``; core.obs).
+``ingest.*``, ``checkpoint.save``; core.obs).  With
+``telemetry.drift.baseline.path`` naming an earlier model, training also
+sets the reference's ``drift.<feature>`` gauges and ``Drift`` counters
+(core.telemetry).
 
 With ``ingest.cache.enable`` the first streamed training scan also
 writes the parse-once ingest cache (core.ingestcache), and later runs
@@ -34,19 +37,21 @@ is exact, so TF32 cannot round it.  The float64 factors use XLA's float64
 contracted multiply-adds (ops.xla_math) and its order of summation
 (``_sum_last``), so the feature probabilities that
 ``output.feature.prob.only`` prints are the reference's bits.  Not
-ported yet: text mode (``tabular.input=false``), the shared-scan FoldSpec
-and the drift gauges.
+ported yet: text mode (``tabular.input=false``) and the shared-scan
+FoldSpec.
 """
 
 from __future__ import annotations
 
 import math
+import sys
 from collections import defaultdict
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..core import telemetry
 from ..core.binning import DatasetEncoder, EncodedDataset
 from ..core.config import JobConfig
 from ..core.io import read_lines, split_line, write_output
@@ -316,6 +321,28 @@ class _NBStreamState:
             self.mom_acc[j] = m.copy() if acc is None else acc + m
         self.n_chunks += 1
         return xs, ys
+
+
+def load_model_feature_counts(path: str, delim: str = ","
+                              ) -> Dict[int, Dict[str, int]]:
+    """Per-feature bin counts out of a written NB model file,
+    ``{ordinal: {bin_label: count}}``, summed over the feature-prior
+    binned lines (``<empty><delim>ord<delim>bin<delim>n``): the stored
+    baseline side of the drift gauges, in the shape
+    ``core.telemetry.count_drift`` takes."""
+    out: Dict[int, Dict[str, int]] = defaultdict(lambda: defaultdict(int))
+    for line in read_lines(path):
+        parts = line.split(delim)
+        # feature prior binned: ["", ordinal, bin_label, count]; class
+        # priors have parts[1] == "", posteriors have parts[0] != "",
+        # continuous priors have 5 parts
+        if (len(parts) == 4 and parts[0] == ""
+                and parts[1] != "" and parts[2] != ""):
+            try:
+                out[int(parts[1])][parts[2]] += int(parts[3])
+            except ValueError:
+                continue
+    return {k: dict(v) for k, v in out.items()}
 
 
 class BayesianDistribution:
@@ -681,7 +708,45 @@ class BayesianDistribution:
             mean = _jdiv(int(vsum), int(cnt))
             std = _jstd(int(vsq), int(cnt), mean)
             lines.append(f"{delim}{ordinal}{delim}{delim}{mean}{delim}{std}")
+        self._emit_drift(ds, counts, counters, delim)
         return lines
+
+    def _emit_drift(self, ds: EncodedDataset, counts, counters: Counters,
+                    delim: str) -> None:
+        """Count-distribution drift gauges: with
+        ``telemetry.drift.baseline.path`` naming a previously written NB
+        model, each binned feature's bin-count distribution in this fold
+        (summed over classes) is diffed against the baseline's feature
+        priors; the symmetrised KL divergence goes to a
+        ``drift.<feature>`` gauge and, scaled by 1e6, to a ``Drift``
+        counter.  A baseline that cannot be read sets ``Drift / Baseline
+        load failed`` and prints one stderr line: the gauge never fails a
+        finished fold."""
+        base_path = self.config.get(telemetry.KEY_DRIFT_BASELINE)
+        if not base_path:
+            return
+        try:
+            baseline = load_model_feature_counts(base_path, delim)
+        except Exception as e:                          # noqa: BLE001
+            counters.set("Drift", "Baseline load failed", 1)
+            print(f"drift: cannot load baseline {base_path!r}: "
+                  f"{type(e).__name__}: {e}", file=sys.stderr)
+            return
+        metrics = telemetry.get_metrics()
+        for j, f in enumerate(ds.feature_fields):
+            if not ds.binned_mask[j]:
+                continue            # Gaussian features carry no bin table
+            cur = {}
+            per_bin = np.asarray(counts)[:, j, :].sum(axis=0)
+            for b in range(ds.num_bins[j]):
+                c = int(per_bin[b])
+                if c:
+                    cur[ds.bin_label(j, b)] = c
+            div = telemetry.count_drift(baseline.get(f.ordinal, {}), cur)
+            name = f.name or str(f.ordinal)
+            metrics.set_gauge(f"drift.{name}", div)
+            counters.set("Drift", f"{name} (KL x1e6)",
+                         int(round(div * 1e6)))
 
 
 # ---------------------------------------------------------------------------
@@ -1073,6 +1138,6 @@ class BayesianPredictor:
                 counters.incr("Validation", "Incorrect")
             out.append(f"{line}{delim}{pred}{delim}{prob}{suffix}")
 
-        if not self.output_feature_prob_only:
+        if not self.output_feature_prob_only and with_confusion:
             conf.to_counters(counters)
         return out

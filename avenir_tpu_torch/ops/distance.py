@@ -20,6 +20,11 @@ between them (the reference's own contract, ``distance.py:454-458``).
 Float32 matrix products here run without TF32: ``_block_dist`` asserts
 it.
 
+``ResidentTraining`` moves the training side (weight-folded) to the
+device once; ``resident_distances`` then moves only the queries (the
+serving kNN adapter), and ``pairwise_distances`` is the one-shot form
+the batch job calls.
+
 Not ported yet: the ring (``pairwise_topk_ring``, ``_ring_bins``,
 ``_merge_bins``) and the 2-D model-axis sharding, which are multi-device.
 """
@@ -102,14 +107,23 @@ def _block_dist(qnum: torch.Tensor, qcat: torch.Tensor, tnum: torch.Tensor,
     return (d * scale).clamp_max(2147483392.0).to(torch.int32)
 
 
-def _fold_weights(qnum, tnum, num_weights, cat_weights, algorithm):
-    """Fold the attribute weights into the numeric columns (their square
-    roots for the euclidean expansion); returns ``(qnum', tnum', wsum)``
-    as float32 host arrays and a float."""
-    wsum = float(num_weights.sum() + cat_weights.sum()) or 1.0
+def _fold(x, num_weights, algorithm) -> np.ndarray:
+    """Fold the attribute weights into one side's numeric columns (their
+    square roots for the euclidean expansion), as a float32 host array."""
     wn = np.sqrt(num_weights) if algorithm == "euclidean" else num_weights
-    return ((qnum * wn[None, :]).astype(np.float32),
-            (tnum * wn[None, :]).astype(np.float32), wsum)
+    return (x * wn[None, :]).astype(np.float32)
+
+
+def _weight_sum(num_weights, cat_weights) -> float:
+    return float(num_weights.sum() + cat_weights.sum()) or 1.0
+
+
+def _fold_weights(qnum, tnum, num_weights, cat_weights, algorithm):
+    """Both sides folded (``_fold``) and the summed weights: ``(qnum',
+    tnum', wsum)``."""
+    return (_fold(qnum, num_weights, algorithm),
+            _fold(tnum, num_weights, algorithm),
+            _weight_sum(num_weights, cat_weights))
 
 
 def _dense(qnum, qcat, tnum, tcat, wcat, wsum, algorithm, scale
@@ -125,6 +139,36 @@ def _dense(qnum, qcat, tnum, tcat, wcat, wsum, algorithm, scale
         out[lo:hi] = _block_dist(qnum[lo:hi], qcat[lo:hi], tnum, tcat, wcat,
                                  wsum, algorithm, scale).cpu().numpy()
     return out
+
+
+class ResidentTraining:
+    """The training side of ``pairwise_distances``, weight-folded and
+    moved to ``device`` once: ``tn`` (float32, the weights folded in),
+    ``tc`` (int32 codes), ``wc`` (float32 categorical weights) and
+    ``wsum``.  The serving kNN adapter builds one at load and passes it
+    with every batch, so the training set crosses to the card once; the
+    unfolded host arrays stay for re-resolving flagged rows."""
+
+    def __init__(self, tnum: np.ndarray, tcat: np.ndarray,
+                 num_weights: np.ndarray, cat_weights: np.ndarray,
+                 algorithm: str = "euclidean", device=None):
+        self.device = resolve_device(device)
+        self.algorithm = algorithm
+        self.tnum, self.tcat = tnum, tcat
+        self.num_weights = np.asarray(num_weights)
+        self.cat_weights = np.asarray(cat_weights)
+        self.wsum = _weight_sum(self.num_weights, self.cat_weights)
+        dev = self.device
+        self.tn = torch.from_numpy(np.ascontiguousarray(
+            _fold(tnum, self.num_weights, algorithm))).to(dev)
+        self.tc = torch.from_numpy(
+            np.ascontiguousarray(tcat, np.int32)).to(dev)
+        self.wc = torch.from_numpy(
+            np.asarray(self.cat_weights, np.float32)).to(dev)
+
+    def nbytes(self) -> int:
+        return sum(int(t.numel() * t.element_size())
+                   for t in (self.tn, self.tc, self.wc))
 
 
 def pairwise_distances(qnum: np.ndarray, qcat: np.ndarray,
@@ -150,28 +194,38 @@ def pairwise_distances(qnum: np.ndarray, qcat: np.ndarray,
     the call records ``engine`` ('fused', 'sorted' or 'dense') and
     ``reresolved`` (the count of re-resolved rows).
     """
+    train = ResidentTraining(tnum, tcat, num_weights, cat_weights,
+                             algorithm, device)
+    return resident_distances(qnum, qcat, train, scale=scale, top_k=top_k,
+                              topk_method=topk_method, stats=stats)
+
+
+def resident_distances(qnum: np.ndarray, qcat: np.ndarray,
+                       train: ResidentTraining, scale: int = 1000,
+                       top_k: Optional[int] = None,
+                       topk_method: str = "exact",
+                       stats: Optional[dict] = None
+                       ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """``pairwise_distances`` against a training set already on its
+    device (:class:`ResidentTraining`): only the queries move."""
     from .topk import (fused_pairwise_topk, fused_topk_supported,
                        k3_applicable, plain_pairwise_topk)
 
-    dev = resolve_device(device)
-    nt = tnum.shape[0]
-    qnum0, tnum0 = qnum, tnum
-    qnum, tnum, wsum = _fold_weights(qnum, tnum, num_weights, cat_weights,
-                                     algorithm)
+    dev, algorithm, wsum = train.device, train.algorithm, train.wsum
+    nt = train.tn.shape[0]
+    qfold = _fold(qnum, train.num_weights, algorithm)
     if stats is None:
         stats = {}
     stats.update(engine="dense" if not top_k else "sorted", reresolved=0)
 
     def dev_args():
-        return (torch.from_numpy(np.ascontiguousarray(qnum)).to(dev),
+        return (torch.from_numpy(np.ascontiguousarray(qfold)).to(dev),
                 torch.from_numpy(np.ascontiguousarray(qcat, np.int32)).to(dev),
-                torch.from_numpy(np.ascontiguousarray(tnum)).to(dev),
-                torch.from_numpy(np.ascontiguousarray(tcat, np.int32)).to(dev),
-                torch.from_numpy(np.asarray(cat_weights, np.float32)).to(dev))
+                train.tn, train.tc, train.wc)
 
     k0 = min(top_k, nt) if top_k else None
     if k0 is not None and topk_method in ("exact", "fused"):
-        n_num, n_cat = qnum.shape[1], qcat.shape[1]
+        n_num, n_cat = qfold.shape[1], qcat.shape[1]
         if topk_method == "fused" and not fused_topk_supported(
                 algorithm, k0, nt, n_num, n_cat, scale):
             raise ValueError("fused top-k not supported for this shape; "
@@ -188,9 +242,10 @@ def pairwise_distances(qnum: np.ndarray, qcat: np.ndarray,
                 # the unfolded operands: the recursive call folds the
                 # weights itself
                 vals[bad], idxs[bad] = pairwise_distances(
-                    qnum0[bad], qcat[bad], tnum0, tcat, num_weights,
-                    cat_weights, algorithm=algorithm, scale=scale,
-                    top_k=k0, device=dev, topk_method="sorted")
+                    qnum[bad], qcat[bad], train.tnum, train.tcat,
+                    train.num_weights, train.cat_weights,
+                    algorithm=algorithm, scale=scale, top_k=k0, device=dev,
+                    topk_method="sorted")
             return vals, idxs
     if topk_method == "fused":
         raise ValueError("topk_method='fused' requires top_k")

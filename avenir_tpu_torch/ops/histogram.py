@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple, Optional, Sequence
 
 import torch
@@ -34,6 +35,7 @@ from .counting import bin_raw, count_table
 
 K1_LAUNCHES = 0
 K2_LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()
 
 _CODE_DTYPES = (torch.int8, torch.int32)
 _INT32_MAX = 2 ** 31 - 1
@@ -58,8 +60,17 @@ ROUTES = ("block table", "cluster", "global")
 
 def reset_launch_counts() -> None:
     global K1_LAUNCHES, K2_LAUNCHES
-    K1_LAUNCHES = 0
-    K2_LAUNCHES = 0
+    with _COUNT_LOCK:
+        K1_LAUNCHES = 0
+        K2_LAUNCHES = 0
+
+
+def _count_launch(name: str) -> None:
+    """Add one to the launch counter ``name`` under a lock: two serving
+    replicas' batcher threads can launch at once, and an unlocked ``+=``
+    on a module global can lose a count."""
+    with _COUNT_LOCK:
+        globals()[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -326,7 +337,6 @@ def wide_feature_class_counts(x: torch.Tensor, y: torch.Tensor,
     (out-of-range classes add nothing), ``mask`` bool ``[n]`` dropping
     rows.  With ``out`` (int32, on the same device) the counts are added
     into it in place; otherwise a zeroed table is returned."""
-    global K1_LAUNCHES
     device = _check(x, y, mask, n_class, max_bins, out)
     if device < 0:
         counts = plain_feature_class_counts(x, y, n_class, max_bins, mask)
@@ -335,7 +345,7 @@ def wide_feature_class_counts(x: torch.Tensor, y: torch.Tensor,
         out = torch.zeros((n_class, x.shape[1], max_bins), dtype=torch.int32,
                           device=x.device)
     if _launch(x, y, mask, None, out, device):
-        K1_LAUNCHES += 1
+        _count_launch("K1_LAUNCHES")
     return out
 
 
@@ -349,7 +359,6 @@ def wide_feature_class_counts_rawbin(xraw: torch.Tensor, y: torch.Tensor,
     the kernel.  ``widths`` are the per-feature bucket divisors, each in
     ``[1, 2^31 - 1]`` (1 = passthrough); division truncates toward
     zero."""
-    global K2_LAUNCHES
     widths = tuple(widths)
     k2_constants(widths)                 # validates; cached per tuple
     device = _check(xraw, y, mask, n_class, max_bins, out)
@@ -364,5 +373,5 @@ def wide_feature_class_counts_rawbin(xraw: torch.Tensor, y: torch.Tensor,
         out = torch.zeros((n_class, xraw.shape[1], max_bins),
                           dtype=torch.int32, device=xraw.device)
     if _launch(xraw, y, mask, _wm_table(widths, device), out, device):
-        K2_LAUNCHES += 1
+        _count_launch("K2_LAUNCHES")
     return out

@@ -37,6 +37,7 @@ plain versions of that path are ``plain_split_pairwise_topk`` and
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -44,6 +45,7 @@ import torch
 
 K3_LAUNCHES = 0
 MERGE_LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()
 
 _TB = 512               # the reference's candidate tile (gate threshold)
 _MAX_K = 64
@@ -59,7 +61,16 @@ _lib_topk = None
 
 def reset_launch_counts() -> None:
     global K3_LAUNCHES, MERGE_LAUNCHES
-    K3_LAUNCHES = MERGE_LAUNCHES = 0
+    with _COUNT_LOCK:
+        K3_LAUNCHES = MERGE_LAUNCHES = 0
+
+
+def _count_launch(name: str) -> None:
+    """Add one to the launch counter ``name`` under a lock: two serving
+    replicas' batcher threads can launch at once, and an unlocked ``+=``
+    on a module global can lose a count."""
+    with _COUNT_LOCK:
+        globals()[name] += 1
 
 
 def _seg_bits(extent: int) -> int:
@@ -313,7 +324,6 @@ def merge_topk_lists(keys: torch.Tensor
     ``merge_kernel``): ``plain_merge_topk``'s function.  CPU tensors take
     the plain version; CUDA tensors launch the kernel or raise.  Each
     launch adds one to ``MERGE_LAUNCHES``."""
-    global MERGE_LAUNCHES
     if keys.dtype != torch.int64 or keys.dim() != 3 \
             or not keys.is_contiguous():
         raise ValueError("keys must be a contiguous int64 [S, nq, k] tensor")
@@ -333,7 +343,7 @@ def merge_topk_lists(keys: torch.Tensor
             _raise_on(lib.avenir_topk_merge(keys.data_ptr(), S, nq, k,
                                             vals.data_ptr(), idxs.data_ptr(),
                                             stream), "topk merge kernel")
-        MERGE_LAUNCHES += 1
+        _count_launch("MERGE_LAUNCHES")
     return vals, idxs
 
 
@@ -353,7 +363,6 @@ def fused_pairwise_topk(qnum: torch.Tensor, qcat: torch.Tensor,
     candidate axis is cut into ``k3_plan``'s segments (``split`` forces
     their number) and, with more than one, ``merge_topk_lists`` merges
     them."""
-    global K3_LAUNCHES
     _check(qnum, qcat, tnum, tcat, cat_weights, k, algorithm)
     if qnum.device.type == "cpu":
         return plain_pairwise_topk(qnum, qcat, tnum, tcat, cat_weights,
@@ -391,7 +400,7 @@ def fused_pairwise_topk(qnum: torch.Tensor, qcat: torch.Tensor,
             None if seg is None else seg.data_ptr(),
             None if gkth is None else gkth.data_ptr(), vals.data_ptr(),
             idxs.data_ptr(), stream), "topk kernel")
-    K3_LAUNCHES += 1
+    _count_launch("K3_LAUNCHES")
     if seg is not None:
         vals, idxs = merge_topk_lists(seg)
     return vals, idxs, suspect

@@ -34,7 +34,25 @@ again on the CPU:
    (16,384 training and 16,384 test rows of 256 numeric features,
    ``output.top.matches=16``, kernel K3 and its segment merge), then
    top-16 voting, through ``avenir_tpu_torch.cli.main``;
-3. the ``resource/knn_classify/run.sh`` sequence at its 120-row size.
+3. the ``resource/knn_classify/run.sh`` sequence at its 120-row size;
+4. ``serve_nb``: ``resource/serving/run.sh`` on the card — the churn
+   artifact trained (telecom_churn 3000, seed 29, 2,400 rows), then
+   ``python -m avenir_tpu_torch serve`` started as a subprocess with the
+   runbook's serve.properties (variants f32,f64, two replicas, batches up
+   to 64, warmup at every power-of-two bucket) on an ephemeral port; the
+   600 test rows from 16 concurrent single-row clients and batch requests
+   of 1 to 64 rows under both variants, each response byte-identical to
+   the batch ``BayesianPredictor`` line on the card, no scorer built after
+   warmup, SIGINT draining the server into its ``--trace``; then 128 of
+   the same requests in process under ``torch.profiler`` (device busy
+   time, device events per batch);
+5. ``serve_knn``: an in-process server on cuda:0 with a
+   ``nearestNeighbor`` model over the kNN job's 16,384 x 256 training set
+   (k = 16, batches up to 64), 512 queries in requests of 1 to 64 rows:
+   responses equal to the batch job's voting lines within the one-unit
+   contract, one K3 launch per batch and no plain-version call, the
+   training tensors resident; K3 is also held against its plain version
+   at the server's batch sizes (1, 8 and 64 queries).
 
 Kernel counts (and the native encoder's call count) are set to 0 just
 before each path and read just after.
@@ -511,11 +529,24 @@ def topk_agree(torch, got, want, ops, algorithm, exact, label):
     return err, rows.numel()
 
 
+def chunked_matmul(torch, qn, tn):
+    """The cross term ``qn @ tn.T`` as one ``torch.matmul``, or, where its
+    float32 output would pass 1 GB, in candidate chunks of that size."""
+    step = max(1, (1 << 28) // max(qn.shape[0], 1))
+    if tn.shape[0] <= step:
+        return lambda: torch.matmul(qn, tn.T)
+
+    def chunks():
+        for a in range(0, tn.shape[0], step):
+            torch.matmul(qn, tn[a:a + step].T)
+    return chunks
+
+
 def run_topk_case(torch, topk, tag, algorithm, k, exact, sample, make,
-                  split=None) -> dict:
-    """Hold K3 against its plain version, time both and the cross term's
-    ``torch.matmul`` (a partial floor: the product alone), and compute
-    the bound."""
+                  split=None, kid="K3", device_time=True) -> dict:
+    """Hold K3 against its plain version, time both, K3's own device time
+    (``torch.profiler``) and the cross term's ``torch.matmul`` (a partial
+    floor: the product alone), and compute the bound."""
     qn, qc, tn, tc, cw, wsum = make()
     nq, nt, F, C = qn.shape[0], tn.shape[0], qn.shape[1], qc.shape[1]
     bm, splits, _ = topk.k3_plan(nq, nt, torch.cuda.get_device_properties(
@@ -537,9 +568,10 @@ def run_topk_case(torch, topk, tag, algorithm, k, exact, sample, make,
     reps = max(2, min(20, int(2e11 // max(nq * nt * max(F, 1), 1))))
     ms = time_ms(kern, reps)
     plain_ms = time_ms(plain, reps)
-    matmul_ms = (time_ms(lambda: torch.matmul(qn, tn.T), reps)
-                 if F and algorithm == "euclidean" and nq * nt <= 1 << 28
-                 else None)
+    device_ms = (kernel_device_ms(kern, min(reps, 5), "topk_kernel")
+                 if device_time else None)
+    matmul_ms = (time_ms(chunked_matmul(torch, qn, tn), reps)
+                 if F and algorithm == "euclidean" else None)
     # per numeric column: an FMA (2 ops) for euclidean; for manhattan an
     # FADD for the difference and an FADD with |.|, two lane instructions
     # at half the 67 TFLOP/s "FMA = 2 ops" rate, so 4 ops
@@ -550,8 +582,10 @@ def run_topk_case(torch, topk, tag, algorithm, k, exact, sample, make,
     log(f"K3 [{tag}]: nq={nq} nt={nt} F={F} C={C} k={k} {algorithm}, "
         f"{bm}-row query tiles x {splits} candidate segments: "
         f"max abs err {err}, rows that differ {rows}/{ns}, suspect rows "
-        f"{n_suspect}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-        f"{sample_note}, bound {bound_ms:.4f} ms ({bound_by}), "
+        f"{n_suspect}; kernel {ms:.4f} ms (device "
+        f"{'n/a' if device_ms is None else f'{device_ms:.4f} ms'}), plain "
+        f"{plain_ms:.4f} ms{sample_note}, bound {bound_ms:.4f} ms "
+        f"({bound_by}), "
         f"torch.matmul of the cross term alone (partial floor) "
         f"{'n/a' if matmul_ms is None else f'{matmul_ms:.4f} ms'}; "
         f"library: none (no single PyTorch call computes distance + "
@@ -561,8 +595,9 @@ def run_topk_case(torch, topk, tag, algorithm, k, exact, sample, make,
     return {"name": f"K3 fused_pairwise_topk [{tag}: nq={nq} nt={nt} F={F} "
                     f"C={C} k={k} {algorithm}, S={splits}{sample_note}]",
             "route": "cuda", "source": TOPK_KERNEL[0],
-            "replaces": TOPK_KERNEL[1], "kid": "K3",
+            "replaces": TOPK_KERNEL[1], "kid": kid,
             "launches": 0, "max_abs_err": err, "ms": ms,
+            "device_ms": device_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "matmul_ms": matmul_ms,
             "rows_differ": rows, "suspect_rows": n_suspect,
@@ -631,7 +666,8 @@ def k3_crossover(torch, topk, entries, card) -> None:
                 continue
             e = run_topk_case(torch, topk, "engine crossover", "euclidean",
                               KNN_K, False, None,
-                              topk_uniform(torch, nq, nt, KNN_F, 0, 8))
+                              topk_uniform(torch, nq, nt, KNN_F, 0, 8),
+                              device_time=False)
             entries.append(e)
             ratio[nq, nt] = e["plain_ms"] / e["ms"]
     rows = "; ".join(
@@ -1223,10 +1259,11 @@ def compare_pairs(torch, cuda_out, cpu_out, feats, label) -> set:
     return differ
 
 
-def knn_paths(torch, topk, card) -> dict:
+def knn_paths(torch, topk, card) -> tuple:
     """The kNN job at full width through the port's command line, on the
     card and on the CPU, then top-16 voting; then the knn_classify
-    runbook.  Returns the main-path launches ``{"K3": n}``."""
+    runbook.  Returns the main-path launches ``{"K3": n, "K3merge": n}``
+    and the job's data (for the serving phase)."""
     d, inp, sim, vote, feats = write_knn_data()
 
     def job(name, conf, src, out, device):
@@ -1282,7 +1319,7 @@ def knn_paths(torch, topk, card) -> dict:
 
     knn_breakdown(torch, inp, sim, d, card)
     knn_runbook(card)
-    return launches
+    return launches, (d, inp, sim, vote, feats)
 
 
 def knn_breakdown(torch, inp, sim, d, card) -> None:
@@ -1363,6 +1400,410 @@ def knn_runbook(card) -> None:
         f"cuda vs cpu [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# serving: the NB server through the CLI, the kNN server in process
+# ---------------------------------------------------------------------------
+
+SERVE_RUNBOOK = os.path.join(ROOT, "resource", "serving")
+SERVE_BATCH_SIZES = (1, 2, 3, 5, 8, 13, 16, 33, 64)
+SERVE_CLIENTS = 16
+K3_SERVING_NQ = (1, 8, 64)
+KNN_SERVE_QUERIES = 512
+PROFILED_REQUESTS = 128
+
+
+def request(port, obj, timeout=60.0):
+    from avenir_tpu_torch.serve.server import request as serve_request
+    return serve_request("127.0.0.1", port, obj, timeout=timeout)
+
+
+def merged_counter(stats, model, name):
+    return int(stats["models"][model]["counters"].get("Serve", {})
+               .get(name, 0))
+
+
+def quantiles_ms(samples):
+    xs = sorted(samples)
+    return (xs[len(xs) // 2] * 1e3,
+            xs[min(len(xs) - 1, int(len(xs) * 0.99))] * 1e3)
+
+
+def fan_out(fn, items, clients=SERVE_CLIENTS):
+    """``fn(item)`` for every item from ``clients`` threads; returns the
+    results in item order and each call's host-clock latency."""
+    import threading
+
+    out, lat = [None] * len(items), [0.0] * len(items)
+    errors = []
+
+    def client(c):
+        try:
+            for i in range(c, len(items), clients):
+                t = time.perf_counter()
+                out[i] = fn(items[i])
+                lat[i] = time.perf_counter() - t
+        except BaseException as e:        # re-raised on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out, lat
+
+
+def check_replicas_on(torch, srv, model, want: str) -> int:
+    """Every replica of every variant of ``model`` on ``want``, with each
+    of its adapter's device tensors there too; returns the replica
+    count."""
+    n = 0
+    for group in srv.pool.variant_groups(model):
+        for rep in group.replicas:
+            tensors = rep.entry.adapter.tensors()
+            if str(rep.device) != want or not tensors or any(
+                    str(t.device) != want for t in tensors):
+                raise AssertionError(
+                    f"{model} replica {group.variant}/{rep.index} on "
+                    f"{rep.device}, tensors on "
+                    f"{sorted({str(t.device) for t in tensors})}, not {want}")
+            n += 1
+    return n
+
+
+def serve_nb(torch, card) -> None:
+    """resource/serving/run.sh on the card: train the churn artifact,
+    start ``python -m avenir_tpu_torch serve`` with the runbook's
+    serve.properties on an ephemeral port, send the 600 test rows from 16
+    concurrent single-row clients and batch requests of 1 to 64 rows
+    under both variants, and hold every response to the port's batch
+    ``BayesianPredictor`` line on the card, byte for byte; no scorer may
+    be built after warmup; SIGINT drains the server, which writes its
+    ``--trace``.  Then part of the same traffic against an in-process
+    server under ``torch.profiler`` for the device's busy time."""
+    import signal
+    import re
+
+    from avenir_tpu_torch.datagen import gen_telecom_churn
+
+    w = os.path.join(WORK, "serve_nb")
+    os.makedirs(os.path.join(w, "train"))
+    os.makedirs(os.path.join(w, "test"))
+    rows = [",".join(r) for r in gen_telecom_churn(3000, seed=29)]
+    with open(os.path.join(w, "train", "part-00000"), "w") as fh:
+        fh.write("\n".join(rows[:2400]) + "\n")
+    test = rows[2400:]
+    with open(os.path.join(w, "test", "part-00000"), "w") as fh:
+        fh.write("\n".join(test) + "\n")
+    schema = os.path.join(SERVE_RUNBOOK, "teleComChurn.json")
+    model = os.path.join(w, "model")
+    run_job(["BayesianDistribution",
+             f"-Dconf.path={os.path.join(SERVE_RUNBOOK, 'nb.properties')}",
+             f"-Dfeature.schema.file.path={schema}",
+             os.path.join(w, "train"), model, "--device", "cuda"])
+    bp = os.path.join(w, "bp.properties")
+    with open(bp, "w") as fh:
+        fh.write(f"feature.schema.file.path={schema}\n"
+                 f"bayesian.model.file.path={model}\n")
+    batch = {}
+    for variant, precision in (("f32", "float32"), ("f64", "float64")):
+        out = os.path.join(w, f"pred_{variant}")
+        run_job(["BayesianPredictor", f"-Dconf.path={bp}",
+                 f"-Dbp.score.precision={precision}",
+                 os.path.join(w, "test"), out, "--device", "cuda"])
+        batch[variant] = read_bytes(out).decode().splitlines()
+
+    trace = os.path.join(w, "serve_trace.json")
+    log_path = os.path.join(w, "server.log")
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t_start = time.perf_counter()
+    with open(log_path, "w") as log_fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "avenir_tpu_torch", "serve",
+             f"-Dconf.path={os.path.join(SERVE_RUNBOOK, 'serve.properties')}",
+             f"-Dserve.model.churn.conf={bp}", "-Dserve.port=0",
+             "--trace", trace], cwd=w, env=env, stdout=log_fh,
+            stderr=subprocess.STDOUT)
+    try:
+        port = None
+        while port is None:
+            if proc.poll() is not None:
+                raise AssertionError(f"serve exited {proc.returncode}: "
+                                     + open(log_path).read()[-2000:])
+            if time.perf_counter() - t_start > 180:
+                raise AssertionError("serve did not come up in 180 s")
+            m = re.search(r"serving .* on ([\w.]+):(\d+)",
+                          open(log_path).read())
+            port = int(m.group(2)) if m else None
+            time.sleep(0.1)
+        up_s = time.perf_counter() - t_start
+        stats0 = request(port, {"cmd": "stats"})
+        churn = stats0["models"]["churn"]
+        devices = [r["device"] for v in churn["variants"].values()
+                   for r in v["replicas"]]
+        if devices != ["cuda:0"] * 4:
+            raise AssertionError(f"serve replicas on {devices}, not 2 x 2 "
+                                 f"on cuda:0")
+        builds0 = merged_counter(stats0, "churn", "Scorer compilations")
+        hits0 = merged_counter(stats0, "churn", "Scorer cache hits")
+        if builds0 != 2 * 2 * 7:
+            raise AssertionError(f"warmup built {builds0} scorers, not 28")
+
+        # 16 concurrent single-row clients, every test row under each
+        # variant
+        items = [(v, i) for v in ("f32", "f64") for i in range(len(test))]
+        t = time.perf_counter()
+        outs, lat = fan_out(lambda it: request(port, {
+            "model": "churn", "row": test[it[1]], "variant": it[0]}), items)
+        single_s = time.perf_counter() - t
+        bad = [(v, i, o) for (v, i), o in zip(items, outs)
+               if o.get("output") != batch[v][i] or o.get("variant") != v]
+        if bad:
+            raise AssertionError(f"{len(bad)} single-row responses differ "
+                                 f"from the batch predictor, e.g. {bad[0]}")
+        # batch requests of 1 to 64 rows under each variant
+        n_rows, t = 0, time.perf_counter()
+        for v in ("f32", "f64"):
+            lo = 0
+            for size in SERVE_BATCH_SIZES:
+                resp = request(port, {"model": "churn", "variant": v,
+                                      "rows": test[lo:lo + size]})
+                if resp.get("outputs") != batch[v][lo:lo + size]:
+                    raise AssertionError(f"a {size}-row {v} response "
+                                         f"differs from the batch lines")
+                lo, n_rows = lo + size, n_rows + size
+        batch_s = time.perf_counter() - t
+        stats1 = request(port, {"cmd": "stats"})
+        builds1 = merged_counter(stats1, "churn", "Scorer compilations")
+        hits1 = merged_counter(stats1, "churn", "Scorer cache hits")
+        if builds1 != builds0 or hits1 <= hits0:
+            raise AssertionError(f"scorer builds {builds0} -> {builds1}, "
+                                 f"cache hits {hits0} -> {hits1} after "
+                                 f"warmup")
+        lat_ms = stats1["models"]["churn"]["latency_ms"]
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        raise AssertionError(f"serve exited {rc} on SIGINT: "
+                             + open(log_path).read()[-2000:])
+    with open(trace) as fh:
+        names = {e["name"] for e in json.load(fh)["traceEvents"]
+                 if e.get("ph") == "X"}
+    serve_spans = sorted(n for n in names if n.startswith("serve."))
+    if not serve_spans:
+        raise AssertionError(f"the serve trace has no serve.* span: "
+                             f"{sorted(names)[:10]}")
+    p50, p99 = quantiles_ms(lat)
+    log(f"serve_nb (CLI, TCP, 2 variants x 2 replicas on cuda:0): up in "
+        f"{up_s:.3f} s; {len(items)} single-row requests from "
+        f"{SERVE_CLIENTS} clients {len(items) / single_s:.1f} rows/s, "
+        f"client p50 {p50:.3f} ms p99 {p99:.3f} ms; stats surface (primary "
+        f"replica) p50 {lat_ms.get('p50')} ms p99 {lat_ms.get('p99')} ms; "
+        f"{n_rows} rows in {2 * len(SERVE_BATCH_SIZES)} batch requests "
+        f"{n_rows / batch_s:.1f} rows/s; every response byte-identical to "
+        f"the batch predictor (f32 and f64); scorer builds {builds0} at "
+        f"warmup, {builds1 - builds0} after, cache hits {hits0} -> {hits1}; "
+        f"SIGINT drained, trace spans {', '.join(serve_spans)} [{card}]")
+    serve_nb_profiled(torch, w, bp, test, batch, card)
+
+
+def serve_nb_profiled(torch, w, bp, test, batch, card) -> None:
+    """The runbook's single-row requests (the first
+    ``PROFILED_REQUESTS``) against an in-process server on cuda:0 under
+    ``torch.profiler``: the device's busy time, idle share and events per
+    batch, and every replica's tensors on the card."""
+    from avenir_tpu_torch.core.config import load_job_config
+    from avenir_tpu_torch.serve import PredictionServer
+
+    conf = load_job_config({
+        "conf.path": os.path.join(SERVE_RUNBOOK, "serve.properties"),
+        "serve.model.churn.conf": bp, "serve.port": "0"})
+    srv = PredictionServer(conf, device="cuda")
+    try:
+        port = srv.start()
+        n_rep = check_replicas_on(torch, srv, "churn", "cuda:0")
+        # the first PROFILED_REQUESTS rows, the variants alternating: each
+        # batch makes about 1,500 device events, and the profiler's
+        # bookkeeping of them, not the traffic, is what takes the time
+        items = [(("f32", "f64")[i % 2], i)
+                 for i in range(PROFILED_REQUESTS)]
+
+        def traffic():
+            outs, _ = fan_out(lambda it: request(port, {
+                "model": "churn", "row": test[it[1]], "variant": it[0]}),
+                items)
+            if any(o.get("output") != batch[v][i]
+                   for (v, i), o in zip(items, outs)):
+                raise AssertionError("in-process serve responses differ")
+
+        def batches():
+            return srv.pool.merged_counters("churn").get("Serve", {}).get(
+                "Batches", 0)
+
+        b0 = batches()
+        by_kind, wall_s = profile_device(
+            torch, traffic, {"NB scorer elementwise": "elementwise"})
+        n_batches = batches() - b0
+        n_launch = sum(v[1] for v in by_kind.values())
+        log(f"serve_nb in process ({n_rep} replicas, tensors on cuda:0): "
+            f"{len(items)} single-row requests in {n_batches} batches, "
+            f"{wall_s:.3f} s ({len(items) / wall_s:.1f} rows/s) under the "
+            f"profiler; {n_launch} device events, {n_launch / n_batches:.0f} "
+            f"per batch")
+        report_device(by_kind, wall_s, "NB scorer elementwise", card)
+    finally:
+        srv.stop()
+
+
+def serve_knn(torch, topk, knn_data, card) -> int:
+    """An in-process ``PredictionServer`` on cuda:0 with a
+    ``nearestNeighbor`` model over the kNN phase's 16,384 x 256 training
+    set, k = 16, batches up to 64: 512 test rows by TCP in requests of 1
+    to 64 rows.  Each response equals the voting line of the batch kNN
+    job on the card for its id (or, where K3's answer differs, stays in
+    the one-unit oracle-confirmed contract); K3 launches once per batch
+    and the plain version never; the training tensors stay where they
+    were put at load.  Returns K3's launches over the traffic."""
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.serve import PredictionServer
+
+    d, inp, sim, vote, feats = knn_data
+    batch = {l.split(",")[0]: l for l in
+             read_bytes(os.path.join(d, "pred_cuda")).decode().splitlines()}
+    with open(os.path.join(inp, "te-00000")) as fh:
+        queries = fh.read().splitlines()[:KNN_SERVE_QUERIES]
+    props = {"serve.models": "nn", "serve.model.nn.kind": "nearestNeighbor",
+             "serve.model.nn.conf": vote,
+             "serve.model.nn.train.data.path": os.path.join(inp, "tr-00000"),
+             "serve.batch.max.size": "64", "serve.batch.max.delay.ms": "2",
+             "serve.port": "0"}
+    t = time.perf_counter()
+    srv = PredictionServer(JobConfig(props), device="cuda")
+    try:
+        up_s = time.perf_counter() - t
+        port = srv.start()
+        n_rep = check_replicas_on(torch, srv, "nn", "cuda:0")
+        adapters = [r.entry.adapter for g in srv.pool.variant_groups("nn")
+                    for r in g.replicas]
+        ptrs = [[x.data_ptr() for x in a.tensors()] for a in adapters]
+        sizes, lo = [], 0
+        while lo < len(queries):
+            size = min((1, 2, 4, 7, 8, 16, 31, 32, 63, 64)[len(sizes) % 10],
+                       len(queries) - lo)
+            sizes.append(size)
+            lo += size
+        batches0 = merged_counter(request(port, {"cmd": "stats"}), "nn",
+                                  "Batches")
+        plain_calls = [0]
+        real_plain = topk.plain_pairwise_topk
+
+        def counted_plain(*a, **kw):
+            plain_calls[0] += 1
+            return real_plain(*a, **kw)
+
+        topk.plain_pairwise_topk = counted_plain
+        outs, lat = [], []
+        try:
+            topk.reset_launch_counts()
+            t, lo = time.perf_counter(), 0
+            for size in sizes:
+                t1 = time.perf_counter()
+                resp = request(port, {"model": "nn",
+                                      "rows": queries[lo:lo + size]})
+                lat.append(time.perf_counter() - t1)
+                outs += resp["outputs"]
+                lo += size
+            traffic_s = time.perf_counter() - t
+            launches = topk.K3_LAUNCHES
+        finally:
+            topk.plain_pairwise_topk = real_plain
+        stats = request(port, {"cmd": "stats"})
+        batches = merged_counter(stats, "nn", "Batches") - batches0
+        if launches != batches or batches != len(sizes) or plain_calls[0]:
+            raise AssertionError(f"K3 launched {launches} times for "
+                                 f"{batches} batches ({len(sizes)} requests)"
+                                 f", plain version called {plain_calls[0]}"
+                                 f" times")
+        if [[x.data_ptr() for x in a.tensors()] for a in adapters] != ptrs:
+            raise AssertionError("the kNN training tensors moved")
+        differ = [q.split(",")[0] for q, o in zip(queries, outs)
+                  if o != batch[q.split(",")[0]]]
+        if len(differ) > max(1, len(queries) // 100):
+            raise AssertionError(f"{len(differ)} of {len(queries)} kNN "
+                                 f"responses differ from the batch job")
+        knn_serve_contract(torch, adapters[0], queries, differ, d, feats)
+        p50, p99 = quantiles_ms(lat)
+        lat_ms = stats["models"]["nn"]["latency_ms"]
+        log(f"serve_knn (in process, {n_rep} replica on cuda:0, 16,384 x "
+            f"{KNN_F} resident, k={KNN_K}): up in {up_s:.3f} s; "
+            f"{len(queries)} queries in {len(sizes)} requests of 1-64 rows "
+            f"{len(queries) / traffic_s:.1f} rows/s, request p50 {p50:.3f} "
+            f"ms p99 {p99:.3f} ms (host clock); stats surface p50 "
+            f"{lat_ms.get('p50')} ms p99 {lat_ms.get('p99')} ms; K3 "
+            f"launches {launches} = batches {batches}, plain calls 0; "
+            f"{len(differ)} responses differ from the batch job's voting "
+            f"lines, each within the one-unit contract; training tensors "
+            f"resident [{card}]")
+
+        def traffic():
+            lo = 0
+            for size in sizes:
+                request(port, {"model": "nn", "rows": queries[lo:lo + size]})
+                lo += size
+
+        by_kind, wall_s = profile_device(
+            torch, traffic, {"K3 kernel": "topk_kernel",
+                             "K3 layout prologue": "layout_kernel",
+                             "K3 merge kernel": "merge_kernel"})
+        log(f"serve_knn under the profiler: {len(queries)} queries in "
+            f"{wall_s:.3f} s")
+        report_device(by_kind, wall_s, "K3 kernel", card)
+    finally:
+        srv.stop()
+    return launches
+
+
+def knn_serve_contract(torch, adapter, queries, differ, d, feats) -> None:
+    """A served kNN response that differs from the batch job's voting
+    line must come from neighbors within the one-unit contract: distances
+    within one unit of the batch pair lines, each index set carrying
+    float64-oracle distances within one unit of the oracle's k
+    smallest."""
+    if not differ:
+        return
+    pairs = pair_rows(os.path.join(d, "simi_cuda"))
+    t_all = torch.from_numpy(feats[:KNN_ROWS]).cuda().double()
+    by_id = {q.split(",")[0]: q.split(",") for q in queries}
+    for tid in differ:
+        rec = by_id[tid]
+        qn, qc, _, _ = adapter.sts._encode([rec], adapter.vocabs)
+        dist, idx = adapter._distances(qn, qc)
+        ref = pairs[tid]
+        if any(abs(int(dist[0, r]) - int(ref[r][2])) > 1
+               for r in range(len(ref))):
+            raise AssertionError(f"served kNN row {tid} is more than one "
+                                 f"unit from the batch job")
+        qi = int(tid[1:])
+        q = torch.from_numpy(feats[qi:qi + 1]).cuda().double()
+        o = ((torch.cdist(q, t_all, compute_mode=EXACT_CDIST)[0] ** 2
+              / KNN_F).sqrt() * 1000).floor().long()
+        best = torch.sort(o).values[:len(ref)]
+        for ix in (torch.as_tensor(idx[0], device="cuda").long(),
+                   torch.tensor([int(r[0][1:]) for r in ref],
+                                device="cuda")):
+            if int((torch.sort(o[ix]).values - best).abs().max()) > 1:
+                raise AssertionError(f"served kNN row {tid} carries wrong "
+                                     f"oracle distances")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1405,13 +1846,27 @@ def main() -> int:
             f"ms ({e['bound_by']}) [{card}]")
         return e
 
+    phases = {}
+    t_phase = time.perf_counter()
+
+    def phase_done(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        phases[name] = round(now - t_phase, 1)
+        t_phase = now
+
     # -- kernels against their plain versions -------------------------------
     entries = [histogram_entry(case) for case in
                histogram_cases(torch, main_path_chunk(train_dir))]
     for case in topk_cases(torch):
         entries.append(run_topk_case(torch, topk, *case))
+    for nq in K3_SERVING_NQ:      # the kNN server's batches
+        entries.append(run_topk_case(
+            torch, topk, "serving batch", "euclidean", KNN_K, False, None,
+            topk_uniform(torch, nq, KNN_ROWS, KNN_F, 0, 12), kid="K3serve"))
     entries.append(run_merge_case(torch, topk, card))
     k3_crossover(torch, topk, entries, card)
+    phase_done("kernels")
 
     # -- the main paths, on the card and on the CPU --------------------------
     launches = nb_paths(torch, histogram, train_dir, test_dir, card)
@@ -1419,8 +1874,16 @@ def main() -> int:
     # K2 at the warm path's own first chunk, from the cache it replayed
     entries.append(histogram_entry(
         main_path_warm_chunk(torch, train_dir, NB_CACHE_CFG)))
-    launches.update(knn_paths(torch, topk, card))
+    phase_done("nb")
+    knn_launches, knn_data = knn_paths(torch, topk, card)
+    launches.update(knn_launches)
+    phase_done("knn")
+    serve_nb(torch, card)
+    phase_done("serve_nb")
+    launches["K3serve"] = serve_knn(torch, topk, knn_data, card)
+    phase_done("serve_knn")
     log(f"main-path launches: {launches}")
+    log(f"phase seconds: {phases}")
     for e in entries:
         e["launches"] = launches[e.pop("kid")]
 

@@ -439,3 +439,85 @@ def test_prob_only_output_byte_identical(runbook, tmp_path, precision):
         tb.BayesianPredictor(JobConfig(dict(cfg), "bp"), device="cpu").run(
             data, str(tmp_path / "port"))
         assert _read(tmp_path / "port") == _read(tmp_path / "jax"), schema
+
+
+# ---------------------------------------------------------------------------
+# drift gauges (telemetry.drift.baseline.path)
+# ---------------------------------------------------------------------------
+
+def _drift_run(pkg, cfg_cls, runbook, out, baseline):
+    from avenir_tpu.core import telemetry as jtel
+    from avenir_tpu_torch.core import telemetry as ttel
+    cfg = cfg_cls({"feature.schema.file.path": SCHEMA,
+                   "telemetry.drift.baseline.path": baseline})
+    if pkg is jb:
+        counters = jb.BayesianDistribution(cfg).run(str(runbook / "train"),
+                                                    out)
+        gauges = jtel.get_metrics().snapshot()["gauges"]
+    else:
+        counters = tb.BayesianDistribution(cfg, device="cpu").run(
+            str(runbook / "train"), out)
+        gauges = ttel.get_metrics().snapshot()["gauges"]
+    drift = {k: v for k, v in gauges.items() if k.startswith("drift.")}
+    return counters.as_dict().get("Drift", {}), drift
+
+
+@pytest.fixture(scope="module")
+def other_baseline(tmp_path_factory):
+    """A model trained on other rows (seed 30), so the gauges move."""
+    d = tmp_path_factory.mktemp("drift_baseline")
+    rows = jax_gen_churn(1200, seed=30)
+    os.makedirs(d / "train")
+    with open(d / "train" / "part-00000", "w") as fh:
+        fh.write("\n".join(",".join(r) for r in rows) + "\n")
+    jb.BayesianDistribution(JaxConfig(
+        {"feature.schema.file.path": SCHEMA})).run(str(d / "train"),
+                                                   str(d / "model"))
+    return str(d / "model")
+
+
+@pytest.mark.parametrize("which", ["first-model", "other-rows"])
+def test_drift_counters_match_reference(runbook, tmp_path, other_baseline,
+                                        which):
+    """The re-anchor's reproduction: train the runbook's 2,400 rows, then
+    train them again against a stored baseline.  The port prints the
+    reference's ``Drift`` counters value for value, sets the same
+    ``drift.<feature>`` gauges, and writes the same model bytes."""
+    baseline = (str(runbook / "model_jax") if which == "first-model"
+                else other_baseline)
+    ref_counters, ref_gauges = _drift_run(
+        jb, JaxConfig, runbook, str(tmp_path / "ref"), baseline)
+    counters, gauges = _drift_run(
+        tb, JobConfig, runbook, str(tmp_path / "port"), baseline)
+    names = ["plan", "minUsed", "dataUsed", "csCall", "csEmail"]
+    assert sorted(counters) == sorted(f"{n} (KL x1e6)" for n in names)
+    assert counters == ref_counters
+    assert {k: v["value"] for k, v in gauges.items()} \
+        == {k: v["value"] for k, v in ref_gauges.items()}
+    if which == "other-rows":
+        assert all(v > 0 for v in counters.values())
+    else:
+        assert all(v == 0 for v in counters.values())
+    assert _read(tmp_path / "port") == _read(runbook / "model_jax")
+
+
+@pytest.mark.parametrize("how", ["missing", "garbled"])
+def test_drift_baseline_load_failure_does_not_fail_the_job(
+        runbook, tmp_path, capfd, how):
+    baseline = str(tmp_path / "baseline")
+    if how == "garbled":
+        os.makedirs(baseline)
+        with open(os.path.join(baseline, "part-r-00000"), "wb") as fh:
+            fh.write(b"\xff\xfe\x00garbled\x80\x81\n" * 16)
+    ref_counters, _ = _drift_run(jb, JaxConfig, runbook,
+                                 str(tmp_path / "ref"), baseline)
+    ref_err = capfd.readouterr().err
+    counters, _ = _drift_run(tb, JobConfig, runbook,
+                             str(tmp_path / "port"), baseline)
+    err = capfd.readouterr().err
+    assert counters == ref_counters == {"Baseline load failed": 1}
+    line = [l for l in err.splitlines() if l.startswith("drift:")]
+    assert line == [l for l in ref_err.splitlines()
+                    if l.startswith("drift:")]
+    assert len(line) == 1 and baseline in line[0]
+    assert _read(tmp_path / "port") == _read(runbook / "model_jax")

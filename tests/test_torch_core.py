@@ -260,3 +260,60 @@ def test_row_chunks_and_peek_match_reference():
         gfirst, git = pipeline.peek(iter(items))
         wfirst, wit = jpipeline.peek(iter(items))
         assert gfirst == wfirst and list(git) == list(wit) == items
+
+
+# ---------------------------------------------------------------------------
+# io.require.success: an unmarked input directory is refused
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("cli_key", [False, True], ids=["api", "cli-config"])
+def test_require_success_refuses_unmarked_inputs(tmp_path, cli_key):
+    from avenir_tpu_torch.cli import configure_resilience
+
+    d = tmp_path / "upstream"
+    os.makedirs(d)
+    (d / "part-r-00000").write_text("a,1\nb,2\n")
+    conf = config.JobConfig({io.KEY_REQUIRE_SUCCESS: "true"})
+    jconf = jconfig.JobConfig({jio.KEY_REQUIRE_SUCCESS: "true"})
+    assert io.KEY_REQUIRE_SUCCESS == jio.KEY_REQUIRE_SUCCESS
+    refused = lambda: io._durability_counters().get(     # noqa: E731
+        "Durability", "Unmarked inputs refused")
+    before = refused()
+    try:
+        if cli_key:
+            configure_resilience(conf)
+        else:
+            io.configure_from_config(conf)
+        jio.configure_from_config(jconf)
+        with pytest.raises(io.TornArtifactError, match="_SUCCESS") as mine:
+            list(io.read_lines(str(d)))
+        with pytest.raises(jio.TornArtifactError) as theirs:
+            list(jio.read_lines(str(d)))
+        assert str(mine.value) == str(theirs.value)
+        assert refused() == before + 1
+        # a single file is not a job-output directory: no marker needed
+        assert list(io.read_lines(str(d / "part-r-00000"))) == ["a,1", "b,2"]
+        (d / "_SUCCESS").write_text("")
+        assert list(io.read_lines(str(d))) == ["a,1", "b,2"]
+        assert refused() == before + 1
+    finally:
+        io.set_require_success(False)
+        jio.set_require_success(False)
+    os.remove(d / "_SUCCESS")
+    assert list(io.read_lines(str(d))) == ["a,1", "b,2"]     # default: off
+
+
+def test_torn_input_part_is_refused_like_the_reference(tmp_path):
+    """A job-output directory whose part no longer matches its
+    ``_MANIFEST`` is refused on read, by both packages, with the same
+    message."""
+    out = str(tmp_path / "art")
+    io.write_output(out, ["a,1", "b,2"])
+    with open(os.path.join(out, "part-r-00000"), "a") as fh:
+        fh.write("c,3\n")
+    with pytest.raises(io.TornArtifactError) as mine:
+        list(io.read_lines(out))
+    with pytest.raises(jio.TornArtifactError) as theirs:
+        list(jio.read_lines(out))
+    assert str(mine.value).split(":")[0] == str(theirs.value).split(":")[0]
+    assert "is 12 bytes but _MANIFEST records 8" in str(mine.value)

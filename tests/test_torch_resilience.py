@@ -125,9 +125,16 @@ def test_fault_plan_grammar_matches_reference():
     text = "read@0-1, corrupt@3:truncate; slow@5x2:7,worker_death@*,h2d@4"
     got = [repr(e) for e in parse_plan(text)]
     assert got == [repr(e) for e in jfi.parse_plan(text)]
-    for bad in ("nosuchpoint@1", "read", "scorer@0", "read@1x0"):
+    # the serving points came with the port's server
+    serving = ("scorer@0-7, scorer_slow[f32]@*:40, batcher_death@0, "
+               "scorer_poison@*:BAD, promote_fail[m]@0")
+    assert [repr(e) for e in parse_plan(serving)] \
+        == [repr(e) for e in jfi.parse_plan(serving)]
+    for bad in ("nosuchpoint@1", "read", "read@1x0", "scorer[@0"):
         with pytest.raises(ValueError):
             parse_plan(bad)
+        with pytest.raises(ValueError):
+            jfi.parse_plan(bad)
 
 
 def test_fault_firing_is_deterministic_and_bounded():
