@@ -78,6 +78,16 @@
 // adds about a quarter of the loop's time at the main shape,
 // latency-bound with 8 warps per SM.
 //
+// The multi-device engines (ops/distance.py::pairwise_topk_ring, the
+// model axis of ops/topk.py::fused_pairwise_topk) run this kernel on one
+// tile of the candidate axis at a time: with an index base its keys carry
+// the tile's global rows, in its keys-out form it leaves each segment's
+// list as keys, and merge_kernel's keys-out form folds those lists into a
+// running list (a ring hop's carry) and the carry's k-th values, which
+// seed the next tile's gkth.  The reference's TPU ring carried 128 bins of
+// 4 packed registers per row and re-resolved the rows whose bins
+// overflowed (ops/distance.py:301-440); exact lists need none of that.
+//
 // C entry points (plain C interface, loaded with ctypes):
 //   avenir_topk(...)             prologue + main kernel on the given
 //                                stream; cudaGetLastError() after them;
@@ -275,7 +285,7 @@ topk_kernel(const float* __restrict__ qT, const float* __restrict__ tT,
             const float* __restrict__ cat_w, int Cc, int nq, int nt,
             float wsum, float scale, int k, int tiles_per_seg,
             long long* __restrict__ seg_out, int* gkth,
-            int* __restrict__ out_v, int* __restrict__ out_i) {
+            int* __restrict__ out_v, int* __restrict__ out_i, int idx_base) {
     constexpr int THREADS = 2 * BM;
     constexpr int HALF = BM / 2;
     extern __shared__ __align__(16) unsigned char smem[];
@@ -610,12 +620,17 @@ topk_kernel(const float* __restrict__ qT, const float* __restrict__ tT,
         const int r = i / k, j = i - r * k;
         const long long gq = (long long)q0 + r;
         if (gq >= nq) continue;
+        // the list holds indices within this call's candidates; the
+        // index base shifts them to the caller's (a ring hop's, a model
+        // shard's) global rows, under the same order
         const long long key = lists[i];
         if (seg_out) {
-            seg_out[((long long)blockIdx.y * nq + gq) * k + j] = key;
+            seg_out[((long long)blockIdx.y * nq + gq) * k + j] =
+                key == SENT ? SENT : key + idx_base;
         } else {
             out_v[gq * k + j] = key == SENT ? 0x7fffffff : (int)(key >> 32);
-            out_i[gq * k + j] = key == SENT ? -1 : (int)(key & 0xffffffffLL);
+            out_i[gq * k + j] = key == SENT
+                ? -1 : (int)(key & 0xffffffffLL) + idx_base;
         }
     }
 }
@@ -628,12 +643,17 @@ topk_kernel(const float* __restrict__ qT, const float* __restrict__ tT,
 // positions lane and lane + 32) merged with each segment's sorted list in
 // turn by rank (a_j: j + #(b < a_j); b_i: i + #(a <= b_i); the ranks are
 // distinct even among the empty slots' equal keys), through a per-warp
-// row of shared memory.
+// row of shared memory.  With keys_out the result stays keys (and, with
+// kth_out, each row's k-th value, INT32_MAX where the row holds fewer
+// than k): a ring hop merges its carry (list 0) and the hop's segment
+// lists back into list 0 in place, which is safe because a warp reads
+// every list of its row before it writes the row.
 constexpr int MERGE_WARPS = 8;
 
 __global__ void __launch_bounds__(32 * MERGE_WARPS)
-merge_kernel(const long long* __restrict__ keys, int S, int nq, int k,
-             int* __restrict__ out_v, int* __restrict__ out_i) {
+merge_kernel(const long long* keys, int S, int nq, int k,
+             int* __restrict__ out_v, int* __restrict__ out_i,
+             long long* keys_out, int* __restrict__ kth_out) {
     __shared__ long long rowbuf[MERGE_WARPS][MAX_K];
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const long long row = (long long)blockIdx.x * MERGE_WARPS + warp;
@@ -664,6 +684,14 @@ merge_kernel(const long long* __restrict__ keys, int S, int nq, int k,
         a1 = lane + 32 < k ? mine[lane + 32] : SENT;
         __syncwarp();
     }
+    if (keys_out) {
+        if (lane < k) keys_out[row * k + lane] = a0;
+        if (lane + 32 < k) keys_out[row * k + lane + 32] = a1;
+        // SENT >> 32 is INT32_MAX: an empty k-th slot bounds nothing
+        if (kth_out && lane == ((k - 1) & 31))
+            kth_out[row] = (int)((k > 32 ? a1 : a0) >> 32);
+        return;
+    }
     if (lane < k) {
         out_v[row * k + lane] = a0 == SENT ? 0x7fffffff : (int)(a0 >> 32);
         out_i[row * k + lane] = a0 == SENT ? -1 : (int)(a0 & 0xffffffffLL);
@@ -683,7 +711,7 @@ cudaError_t launch_topk(const float* qT, const float* tT, const float* q2,
                         int Cc, int nq, int nt, float wsum, float scale,
                         int k, int splits, int tiles_per_seg,
                         long long* seg_out, int* gkth, int* out_v,
-                        int* out_i, cudaStream_t s) {
+                        int* out_i, int idx_base, cudaStream_t s) {
     static const cudaError_t attr = cudaFuncSetAttribute(
         topk_kernel<EUCLID, BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem_bytes(BM, MAX_K, MAX_CAT));
@@ -691,7 +719,7 @@ cudaError_t launch_topk(const float* qT, const float* tT, const float* q2,
     const dim3 grid((unsigned)((nq + BM - 1) / BM), (unsigned)splits);
     topk_kernel<EUCLID, BM><<<grid, 2 * BM, smem_bytes(BM, k, Cc), s>>>(
         qT, tT, q2, t2, F, Fpad, ldq, ldt, qc, tc, cat_w, Cc, nq, nt, wsum,
-        scale, k, tiles_per_seg, seg_out, gkth, out_v, out_i);
+        scale, k, tiles_per_seg, seg_out, gkth, out_v, out_i, idx_base);
     return cudaGetLastError();
 }
 
@@ -700,20 +728,30 @@ cudaError_t launch_topk(const float* qT, const float* tT, const float* q2,
 // qn [nq, F], tn [nt, F] float32 row-major; qc [nq, Cc], tc [nt, Cc]
 // int32; cat_w [Cc].  Scratch from the caller: qT [Fpad, ldq], tT [Fpad,
 // ldt], q2 [ldq], t2 [ldt] (Fpad = F rounded up to 16, ldq = nq rounded
-// up to bm, ldt = nt rounded up to 128; unused when F = 0) and, when
-// splits > 1, seg_out [splits, nq, k] int64 and gkth [nq] int32 set to
-// INT32_MAX (the rows' shared k-th values).  bm is 64 or 128; the
-// candidate tiles are cut into segments of tiles_per_seg.
+// up to bm, ldt = nt rounded up to 128; unused when F = 0).  bm is 64 or
+// 128; the candidate tiles are cut into segments of tiles_per_seg.
+// Candidate row c is reported as index idx_base + c.
+//
+// Output: with seg_out, the sorted k keys of each segment, seg_out
+// [splits, nq, k] int64 (the keys-out form, at any splits); else, with
+// splits = 1 only, out_v / out_i [nq, k] int32.  gkth [nq] int32 holds
+// the rows' shared k-th values: required when splits > 1 (set to
+// INT32_MAX, or to a k-th value already known for the row, such as a ring
+// carry's: every entry must be at least the final k-th value of the row
+// over all the lists that will be merged), optional otherwise.
 extern "C" int avenir_topk(const float* qn, const float* tn, int F,
                            const int* qc, const int* tc, const float* cat_w,
                            int Cc, int nq, int nt, float wsum, float scale,
                            int k, int euclidean, int bm, int splits,
                            int tiles_per_seg, float* qT, float* tT,
                            float* q2, float* t2, long long* seg_out,
-                           int* gkth, int* out_v, int* out_i, void* stream) {
+                           int* gkth, int* out_v, int* out_i, int idx_base,
+                           void* stream) {
     if (k < 1 || k > MAX_K || Cc < 0 || Cc > MAX_CAT || F < 0 || nq < 0
         || nt < 0 || (bm != 64 && bm != 128) || splits < 1
-        || tiles_per_seg < 0 || (splits > 1 && (!seg_out || !gkth)))
+        || tiles_per_seg < 0 || (splits > 1 && (!seg_out || !gkth))
+        || (!seg_out && (!out_v || !out_i)) || idx_base < 0
+        || (long long)idx_base + nt > 0x7fffffffLL)
         return (int)cudaErrorInvalidValue;
     if (nq == 0) return 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -730,42 +768,46 @@ extern "C" int avenir_topk(const float* qn, const float* tn, int F,
         const cudaError_t err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
     }
-    long long* out = splits > 1 ? seg_out : nullptr;
-    int* shared_kth = splits > 1 ? gkth : nullptr;
     cudaError_t err;
     if (euclidean)
         err = bm == 128
             ? launch_topk<true, 128>(qT, tT, q2, t2, F, Fpad, ldq, ldt, qc,
                                      tc, cat_w, Cc, nq, nt, wsum, scale, k,
-                                     splits, tiles_per_seg, out, shared_kth, out_v,
-                                     out_i, s)
+                                     splits, tiles_per_seg, seg_out, gkth,
+                                     out_v, out_i, idx_base, s)
             : launch_topk<true, 64>(qT, tT, q2, t2, F, Fpad, ldq, ldt, qc,
                                     tc, cat_w, Cc, nq, nt, wsum, scale, k,
-                                    splits, tiles_per_seg, out, shared_kth, out_v,
-                                    out_i, s);
+                                    splits, tiles_per_seg, seg_out, gkth,
+                                    out_v, out_i, idx_base, s);
     else
         err = bm == 128
             ? launch_topk<false, 128>(qT, tT, q2, t2, F, Fpad, ldq, ldt, qc,
                                       tc, cat_w, Cc, nq, nt, wsum, scale, k,
-                                      splits, tiles_per_seg, out, shared_kth, out_v,
-                                      out_i, s)
+                                      splits, tiles_per_seg, seg_out, gkth,
+                                      out_v, out_i, idx_base, s)
             : launch_topk<false, 64>(qT, tT, q2, t2, F, Fpad, ldq, ldt, qc,
                                      tc, cat_w, Cc, nq, nt, wsum, scale, k,
-                                     splits, tiles_per_seg, out, shared_kth, out_v,
-                                     out_i, s);
+                                     splits, tiles_per_seg, seg_out, gkth,
+                                     out_v, out_i, idx_base, s);
     return (int)err;
 }
 
 // keys [S, nq, k] int64, each [s, row] sorted ascending -> the k smallest
-// of each row as (value, index) int32 pairs, INT32_MAX / -1 in empty slots.
+// of each row: as (value, index) int32 pairs in out_v / out_i, INT32_MAX
+// / -1 in empty slots; or, with keys_out [nq, k] (which may be keys' own
+// list 0), as sorted keys, with each row's k-th value in kth_out [nq]
+// when it is given.
 extern "C" int avenir_topk_merge(const long long* keys, int S, int nq, int k,
-                                 int* out_v, int* out_i, void* stream) {
-    if (k < 1 || k > MAX_K || S < 1 || nq < 0)
+                                 int* out_v, int* out_i, long long* keys_out,
+                                 int* kth_out, void* stream) {
+    if (k < 1 || k > MAX_K || S < 1 || nq < 0
+        || (!keys_out && (!out_v || !out_i)))
         return (int)cudaErrorInvalidValue;
     if (nq == 0) return 0;
     merge_kernel<<<(nq + MERGE_WARPS - 1) / MERGE_WARPS, 32 * MERGE_WARPS, 0,
                    static_cast<cudaStream_t>(stream)>>>(keys, S, nq, k, out_v,
-                                                        out_i);
+                                                        out_i, keys_out,
+                                                        kth_out);
     return (int)cudaGetLastError();
 }
 

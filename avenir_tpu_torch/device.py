@@ -1,17 +1,18 @@
-"""The one device a job runs on: the port's counterpart of
-``avenir_tpu/parallel/mesh.py``.
+"""The one device a job runs on.
 
-The TPU package shards rows over a mesh of chips; the port runs on one
-CUDA card, so the mesh reduces to a device and the shard padding to
-``pad_rows`` with a multiple of 1.
+A job that takes a ``device`` runs on it; the multi-device engines take a
+mesh of devices instead (``parallel/mesh.py``, which also holds
+``pad_rows``, re-exported here for the callers that import it from this
+module).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Union
 
-import numpy as np
 import torch
+
+from .parallel.mesh import pad_rows  # noqa: F401
 
 
 def resolve_device(device: Union[None, str, torch.device] = None
@@ -35,18 +36,3 @@ def resolve_device(device: Union[None, str, torch.device] = None
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
     return dev
-
-
-def pad_rows(arr: np.ndarray, multiple: int,
-             fill=0) -> Tuple[np.ndarray, np.ndarray]:
-    """Pad axis 0 to a multiple of ``multiple``; returns the padded array
-    and a bool validity mask (False on the padding rows, which the count
-    kernels drop)."""
-    n = arr.shape[0]
-    target = ((n + multiple - 1) // multiple) * multiple
-    mask = np.zeros(target, dtype=bool)
-    mask[:n] = True
-    if target == n:
-        return arr, mask
-    pad_width = [(0, target - n)] + [(0, 0)] * (arr.ndim - 1)
-    return np.pad(arr, pad_width, constant_values=fill), mask

@@ -20,9 +20,9 @@ Parity notes carried over from the reference: the non-weighted
 class-distribution output keeps its field separator, and the ``sigmoid``
 kernel raises instead of leaving every neighborhood unscored.
 
-Every job takes a ``device``; the distance job computes on it, and jobs
-with no device work still resolve it, so that no entry point quietly runs
-on the CPU.  Not ported yet: tracing spans and the serving adapter
+Every job takes a ``device``; the distance job computes on it (or on the
+mesh passed to its ``run``), and jobs with no device work still resolve
+it, so that no entry point quietly runs on the CPU.  Not ported yet: tracing spans and the serving adapter
 (``NearestNeighborAdapter``).
 """
 
@@ -100,7 +100,10 @@ class SameTypeSimilarity:
         return num, cat, np.asarray(num_w), np.asarray(cat_w)
 
     @traced_run
-    def run(self, in_path: str, out_path: str) -> Counters:
+    def run(self, in_path: str, out_path: str, mesh=None) -> Counters:
+        """The distance job; with ``mesh`` (``parallel.mesh.Mesh``) the
+        distances run on that mesh instead of the job's device, with the
+        same output bytes."""
         counters = Counters()
         delim_regex = self.config.field_delim_regex()
         delim = self.config.field_delim_out()
@@ -155,8 +158,9 @@ class SameTypeSimilarity:
         stats: dict = {}
         dist, idx = pairwise_distances(
             qnum, qcat, tnum, tcat, num_w, cat_w, algorithm=algorithm,
-            scale=scale, top_k=effective_k, device=self.device,
-            topk_method=topk_method, stats=stats)
+            scale=scale, top_k=effective_k,
+            device=None if mesh is not None else self.device,
+            topk_method=topk_method, stats=stats, mesh=mesh)
         counters.set("Distance", "Fused engine calls",
                      int(stats["engine"] == "fused"))
         counters.set("Distance", "Re-resolved rows", stats["reresolved"])

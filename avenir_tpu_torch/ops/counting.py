@@ -1,4 +1,4 @@
-"""The counting engine on one device: dense group-by-composite-key counts.
+"""The counting engine: dense group-by-composite-key counts.
 
 Counterpart of ``avenir_tpu/ops/counting.py``.  Every batch trainer
 reduces its records to a small dense table ``C[k1, k2, ...] += w``; the
@@ -8,6 +8,8 @@ hand-written histogram kernel K1 and ``feature_class_counts_rawbin``
 kernel K2 (``ops.histogram``); on a CPU tensor their plain PyTorch
 versions run.  The TPU package's choice between an einsum, the Pallas
 kernel and a scatter was a TPU decision and has no counterpart here.
+``sharded_reduce`` runs a count over the positions of a device mesh and
+sums the tables, as the reference's ``shard_map`` + ``psum`` does.
 
 Drop contract (shared by every function here): an element whose index is
 out of range, or whose row is masked, adds nothing.
@@ -90,13 +92,49 @@ def feature_class_counts_rawbin(xraw: torch.Tensor, y: torch.Tensor,
                                             widths, mask=mask, out=out)
 
 
-def sharded_reduce(local_fn: Callable, *row_arrays, device: torch.device,
+def sharded_reduce(local_fn: Callable, *row_arrays,
+                   device: Optional[torch.device] = None, mesh=None,
                    static_args: tuple = ()):
     """``local_fn(*arrays, mask, *static_args)`` over host arrays with a
-    common leading row count, on one device.  The TPU package padded rows
-    to the mesh and summed the shards' tables with ``psum``; with one
-    device there is nothing to pad and no collective, so every row is
-    valid and ``mask`` is None."""
-    arrays = [torch.as_tensor(np.ascontiguousarray(a)).to(device)
-              for a in row_arrays]
-    return local_fn(*arrays, None, *static_args)
+    common leading row count.
+
+    With ``device``: on that one device, every row valid and ``mask``
+    None.  With ``mesh`` (the reference's form, ``counting.py:345``): the
+    rows pad to a multiple of the mesh's position count (data and model
+    flattened: counting is 1-D work), each position runs ``local_fn`` on
+    its rows with its validity mask, and the tables are summed by the
+    mesh's ``psum``.  The result lies on the mesh's first device."""
+    if (device is None) == (mesh is None):
+        raise ValueError("pass exactly one of device and mesh")
+    if device is not None:
+        arrays = [torch.as_tensor(np.ascontiguousarray(a)).to(device)
+                  for a in row_arrays]
+        return local_fn(*arrays, None, *static_args)
+    from ..parallel.mesh import pad_rows, shard_rows
+    n = mesh.size
+    padded, mask = [], None
+    for a in row_arrays:
+        pa, mask = pad_rows(np.asarray(a), n)
+        padded.append(shard_rows(pa, mesh, ("data", "model")))
+    return sharded_reduce_resident(
+        local_fn, *padded, mask=shard_rows(mask, mesh, ("data", "model")),
+        mesh=mesh, static_args=static_args)
+
+
+def sharded_reduce_resident(local_fn: Callable, *row_arrays, mask, mesh,
+                            static_args: tuple = ()):
+    """``sharded_reduce`` for rows already placed: each of ``row_arrays``
+    and ``mask`` is one tensor per mesh position (``parallel.shard_rows``
+    over ``('data', 'model')`` after ``pad_rows`` to the position count),
+    so data that stays on the devices across calls is not moved again.
+    Returns the ``psum`` of the positions' outputs (a tensor, or a tuple,
+    list or dict of tensors) on the mesh's first device."""
+    from ..parallel.mesh import psum
+    outs = [local_fn(*shard, m, *static_args)
+            for *shard, m in zip(*row_arrays, mask)]
+    first = outs[0]
+    if isinstance(first, torch.Tensor):
+        return psum(outs)[0]
+    if isinstance(first, dict):
+        return {key: psum([o[key] for o in outs])[0] for key in first}
+    return type(first)(psum(list(parts))[0] for parts in zip(*outs))

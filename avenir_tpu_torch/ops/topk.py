@@ -32,13 +32,24 @@ each segment's sorted k-list goes to a scratch tensor and the merge kernel
 (``merge_topk_lists``, counted in ``MERGE_LAUNCHES``) merges them.  The
 plain versions of that path are ``plain_split_pairwise_topk`` and
 ``plain_merge_topk``.
+
+The multi-device engines use two more forms of the same kernels:
+``segment_keys`` (K3 writing its segments' lists as keys whose indices
+start at an index base: a ring hop's or a model shard's first global
+row) and ``merge_topk_keys`` (the merge kernel leaving keys and each
+row's k-th value, the carry of ``ops.distance.pairwise_topk_ring``).
+``fused_pairwise_topk(..., mesh=)`` shards the query rows over the mesh's
+``data`` axis and the candidate rows over ``model``, and merges the model
+shards' lists with one merge launch per data shard: the reference's
+``_build_fused`` (pallas_topk.py:412-484), whose ``all_gather`` and
+two-key sort ``_lex_merge`` that merge replaces.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -78,13 +89,15 @@ def _seg_bits(extent: int) -> int:
 
 
 def fused_topk_supported(algorithm: str, k: int, nt: int, n_num: int,
-                         n_cat: int, scale: int) -> bool:
+                         n_cat: int, scale: int, m_ax: int = 1) -> bool:
     """The reference's hard constraints on the fused engine
     (pallas_topk.py:119): k <= 64, at least one column, at most 1024
     numeric columns (64 for manhattan) and 16 categorical ones, and its
-    int32 packing budget over a candidate segment of up to 2^18 rows."""
-    nt_pad = -(-max(nt, 1) // _TB) * _TB
-    val_budget = 1 << (31 - _seg_bits(min(nt_pad, _SEG)))
+    int32 packing budget over a candidate segment of up to 2^18 rows of
+    one of ``m_ax`` model shards."""
+    step = m_ax * _TB
+    nt_pad = -(-max(nt, 1) // step) * step
+    val_budget = 1 << (31 - _seg_bits(min(nt_pad // m_ax, _SEG)))
     max_f = {"euclidean": _MAX_F, "manhattan": _MAX_F_MANHATTAN}
     return (algorithm in max_f
             and 0 < k <= _MAX_K
@@ -96,13 +109,14 @@ def fused_topk_supported(algorithm: str, k: int, nt: int, n_num: int,
 
 def fused_topk_applicable(algorithm: str, k: int, nt: int, n_num: int,
                           n_cat: int, scale: int,
-                          device: Union[str, torch.device, None] = None
-                          ) -> bool:
+                          device: Union[str, torch.device, None] = None,
+                          m_ax: int = 1) -> bool:
     """The auto-selection gate (pallas_topk.py:145): the hard constraints,
     a candidate axis of at least 2,048 rows, and a CUDA device."""
     return (device is not None and torch.device(device).type == "cuda"
             and nt >= 4 * _TB
-            and fused_topk_supported(algorithm, k, nt, n_num, n_cat, scale))
+            and fused_topk_supported(algorithm, k, nt, n_num, n_cat, scale,
+                                     m_ax=m_ax))
 
 
 def k3_supported(algorithm: str, k: int, n_num: int, n_cat: int) -> bool:
@@ -208,6 +222,35 @@ def segment_bounds(nt: int, splits: int, tiles_per_seg: int) -> list:
             for s in range(splits)]
 
 
+def device_plan(nq: int, nt: int, device: torch.device
+                ) -> Tuple[int, int, int]:
+    """``k3_plan`` for ``nq`` x ``nt`` on ``device``'s SM count; on the CPU
+    one segment (the plain version's answer does not depend on the
+    segments)."""
+    if device.type != "cuda":
+        return k3_plan(nq, nt, 1, split=1)
+    return k3_plan(nq, nt, torch.cuda.get_device_properties(
+        device).multi_processor_count)
+
+
+def plain_merge_topk_keys(keys: torch.Tensor) -> torch.Tensor:
+    """The keys-out merge in plain PyTorch: the k smallest keys of each
+    row of ``keys`` [S, nq, k] (sorted unique int64 keys ``(value << 32) |
+    index`` per list, ``INT64_MAX`` in empty slots), sorted, ``[nq, k]``."""
+    S, nq, k = keys.shape
+    flat = keys.permute(1, 0, 2).reshape(nq, S * k)
+    return torch.topk(flat, k, dim=1, largest=False, sorted=True).values
+
+
+def split_keys(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sorted keys as ``(dist int32, idx int32)``, ``INT32_MAX`` / ``-1``
+    in empty slots."""
+    empty = keys == _SENT64
+    vals = torch.where(empty, _SENT, keys >> 32).to(torch.int32)
+    idxs = torch.where(empty, -1, keys & 0xFFFFFFFF).to(torch.int32)
+    return vals, idxs
+
+
 def plain_merge_topk(keys: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The merge kernel's function in plain PyTorch: ``keys`` [S, nq, k]
@@ -215,30 +258,24 @@ def plain_merge_topk(keys: torch.Tensor
     of one segment (``INT64_MAX`` in empty slots); returns the k smallest
     of each row as ``(dist int32 [nq, k], idx int32 [nq, k])``,
     ``INT32_MAX`` / ``-1`` in empty slots."""
-    S, nq, k = keys.shape
-    flat = keys.permute(1, 0, 2).reshape(nq, S * k)
-    best = torch.topk(flat, k, dim=1, largest=False, sorted=True).values
-    empty = best == _SENT64
-    vals = torch.where(empty, _SENT, best >> 32).to(torch.int32)
-    idxs = torch.where(empty, -1, best & 0xFFFFFFFF).to(torch.int32)
-    return vals, idxs
+    return split_keys(plain_merge_topk_keys(keys))
 
 
 def plain_segment_keys(qnum: torch.Tensor, qcat: torch.Tensor,
                        tnum: torch.Tensor, tcat: torch.Tensor,
                        cat_weights: torch.Tensor, wsum: float, scale: int,
-                       k: int, bounds: list, algorithm: str = "euclidean"
-                       ) -> torch.Tensor:
+                       k: int, bounds: list, algorithm: str = "euclidean",
+                       base: int = 0) -> torch.Tensor:
     """The sorted k-list of each candidate segment ``[lo, hi)`` of
     ``bounds`` (``plain_pairwise_topk`` on the segment) as int64 keys with
-    global indices, ``[S, nq, k]``: the merge kernel's input."""
+    indices ``base + row``, ``[S, nq, k]``: the merge kernel's input."""
     keys = torch.full((len(bounds), qnum.shape[0], k), _SENT64,
                       dtype=torch.int64, device=qnum.device)
     for s, (lo, hi) in enumerate(bounds):
         v, i, _ = plain_pairwise_topk(qnum, qcat, tnum[lo:hi], tcat[lo:hi],
                                       cat_weights, wsum, scale, k, algorithm)
-        keys[s] = torch.where(i >= 0, (v.long() << 32) | (i.long() + lo),
-                              _SENT64)
+        keys[s] = torch.where(
+            i >= 0, (v.long() << 32) | (i.long() + lo + base), _SENT64)
     return keys
 
 
@@ -302,9 +339,10 @@ def _lib():
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.avenir_topk.argtypes = [vp, vp, ci, vp, vp, vp, ci, ci, ci, cf,
                                     cf, ci, ci, ci, ci, ci, vp, vp, vp, vp,
-                                    vp, vp, vp, vp, vp]
+                                    vp, vp, vp, vp, ci, vp]
         lib.avenir_topk.restype = ci
-        lib.avenir_topk_merge.argtypes = [vp, ci, ci, ci, vp, vp, vp]
+        lib.avenir_topk_merge.argtypes = [vp, ci, ci, ci, vp, vp, vp, vp,
+                                          vp]
         lib.avenir_topk_merge.restype = ci
         lib.avenir_topk_error_string.argtypes = [ci]
         lib.avenir_topk_error_string.restype = ctypes.c_char_p
@@ -318,40 +356,163 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _check_keys(keys: torch.Tensor) -> None:
+    if keys.dtype != torch.int64 or keys.dim() != 3 \
+            or not keys.is_contiguous():
+        raise ValueError("keys must be a contiguous int64 [S, nq, k] tensor")
+    S, _, k = keys.shape
+    if not 1 <= k <= _MAX_K or S < 1:
+        raise ValueError(f"need S >= 1 and k in [1, {_MAX_K}]")
+    if keys.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {keys.device}")
+
+
+def _merge_launch(keys, vals=None, idxs=None, out=None, kth=None) -> None:
+    S, nq, k = keys.shape
+    if nq:
+        lib = _lib()
+        with torch.cuda.device(keys.device):
+            stream = torch.cuda.current_stream(keys.device).cuda_stream
+            _raise_on(lib.avenir_topk_merge(keys.data_ptr(), S, nq, k,
+                                            _ptr(vals), _ptr(idxs), _ptr(out),
+                                            _ptr(kth), stream),
+                      "topk merge kernel")
+        _count_launch("MERGE_LAUNCHES")
+
+
 def merge_topk_lists(keys: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The merge kernel of K3's split path (``csrc/topk.cu``
     ``merge_kernel``): ``plain_merge_topk``'s function.  CPU tensors take
     the plain version; CUDA tensors launch the kernel or raise.  Each
     launch adds one to ``MERGE_LAUNCHES``."""
-    if keys.dtype != torch.int64 or keys.dim() != 3 \
-            or not keys.is_contiguous():
-        raise ValueError("keys must be a contiguous int64 [S, nq, k] tensor")
-    S, nq, k = keys.shape
-    if not 1 <= k <= _MAX_K or S < 1:
-        raise ValueError(f"need S >= 1 and k in [1, {_MAX_K}]")
+    _check_keys(keys)
     if keys.device.type == "cpu":
         return plain_merge_topk(keys)
-    if keys.device.type != "cuda":
-        raise ValueError(f"unsupported device {keys.device}")
+    S, nq, k = keys.shape
     vals = torch.empty((nq, k), dtype=torch.int32, device=keys.device)
     idxs = torch.empty((nq, k), dtype=torch.int32, device=keys.device)
-    if nq:
-        lib = _lib()
-        with torch.cuda.device(keys.device):
-            stream = torch.cuda.current_stream(keys.device).cuda_stream
-            _raise_on(lib.avenir_topk_merge(keys.data_ptr(), S, nq, k,
-                                            vals.data_ptr(), idxs.data_ptr(),
-                                            stream), "topk merge kernel")
-        _count_launch("MERGE_LAUNCHES")
+    _merge_launch(keys, vals=vals, idxs=idxs)
     return vals, idxs
+
+
+def merge_topk_keys(keys: torch.Tensor, out: torch.Tensor,
+                    kth: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The merge kernel's keys-out form: the k smallest keys of each row
+    of ``keys`` [S, nq, k], sorted, written to ``out`` [nq, k] int64
+    (which may be ``keys[0]``: the merge reads a row's lists before it
+    writes the row), and each row's k-th value (``INT32_MAX`` where the row
+    holds fewer than k keys) to ``kth`` [nq] int32 when given.  Returns
+    ``out``.  CPU tensors take the plain version (``plain_merge_topk_keys``);
+    CUDA tensors launch the kernel or raise, adding one to
+    ``MERGE_LAUNCHES``."""
+    _check_keys(keys)
+    S, nq, k = keys.shape
+    for name, t, dtype, shape in (("out", out, torch.int64, (nq, k)),
+                                  ("kth", kth, torch.int32, (nq,))):
+        if t is None:
+            continue
+        if (t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous() or t.device != keys.device):
+            raise ValueError(f"{name} must be a contiguous {dtype} {shape} "
+                             f"tensor on {keys.device}")
+    if keys.device.type == "cpu":
+        best = plain_merge_topk_keys(keys)
+        out.copy_(best)
+        if kth is not None:
+            kth.copy_((best[:, k - 1] >> 32).to(torch.int32))
+        return out
+    _merge_launch(keys, out=out, kth=kth)
+    return out
+
+
+def _k3_launch(qnum, qcat, tnum, tcat, cat_weights, wsum, scale, k,
+               algorithm, bm, splits, per, seg=None, gkth=None, vals=None,
+               idxs=None, base=0) -> None:
+    """One K3 call on the card: the layout scratch, then ``avenir_topk``
+    writing ``seg`` (keys) or ``vals`` / ``idxs``."""
+    nq, nt, F = qnum.shape[0], tnum.shape[0], qnum.shape[1]
+    dev = qnum.device
+    fpad = -(-F // 16) * 16        # whole stages of csrc/topk.cu FK
+    ldq, ldt = -(-nq // bm) * bm, -(-nt // _BN) * _BN
+
+    def scratch(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    qT, q2 = scratch(fpad, ldq), scratch(ldq)
+    tT, t2 = scratch(fpad, ldt), scratch(ldt)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _raise_on(lib.avenir_topk(
+            qnum.data_ptr(), tnum.data_ptr(), F, qcat.data_ptr(),
+            tcat.data_ptr(), cat_weights.data_ptr(), qcat.shape[1], nq, nt,
+            float(np.float32(wsum)), float(np.float32(scale)), k,
+            int(algorithm == "euclidean"), bm, splits, per, qT.data_ptr(),
+            tT.data_ptr(), q2.data_ptr(), t2.data_ptr(), _ptr(seg),
+            _ptr(gkth), _ptr(vals), _ptr(idxs), base, stream),
+            "topk kernel")
+    _count_launch("K3_LAUNCHES")
+
+
+def segment_keys(qnum: torch.Tensor, qcat: torch.Tensor,
+                 tnum: torch.Tensor, tcat: torch.Tensor,
+                 cat_weights: torch.Tensor, wsum: float, scale: int, k: int,
+                 algorithm: str = "euclidean", base: int = 0,
+                 out: Optional[torch.Tensor] = None,
+                 kth: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K3's keys-out form: the sorted k keys ``(value << 32) | (base +
+    row)`` of each segment of ``device_plan``'s plan, ``[S, nq, k]`` int64
+    (``INT64_MAX`` in empty slots), written to ``out`` when given: the
+    input of ``merge_topk_lists`` / ``merge_topk_keys``.  ``base`` is the
+    global index of the first candidate row (a ring hop's owner block, a
+    model shard).  ``kth`` [nq] int32, on the card, holds a k-th value per
+    row that is at least the row's final k-th value over every list the
+    caller will merge (a ring carry's): K3 then keeps out of the lists any
+    pair above it, and tightens it in place; the merged answer is the same.
+    CPU tensors take the plain version (``plain_segment_keys`` over one
+    segment, ``kth`` unused); CUDA tensors launch K3 or raise."""
+    _check(qnum, qcat, tnum, tcat, cat_weights, k, algorithm)
+    nq, nt = qnum.shape[0], tnum.shape[0]
+    dev = qnum.device
+    if base < 0 or base + nt >= 2 ** 31:
+        raise ValueError(f"index base {base} + {nt} rows must stay in "
+                         f"[0, 2^31)")
+    bm, splits, per = device_plan(nq, nt, dev)
+    if out is None:
+        out = torch.empty((splits, nq, k), dtype=torch.int64, device=dev)
+    elif (out.dtype != torch.int64 or tuple(out.shape) != (splits, nq, k)
+          or not out.is_contiguous() or out.device != dev):
+        raise ValueError(f"out must be a contiguous int64 {(splits, nq, k)} "
+                         f"tensor on {dev}")
+    if kth is not None and (kth.dtype != torch.int32
+                            or tuple(kth.shape) != (nq,)
+                            or kth.device != dev):
+        raise ValueError(f"kth must be an int32 ({nq},) tensor on {dev}")
+    if dev.type == "cpu":
+        out.copy_(plain_segment_keys(qnum, qcat, tnum, tcat, cat_weights,
+                                     wsum, scale, k,
+                                     segment_bounds(nt, splits, per),
+                                     algorithm, base))
+        return out
+    if nq == 0:
+        return out
+    if splits > 1 and kth is None:
+        kth = torch.full((nq,), _SENT, dtype=torch.int32, device=dev)
+    _k3_launch(qnum, qcat, tnum, tcat, cat_weights, wsum, scale, k,
+               algorithm, bm, splits, per, seg=out, gkth=kth, base=base)
+    return out
 
 
 def fused_pairwise_topk(qnum: torch.Tensor, qcat: torch.Tensor,
                         tnum: torch.Tensor, tcat: torch.Tensor,
                         cat_weights: torch.Tensor, wsum: float, scale: int,
                         k: int, algorithm: str = "euclidean",
-                        split: Optional[int] = None
+                        split: Optional[int] = None, mesh=None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K3: the exact per-query k smallest ``(dist, idx)`` with the
     reference's conventions: numeric columns float32 and already
@@ -362,12 +523,25 @@ def fused_pairwise_topk(qnum: torch.Tensor, qcat: torch.Tensor,
     ``suspect`` is all false (see the module docstring).  On the card the
     candidate axis is cut into ``k3_plan``'s segments (``split`` forces
     their number) and, with more than one, ``merge_topk_lists`` merges
-    them."""
+    them.
+
+    With ``mesh`` (``parallel.mesh.Mesh``) the query rows shard over its
+    ``data`` axis and the candidate rows over ``model``, the operands
+    moving to each position's device; the answer, on the mesh's first
+    device, is the one-device answer, ties included.  With one model
+    shard each data shard is a one-device call; with more, each model
+    shard's K3 writes its lists as keys with its global index base
+    (``segment_keys``) and one merge launch per data shard merges them."""
     _check(qnum, qcat, tnum, tcat, cat_weights, k, algorithm)
+    if mesh is not None:
+        if split is not None:
+            raise ValueError("split applies to the one-device call")
+        return _fused_on_mesh(qnum, qcat, tnum, tcat, cat_weights, wsum,
+                              scale, k, algorithm, mesh)
     if qnum.device.type == "cpu":
         return plain_pairwise_topk(qnum, qcat, tnum, tcat, cat_weights,
                                    wsum, scale, k, algorithm)
-    nq, nt, F = qnum.shape[0], tnum.shape[0], qnum.shape[1]
+    nq, nt = qnum.shape[0], tnum.shape[0]
     dev = qnum.device
     vals = torch.empty((nq, k), dtype=torch.int32, device=dev)
     idxs = torch.empty((nq, k), dtype=torch.int32, device=dev)
@@ -376,31 +550,50 @@ def fused_pairwise_topk(qnum: torch.Tensor, qcat: torch.Tensor,
         return vals, idxs, suspect
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     bm, splits, per = k3_plan(nq, nt, sms, split)
-    fpad = -(-F // 16) * 16        # whole stages of csrc/topk.cu FK
-    ldq, ldt = -(-nq // bm) * bm, -(-nt // _BN) * _BN
-
-    def scratch(*shape, dtype=torch.float32):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    qT, q2 = scratch(fpad, ldq), scratch(ldq)
-    tT, t2 = scratch(fpad, ldt), scratch(ldt)
     seg = gkth = None
     if splits > 1:
-        seg = scratch(splits, nq, k, dtype=torch.int64)
+        seg = torch.empty((splits, nq, k), dtype=torch.int64, device=dev)
         gkth = torch.full((nq,), _SENT, dtype=torch.int32, device=dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _raise_on(lib.avenir_topk(
-            qnum.data_ptr(), tnum.data_ptr(), F, qcat.data_ptr(),
-            tcat.data_ptr(), cat_weights.data_ptr(), qcat.shape[1], nq, nt,
-            float(np.float32(wsum)), float(np.float32(scale)), k,
-            int(algorithm == "euclidean"), bm, splits, per, qT.data_ptr(),
-            tT.data_ptr(), q2.data_ptr(), t2.data_ptr(),
-            None if seg is None else seg.data_ptr(),
-            None if gkth is None else gkth.data_ptr(), vals.data_ptr(),
-            idxs.data_ptr(), stream), "topk kernel")
-    _count_launch("K3_LAUNCHES")
+    _k3_launch(qnum, qcat, tnum, tcat, cat_weights, wsum, scale, k,
+               algorithm, bm, splits, per, seg=seg, gkth=gkth, vals=vals,
+               idxs=idxs)
     if seg is not None:
         vals, idxs = merge_topk_lists(seg)
     return vals, idxs, suspect
+
+
+def _fused_on_mesh(qnum, qcat, tnum, tcat, cat_weights, wsum, scale, k,
+                   algorithm, mesh):
+    """``fused_pairwise_topk`` on a ``(data, model)`` mesh: the reference's
+    ``_build_fused`` (pallas_topk.py:412-484), one controller driving every
+    position in turn."""
+    from ..parallel.mesh import gather, shard_grid, to_device
+
+    d_ax, m_ax = mesh.shape["data"], mesh.shape["model"]
+    t_loc = -(-tnum.shape[0] // m_ax)
+    home = mesh.devices[0, 0]
+    Q, QC = shard_grid(qnum, mesh, "data"), shard_grid(qcat, mesh, "data")
+    model_axis = "model" if m_ax > 1 else None
+    T, TC = shard_grid(tnum, mesh, model_axis), shard_grid(tcat, mesh,
+                                                           model_axis)
+    W = shard_grid(cat_weights, mesh)
+    vals: List[torch.Tensor] = []
+    idxs: List[torch.Tensor] = []
+    for i in range(d_ax):
+        if m_ax == 1:
+            v, ix, _ = fused_pairwise_topk(Q[i][0], QC[i][0], T[i][0],
+                                           TC[i][0], W[i][0], wsum, scale, k,
+                                           algorithm)
+        else:
+            # each model shard's lists, with its global index base; the
+            # merge of all of them is exact with the global lowest-index
+            # tie order, as the reference's two-key sort is
+            lists = [segment_keys(Q[i][j], QC[i][j], T[i][j], TC[i][j],
+                                  W[i][j], wsum, scale, k, algorithm,
+                                  base=j * t_loc)
+                     for j in range(m_ax)]
+            v, ix = merge_topk_lists(gather(lists, mesh.devices[i, 0]))
+        vals.append(to_device(v, home))
+        idxs.append(to_device(ix, home))
+    return (torch.cat(vals), torch.cat(idxs),
+            torch.zeros(qnum.shape[0], dtype=torch.bool, device=home))

@@ -37,7 +37,7 @@ def time_ms(fn, reps: int, warmup_s: float = 0.0) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def kernel_device_ms(fn, reps: int, name: str, windows: int = 3) -> float:
+def kernel_device_ms(fn, reps: int, name: str, windows: int = 8) -> float:
     """Mean device duration of the kernels whose name holds ``name``, over
     ``reps`` calls of ``fn`` under ``torch.profiler``.  The mean is over
     the launches the profiler recorded: on the H100's machine it can miss

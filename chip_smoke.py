@@ -13,8 +13,9 @@ call time, by the kernel's own device time and at one row, the launch
 floor, all by ``avenir_tpu_torch/timing.py``; K3 at its split and unsplit
 routes and over a grid of query and candidate counts, the crossover behind
 the fused engine's gate; the merge of K3's candidate segments at the main
-path's segment lists), then drives every ported path on the card and
-again on the CPU:
+path's segment lists and at the serving batches'; K3's keys-out form with
+an index base and the merge's keys-out form at a ring hop's shape), then
+drives every ported path on the card and again on the CPU:
 
 1. telecom-churn Naive Bayes at the repo's benchmark size (50,000 seeded
    rows repeated to 2,000,000; the first 1.6M train in 131,072-row chunks,
@@ -35,7 +36,19 @@ again on the CPU:
    ``output.top.matches=16``, kernel K3 and its segment merge), then
    top-16 voting, through ``avenir_tpu_torch.cli.main``;
 3. the ``resource/knn_classify/run.sh`` sequence at its 120-row size;
-4. ``serve_nb``: ``resource/serving/run.sh`` on the card — the churn
+4. ``mesh``: the multi-device engines on meshes that name cuda:0 up to
+   four times (every hop and launch of the four-device program; no bytes
+   move between cards): ``pairwise_topk_ring`` at the kNN width on
+   [cuda:0] and [cuda:0] * 4 (``bins``: K3 with an index base and the
+   keys-out merge on every hop, d^2 launches of each, the one-device
+   answer; ``sort`` on 2,048 queries against the plain engine), and on
+   four shards at the segmented shape of bench.py:1244 (2,048 x 1,050,000
+   x 64); the 2-D fused engine as 2 x 2 and 1 x 4; the distance job on a
+   2 x 2 mesh (the one-device job's bytes); the NB count over four shards
+   of the first training chunk (one K1 launch a shard, the one-shard
+   table); with each call's time, per-hop device times and the device's
+   idle share;
+5. ``serve_nb``: ``resource/serving/run.sh`` on the card — the churn
    artifact trained (telecom_churn 3000, seed 29, 2,400 rows), then
    ``python -m avenir_tpu_torch serve`` started as a subprocess with the
    runbook's serve.properties (variants f32,f64, two replicas, batches up
@@ -46,7 +59,7 @@ again on the CPU:
    warmup, SIGINT draining the server into its ``--trace``; then 128 of
    the same requests in process under ``torch.profiler`` (device busy
    time, device events per batch);
-5. ``serve_knn``: an in-process server on cuda:0 with a
+6. ``serve_knn``: an in-process server on cuda:0 with a
    ``nearestNeighbor`` model over the kNN job's 16,384 x 256 training set
    (k = 16, batches up to 64), 512 queries in requests of 1 to 64 rows:
    responses equal to the batch job's voting lines within the one-unit
@@ -604,17 +617,19 @@ def run_topk_case(torch, topk, tag, algorithm, k, exact, sample, make,
             "bm": bm, "splits": splits}
 
 
-def run_merge_case(torch, topk, card) -> dict:
-    """The merge kernel at the main path's shape: the segment lists that
-    K3's plan gives the kNN job's 16,384 x 16,384 x 256 call, made by the
+def run_merge_case(torch, topk, card, nq=KNN_ROWS, kid="K3merge",
+                   tag="main path's segments") -> dict:
+    """The merge kernel at the segment lists that K3's plan gives ``nq``
+    queries against the kNN job's 16,384 x 256 candidates (the main path's
+    call at ``nq = 16,384``; a serving batch's at nq <= 64), made by the
     plain version on each segment, merged by the kernel and by its plain
     version (exact: the keys are unique); timed beside ``torch.topk`` over
     the lists laid side by side (the library yardstick, without the int32
     split)."""
-    qn, qc, tn, tc, cw, wsum = topk_uniform(torch, KNN_ROWS, KNN_ROWS,
-                                            KNN_F, 0, 1)()
+    qn, qc, tn, tc, cw, wsum = topk_uniform(torch, nq, KNN_ROWS, KNN_F, 0,
+                                            1)()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    _, splits, per = topk.k3_plan(KNN_ROWS, KNN_ROWS, sms)
+    _, splits, per = topk.k3_plan(nq, KNN_ROWS, sms)
     keys = topk.plain_segment_keys(
         qn, qc, tn, tc, cw, wsum, 1000, KNN_K,
         topk.segment_bounds(KNN_ROWS, splits, per))
@@ -626,26 +641,192 @@ def run_merge_case(torch, topk, card) -> dict:
     if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
         raise AssertionError(f"merge kernel differs from its plain version "
                              f"(max abs err {err})")
-    ms = time_ms(lambda: topk.merge_topk_lists(keys), 50)
+    reps = 50 if nq > 64 else 500
+    ms = time_ms(lambda: topk.merge_topk_lists(keys), reps)
     plain_ms = time_ms(lambda: topk.plain_merge_topk(keys), 20)
-    flat = keys.permute(1, 0, 2).reshape(KNN_ROWS, -1).contiguous()
+    flat = keys.permute(1, 0, 2).reshape(nq, -1).contiguous()
     library_ms = time_ms(lambda: torch.topk(
         flat, KNN_K, dim=1, largest=False, sorted=True), 20)
-    n = splits * KNN_ROWS * KNN_K
-    bound_ms, bound_by = bound(8 * n + 8 * KNN_ROWS * KNN_K, 0)
-    log(f"K3 merge kernel [main path's segments: S={splits} nq={KNN_ROWS} "
-        f"k={KNN_K}]: exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"torch.topk {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}) [{card}]")
+    device_ms = kernel_device_ms(lambda: topk.merge_topk_lists(keys), 20,
+                                 "merge_kernel")
+    n = splits * nq * KNN_K
+    bound_ms, bound_by = bound(8 * n + 8 * nq * KNN_K, 0)
+    log(f"K3 merge kernel [{tag}: S={splits} nq={nq} k={KNN_K}]: exact; "
+        f"kernel {ms:.4f} ms (device {device_ms:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, torch.topk {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}) [{card}]")
     del keys, flat
     torch.cuda.empty_cache()
-    return {"name": f"K3 merge_topk_lists [main path's segments: S={splits} "
-                    f"nq={KNN_ROWS} k={KNN_K}]",
+    return {"name": f"K3 merge_topk_lists [{tag}: S={splits} nq={nq} "
+                    f"k={KNN_K}]",
             "route": "cuda", "source": MERGE_KERNEL[0],
-            "replaces": MERGE_KERNEL[1], "kid": "K3merge",
+            "replaces": MERGE_KERNEL[1], "kid": kid,
             "launches": 0, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
+
+
+# the tiles at which the mesh phase runs K3's keys-out form and its merge:
+# the ring's last hop of shard 0 (its carry holds blocks 0..d-2) at the kNN
+# cell and at the segmented shape of bench.py:1244, and the last model
+# shard's tile of the 2-D fused engine as 2 x 2 and as 1 x 4
+RING_D = 4
+SEG_NQ, SEG_NT, SEG_F = 2048, 1_050_000, 64     # bench.py:1244
+TILE_CASES = (
+    # tag, query rows, rows per block, F, blocks, ring hop, seed,
+    # K3's kid, the merge's kid
+    ("ring hop", KNN_ROWS // RING_D, KNN_ROWS // RING_D, KNN_F, RING_D,
+     True, 14, "K3ring", "K3mring"),
+    ("segmented ring hop", SEG_NQ // RING_D, SEG_NT // RING_D, SEG_F,
+     RING_D, True, 15, "K3ringseg", "K3mringseg"),
+    ("2 x 2 model shard", KNN_ROWS // 2, KNN_ROWS // 2, KNN_F, 2, False, 16,
+     "K3model22", "K3mmodel22"),
+    ("1 x 4 model shard", KNN_ROWS, KNN_ROWS // 4, KNN_F, 4, False, 17,
+     "K3model14", "K3mmodel14"),
+)
+
+
+def run_tile_case(torch, topk, card, tag, nq, nt, F, blocks, ring, seed,
+                  kid, mkid) -> list:
+    """K3's keys-out form (``segment_keys``) and the merge at one tile of
+    a multi-device engine, each against its plain version on the same
+    inputs.  The tile is the last of ``blocks`` candidate blocks of ``nt``
+    rows, at index base ``(blocks - 1) * nt``.  On a ring hop list 0 is
+    the carry of the blocks before (their plain answer as keys), whose
+    k-th values seed K3's bound as the ring seeds it; K3 is held within
+    the one-unit contract (the carry merged with its lists against the
+    carry merged with the plain version's), and the keys-out merge
+    (``merge_topk_keys``) of the carry and K3's lists exactly (keys and
+    k-th values, in place too).  On a model shard K3's lists are held
+    alone, and ``merge_topk_lists`` over every shard's K3 lists exactly."""
+    qn, qc, t_all, tc_all, cw, wsum = topk_uniform(
+        torch, nq, blocks * nt, F, 0, seed)()
+    base = (blocks - 1) * nt
+    tn, tc = t_all[base:], tc_all[base:]
+    dev = qn.device
+    _, splits, per = topk.device_plan(nq, nt, dev)
+    bounds = topk.segment_bounds(nt, splits, per)
+    if ring:
+        carry = topk.plain_segment_keys(qn, qc, t_all[:base], tc_all[:base],
+                                        cw, wsum, 1000, KNN_K, [(0, base)])
+        kth0 = (carry[0, :, KNN_K - 1] >> 32).to(torch.int32)
+        kth = kth0.clone()
+    else:
+        others = [topk.segment_keys(qn, qc, t_all[j * nt:(j + 1) * nt],
+                                    tc_all[j * nt:(j + 1) * nt], cw, wsum,
+                                    1000, KNN_K, base=j * nt)
+                  for j in range(blocks - 1)]
+        kth = None
+    keys = torch.empty((splits, nq, KNN_K), dtype=torch.int64, device=dev)
+
+    def kern():
+        if ring:
+            kth.copy_(kth0)
+        return topk.segment_keys(qn, qc, tn, tc, cw, wsum, 1000, KNN_K,
+                                 base=base, out=keys, kth=kth)
+
+    plain = lambda: topk.plain_segment_keys(qn, qc, tn, tc, cw, wsum, 1000,
+                                            KNN_K, bounds, base=base)
+    kern()
+    pkeys = plain()
+    torch.cuda.synchronize()
+    idx = keys & 0xFFFFFFFF
+    if bool(((idx < base) | (idx >= base + nt))[keys != topk._SENT64].any()):
+        raise AssertionError(f"K3 [{tag}]: keys carry indices outside the "
+                             f"tile's global rows")
+    if ring:
+        before = [carry]
+        ops, origin = (qn, qc, t_all, tc_all, cw, wsum), 0
+    else:
+        before = []
+        ops, origin = (qn, qc, tn, tc, cw, wsum), base
+    gv, gi = topk.plain_merge_topk(torch.cat(before + [keys]))
+    wv, wi = topk.plain_merge_topk(torch.cat(before + [pkeys]))
+    if ring and not bool(((kth <= kth0) & (kth >= gv[:, KNN_K - 1])).all()):
+        raise AssertionError(f"K3 [{tag}]: the k-th bound it left is not "
+                             f"between the merged k-th value and the seed")
+    err, rows = topk_agree(torch, (gv, gi - origin), (wv, wi - origin), ops,
+                           "euclidean", False, f"{tag}, keys out")
+    ms = time_ms(kern, 20)
+    plain_ms = time_ms(plain, 5)
+    device_ms = kernel_device_ms(kern, 5, "topk_kernel")
+    bound_ms, bound_by = bound(
+        4 * (nq + nt) * F + 8 * splits * nq * KNN_K, 2 * F * nq * nt)
+    seeded = ", seeded k-th bound" if ring else ""
+    label = (f"{tag}: nq={nq} nt={nt} F={F} k={KNN_K}, index base {base}, "
+             f"S={splits}{seeded}")
+    log(f"K3 segment_keys [{label}]: max abs err {err}, rows that differ "
+        f"{rows}/{nq}; kernel {ms:.4f} ms (device {device_ms:.4f} ms), "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
+        f"[{card}]")
+    k3_entry = {
+        "name": f"K3 segment_keys [{label}, keys out]",
+        "route": "cuda", "source": TOPK_KERNEL[0],
+        "replaces": TOPK_KERNEL[1], "kid": kid,
+        "launches": 0, "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "rows_differ": rows, "splits": splits}
+    del pkeys, t_all, tc_all, tn, tc
+
+    if ring:
+        # as the ring runs it: the carry and this hop's K3 lists
+        scratch = torch.cat([carry, keys]).contiguous()
+        want = topk.plain_merge_topk_keys(scratch)
+        want_kth = (want[:, KNN_K - 1] >> 32).to(torch.int32)
+        out = torch.empty_like(want)
+        mkth = torch.empty(nq, dtype=torch.int32, device=dev)
+        mkern = lambda: topk.merge_topk_keys(scratch, out, mkth)
+        mplain = lambda: topk.plain_merge_topk_keys(scratch)
+        mkern()
+        inplace = scratch.clone()
+        kth2 = torch.empty_like(mkth)
+        topk.merge_topk_keys(inplace, inplace[0], kth2)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, want) and torch.equal(mkth, want_kth)
+                and torch.equal(inplace[0], want)
+                and torch.equal(kth2, want_kth)):
+            raise AssertionError(f"the keys-out merge [{tag}] differs from "
+                                 f"its plain version")
+        del inplace
+        what, out_bytes = "merge_topk_keys", 8 * nq * KNN_K + 4 * nq
+        form = "carry + {} lists, keys and k-th values out"
+        replaces = "avenir_tpu/ops/distance.py:130"
+    else:
+        # every model shard's K3 lists, as the engine merges them
+        scratch = torch.cat(others + [keys]).contiguous()
+        mkern = lambda: topk.merge_topk_lists(scratch)
+        mplain = lambda: topk.plain_merge_topk(scratch)
+        got, want = mkern(), mplain()
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"the model-axis merge [{tag}] differs "
+                                 f"from its plain version")
+        del others, got
+        what, out_bytes = "merge_topk_lists", 8 * nq * KNN_K
+        form = "{} lists of " + f"{blocks} shards"
+        replaces = MERGE_KERNEL[1]
+    n_lists = scratch.shape[0]
+    mms = time_ms(mkern, 50)
+    mplain_ms = time_ms(mplain, 20)
+    flat = scratch.permute(1, 0, 2).reshape(nq, -1).contiguous()
+    mlib_ms = time_ms(lambda: torch.topk(flat, KNN_K, dim=1, largest=False,
+                                         sorted=True), 20)
+    mdev_ms = kernel_device_ms(mkern, 20, "merge_kernel")
+    mbound_ms, mbound_by = bound(8 * n_lists * nq * KNN_K + out_bytes, 0)
+    mlabel = (f"{tag}: " + form.format(n_lists - 1 if ring else n_lists)
+              + f", nq={nq} k={KNN_K}")
+    log(f"K3 {what} [{mlabel}]: exact; kernel {mms:.4f} ms (device "
+        f"{mdev_ms:.4f} ms), plain {mplain_ms:.4f} ms, torch.topk "
+        f"{mlib_ms:.4f} ms, bound {mbound_ms:.4f} ms ({mbound_by}) [{card}]")
+    del qn, qc, keys, scratch, flat
+    torch.cuda.empty_cache()
+    return [k3_entry, {
+        "name": f"K3 {what} [{mlabel}]",
+        "route": "cuda", "source": MERGE_KERNEL[0], "replaces": replaces,
+        "kid": mkid, "launches": 0, "max_abs_err": 0, "ms": mms,
+        "device_ms": mdev_ms, "plain_ms": mplain_ms, "bound_ms": mbound_ms,
+        "bound_by": mbound_by, "library_ms": mlib_ms}]
 
 
 CROSSOVER_NQ = (64, 1024, 4096, KNN_ROWS)
@@ -1404,6 +1585,244 @@ def knn_runbook(card) -> None:
 # serving: the NB server through the CLI, the kNN server in process
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# the device mesh: the ring, the 2-D engines, the sharded count
+# ---------------------------------------------------------------------------
+
+SORT_SAMPLE = 2048
+
+
+def hold_to_one_device(torch, got, want, ops, label) -> int:
+    """A mesh engine's host answer against the one-device K3 answer:
+    expected equal (K3 never splits the feature axis, so a pair's value
+    does not depend on the tile it is in); rows that differ are reported
+    and held to the one-unit oracle-confirmed contract.  Returns their
+    count."""
+    import numpy as np
+    (gv, gi), (wv, wi) = got, want
+    rows = np.flatnonzero((gv != wv).any(1) | (gi != wi).any(1))
+    if rows.size:
+        log(f"{label}: {rows.size} rows differ from the one-device K3 "
+            f"answer ({rows[:8].tolist()}...), held to the one-unit "
+            f"contract")
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+        qn, qc, tn, tc, nw, cw = ops
+        topk_agree(torch, (t(gv), t(gi)), (t(wv), t(wi)),
+                   (t(qn), t(qc), t(tn), t(tc),
+                    t(np.asarray(cw, np.float32)), float(nw.sum() + cw.sum())),
+                   "euclidean", False, label)
+    return int(rows.size)
+
+
+def ring_sort_check(torch, got, ops, plain) -> int:
+    """The ring's ``sort`` selection against the plain engine's answer:
+    values within one unit (rows whose values differ under 1%), and at
+    every row the indices carry float64-oracle distances within one unit
+    of the oracle's own k smallest (its tie indices follow ring arrival
+    order, not the lowest index).  Returns the rows whose values differ."""
+    import numpy as np
+    (gv, gi), (pv, _) = got, plain
+    err = int(np.abs(gv.astype(np.int64) - pv).max())
+    differ = int(((gv != pv).any(1)).sum())
+    if err > 1 or differ > max(1, len(gv) // 100):
+        raise AssertionError(f"ring sort: max abs err {err}, {differ} rows "
+                             f"differ from the plain engine")
+    qn, _, tn, _, _, _ = ops
+    t_all = torch.from_numpy(tn).cuda().double()
+    idx = torch.from_numpy(gi).cuda().long()
+    for lo in range(0, len(gv), 512):
+        q = torch.from_numpy(qn[lo:lo + 512]).cuda().double()
+        d = ((torch.cdist(q, t_all, compute_mode=EXACT_CDIST) ** 2
+              / KNN_F).sqrt() * 1000).floor().long()
+        best = torch.topk(d, KNN_K, dim=1, largest=False).values
+        at = torch.sort(torch.gather(d, 1, idx[lo:lo + 512]), dim=1).values
+        if int((at - torch.sort(best, dim=1).values).abs().max()) > 1:
+            raise AssertionError("ring sort: indices carry wrong oracle "
+                                 "distances")
+    return differ
+
+
+def profile_kernels(torch, fn, kinds, windows=8):
+    """``profile_device`` over ``fn``, again (up to ``windows`` times)
+    while the profiler kept no K3 event: on the card's machine it can drop
+    a window's kernel events.  Returns ``(by_kind, wall_s, per_launch)``,
+    ``per_launch`` mapping each kind to its mean ms a launch, or None
+    where no event was kept (not measured)."""
+    for _ in range(windows):
+        by_kind, wall_s = profile_device(torch, fn, kinds)
+        if by_kind["K3 kernel"][1]:
+            break
+    per_launch = {kind: (us / n / 1e3 if n else None)
+                  for kind, (us, n) in by_kind.items()}
+    return by_kind, wall_s, per_launch
+
+
+def ms_or_not(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
+def mesh_paths(torch, topk, histogram, knn_data, train_dir, card) -> dict:
+    """The multi-device engines on meshes that name cuda:0 more than once
+    (every hop and launch of a four-device program, no bytes between
+    cards): the ring at the kNN cell (16,384 x 16,384 x 256, k = 16) on
+    [cuda:0] and [cuda:0] * 4, its ``sort`` selection on 2,048 queries,
+    the ring at the segmented shape of bench.py:1244 (2,048 x 1,050,000 x
+    64), the 2-D fused engine as 2 x 2 and 1 x 4, the distance job on a
+    2 x 2 mesh (the one-device job's bytes) and the NB count over 4
+    shards.  Returns the launches of the 4-way rings and of the 2-D fused
+    engines, by the kid of their tile's entries (TILE_CASES)."""
+    import numpy as np
+    from avenir_tpu_torch.core.config import load_job_config
+    from avenir_tpu_torch.models.bayesian import _nb_local
+    from avenir_tpu_torch.models.knn import SameTypeSimilarity
+    from avenir_tpu_torch.ops import counting
+    from avenir_tpu_torch.ops.distance import (pairwise_distances,
+                                               pairwise_topk_ring)
+    from avenir_tpu_torch.parallel import make_mesh
+
+    cuda = torch.device("cuda", 0)
+    d, inp, sim, vote, feats = knn_data
+    empty = np.zeros((KNN_ROWS, 0), np.int32)
+    ops = (feats[KNN_ROWS:], empty, feats[:KNN_ROWS], empty, np.ones(KNN_F),
+           np.zeros(0))
+    one = pairwise_distances(*ops, top_k=KNN_K, device=cuda)
+    one_ms = time_ms(lambda: pairwise_distances(*ops, top_k=KNN_K,
+                                                device=cuda), 3)
+    bound_ms, bound_by = bound(4 * 2 * KNN_ROWS * KNN_F,
+                               2 * KNN_F * KNN_ROWS * KNN_ROWS)
+    launches = {}
+    kinds = {"K3 kernel": "topk_kernel", "K3m merge kernel": "merge_kernel",
+             "K3 layout prologue": "layout_kernel"}
+    for n in (1, RING_D):
+        mesh = make_mesh([cuda] * n)
+        ring = lambda: pairwise_topk_ring(*ops, KNN_K, mesh=mesh,
+                                          stats=stats)
+        stats = {}
+        topk.reset_launch_counts()
+        got = ring()
+        k3, km = topk.K3_LAUNCHES, topk.MERGE_LAUNCHES
+        if stats != {"selection": "bins", "reresolved": 0}:
+            raise AssertionError(f"ring on {mesh}: {stats}")
+        if k3 != n * n or km != n * n:
+            raise AssertionError(f"ring on {mesh}: {k3} K3 and {km} merge "
+                                 f"launches, expected {n * n} each")
+        differ = hold_to_one_device(torch, got, one, ops, f"ring {mesh}")
+        ring_ms = time_ms(ring, 3)
+        by_kind, wall_s, per = profile_kernels(torch, ring, kinds)
+        log(f"ring [{mesh}, bins, nq=nt={KNN_ROWS} F={KNN_F} k={KNN_K}]: "
+            f"{k3} K3 + {km} merge launches, {differ} rows differ from the "
+            f"one-device K3; call {ring_ms:.4f} ms (host arrays in and "
+            f"out) against the one-device engine's {one_ms:.4f} ms; per "
+            f"hop K3 {ms_or_not(per['K3 kernel'])}, merge "
+            f"{ms_or_not(per['K3m merge kernel'])} of device time; ops "
+            f"bound of the whole {bound_ms:.4f} ms ({bound_by}) [{card}]")
+        report_device(by_kind, wall_s, "K3 kernel", card)
+        if n == RING_D:
+            launches.update(K3ring=k3, K3mring=km)
+
+    # the sort selection on a sample of the queries
+    mesh4 = make_mesh([cuda] * RING_D)
+    sample = tuple(a[:SORT_SAMPLE] if j < 2 else a for j, a in
+                   enumerate(ops))
+    stats = {}
+    got = pairwise_topk_ring(*sample, KNN_K, mesh=mesh4, selection="sort",
+                             stats=stats)
+    plain = pairwise_distances(*sample, top_k=KNN_K, device=cuda,
+                               topk_method="sorted")
+    differ = ring_sort_check(torch, got, sample, plain)
+    sort_ms = time_ms(lambda: pairwise_topk_ring(
+        *sample, KNN_K, mesh=mesh4, selection="sort"), 3)
+    log(f"ring [{mesh4}, sort, {SORT_SAMPLE} queries]: {differ} rows' "
+        f"values differ from the plain engine, within one unit; every "
+        f"index set oracle-confirmed; call {sort_ms:.4f} ms [{card}]")
+
+    # the 2-D fused engine
+    for data, model, want_k3, want_m, kid in ((2, 2, 4, 2, "model22"),
+                                              (1, 4, 4, 1, "model14")):
+        mesh = make_mesh([cuda] * 4, data=data, model=model)
+        stats = {}
+        call = lambda: pairwise_distances(*ops, top_k=KNN_K, mesh=mesh,
+                                          stats=stats)
+        topk.reset_launch_counts()
+        got = call()
+        k3, km = topk.K3_LAUNCHES, topk.MERGE_LAUNCHES
+        if stats["engine"] != "fused" or (k3, km) != (want_k3, want_m):
+            raise AssertionError(f"2-D engine on {mesh}: {stats}, {k3} K3 "
+                                 f"and {km} merge launches")
+        launches.update({f"K3{kid}": k3, f"K3m{kid}": km})
+        differ = hold_to_one_device(torch, got, one, ops, f"2-D {mesh}")
+        ms = time_ms(call, 3)
+        # the plain version: the 2-D sorted engine on the same mesh
+        plain_ms = time_ms(lambda: pairwise_distances(
+            *ops, top_k=KNN_K, mesh=mesh, topk_method="sorted"), 2)
+        by_kind, wall_s, per = profile_kernels(torch, call, kinds)
+        log(f"2-D fused engine [{mesh}, nq=nt={KNN_ROWS} F={KNN_F}]: {k3} "
+            f"K3 + {km} merge launches, {differ} rows differ from the "
+            f"one-device K3; call {ms:.4f} ms against {one_ms:.4f} ms (the "
+            f"2-D sorted engine {plain_ms:.4f} ms); per launch K3 "
+            f"{ms_or_not(per['K3 kernel'])}, merge "
+            f"{ms_or_not(per['K3m merge kernel'])} of device time [{card}]")
+        report_device(by_kind, wall_s, "K3 kernel", card)
+
+    # the distance job on a 2 x 2 mesh: the one-device job's bytes
+    mesh22 = make_mesh([cuda] * 4, data=2, model=2)
+    out = os.path.join(d, "simi_mesh")
+    SameTypeSimilarity(load_job_config({"conf.path": sim}),
+                       device="cuda").run(inp, out, mesh=mesh22)
+    if read_bytes(out) != read_bytes(os.path.join(d, "simi_cuda")):
+        raise AssertionError("the distance job on a 2 x 2 mesh wrote other "
+                             "bytes than on one device")
+    log(f"distance job on {mesh22}: the one-device job's bytes")
+
+    # the ring at the segmented shape, where it matters: 270 MB of
+    # candidates, each shard holding a quarter
+    rng = np.random.default_rng(7)
+    seg = (rng.random((SEG_NQ, SEG_F), dtype=np.float32),
+           np.zeros((SEG_NQ, 0), np.int32),
+           rng.random((SEG_NT, SEG_F), dtype=np.float32),
+           np.zeros((SEG_NT, 0), np.int32), np.ones(SEG_F), np.zeros(0))
+    seg_one = pairwise_distances(*seg, top_k=KNN_K, device=cuda)
+    topk.reset_launch_counts()
+    got = pairwise_topk_ring(*seg, KNN_K, mesh=mesh4)
+    k3, km = topk.K3_LAUNCHES, topk.MERGE_LAUNCHES
+    if k3 != RING_D ** 2 or km != RING_D ** 2:
+        raise AssertionError(f"segmented ring: {k3} K3 and {km} merge "
+                             f"launches")
+    launches.update(K3ringseg=k3, K3mringseg=km)
+    differ = hold_to_one_device(torch, got, seg_one, seg, "segmented ring")
+    seg_ms = time_ms(lambda: pairwise_topk_ring(*seg, KNN_K, mesh=mesh4), 2)
+    seg_one_ms = time_ms(lambda: pairwise_distances(*seg, top_k=KNN_K,
+                                                    device=cuda), 2)
+    by_kind, wall_s, per = profile_kernels(
+        torch, lambda: pairwise_topk_ring(*seg, KNN_K, mesh=mesh4), kinds)
+    sb_ms, sb_by = bound(4 * (SEG_NQ + SEG_NT) * SEG_F,
+                         2 * SEG_F * SEG_NQ * SEG_NT)
+    log(f"ring [{mesh4}, bins, {SEG_NQ} x {SEG_NT} F={SEG_F} k={KNN_K}]: "
+        f"{k3} K3 + {km} merge launches, {differ} rows differ from the "
+        f"one-device K3; call {seg_ms:.4f} ms against the one-device "
+        f"engine's {seg_one_ms:.4f} ms (host arrays in and out); per hop "
+        f"K3 {ms_or_not(per['K3 kernel'])}, merge "
+        f"{ms_or_not(per['K3m merge kernel'])} of device time; ops bound "
+        f"{sb_ms:.4f} ms ({sb_by}) [{card}]")
+    report_device(by_kind, wall_s, "K3 kernel", card)
+    del seg
+
+    # the NB count over four shards of the main path's first chunk
+    xs, ys, C, B, _ = main_path_chunk(train_dir)
+    want = counting.sharded_reduce(_nb_local, xs, ys, device=cuda,
+                                   static_args=(C, B))
+    histogram.reset_launch_counts()
+    got = counting.sharded_reduce(_nb_local, xs, ys, mesh=mesh4,
+                                  static_args=(C, B))
+    n_k1 = histogram.K1_LAUNCHES
+    if not torch.equal(got, want) or n_k1 != RING_D:
+        raise AssertionError(f"sharded count on {mesh4}: equal "
+                             f"{torch.equal(got, want)}, {n_k1} K1 launches")
+    log(f"NB count over {mesh4} ({len(xs)} rows of the first chunk): the "
+        f"one-shard table, {n_k1} K1 launches")
+    return launches
+
+
 SERVE_RUNBOOK = os.path.join(ROOT, "resource", "serving")
 SERVE_BATCH_SIZES = (1, 2, 3, 5, 8, 13, 16, 33, 64)
 SERVE_CLIENTS = 16
@@ -1671,7 +2090,8 @@ def serve_knn(torch, topk, knn_data, card) -> int:
     job on the card for its id (or, where K3's answer differs, stays in
     the one-unit oracle-confirmed contract); K3 launches once per batch
     and the plain version never; the training tensors stay where they
-    were put at load.  Returns K3's launches over the traffic."""
+    were put at load.  Returns K3's and its merge's launches over the
+    traffic."""
     from avenir_tpu_torch.core.config import JobConfig
     from avenir_tpu_torch.serve import PredictionServer
 
@@ -1723,6 +2143,7 @@ def serve_knn(torch, topk, knn_data, card) -> int:
                 lo += size
             traffic_s = time.perf_counter() - t
             launches = topk.K3_LAUNCHES
+            merges = topk.MERGE_LAUNCHES
         finally:
             topk.plain_pairwise_topk = real_plain
         stats = request(port, {"cmd": "stats"})
@@ -1768,7 +2189,7 @@ def serve_knn(torch, topk, knn_data, card) -> int:
         report_device(by_kind, wall_s, "K3 kernel", card)
     finally:
         srv.stop()
-    return launches
+    return {"K3serve": launches, "K3mserve": merges}
 
 
 def knn_serve_contract(torch, adapter, queries, differ, d, feats) -> None:
@@ -1865,6 +2286,11 @@ def main() -> int:
             torch, topk, "serving batch", "euclidean", KNN_K, False, None,
             topk_uniform(torch, nq, KNN_ROWS, KNN_F, 0, 12), kid="K3serve"))
     entries.append(run_merge_case(torch, topk, card))
+    for nq in K3_SERVING_NQ:      # the merge of a serving batch's segments
+        entries.append(run_merge_case(torch, topk, card, nq, "K3mserve",
+                                      "serving batch"))
+    for case in TILE_CASES:     # the mesh engines' tiles
+        entries += run_tile_case(torch, topk, card, *case)
     k3_crossover(torch, topk, entries, card)
     phase_done("kernels")
 
@@ -1878,9 +2304,12 @@ def main() -> int:
     knn_launches, knn_data = knn_paths(torch, topk, card)
     launches.update(knn_launches)
     phase_done("knn")
+    launches.update(mesh_paths(torch, topk, histogram, knn_data, train_dir,
+                               card))
+    phase_done("mesh")
     serve_nb(torch, card)
     phase_done("serve_nb")
-    launches["K3serve"] = serve_knn(torch, topk, knn_data, card)
+    launches.update(serve_knn(torch, topk, knn_data, card))
     phase_done("serve_knn")
     log(f"main-path launches: {launches}")
     log(f"phase seconds: {phases}")
