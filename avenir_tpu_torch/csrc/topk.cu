@@ -91,11 +91,24 @@
 // C entry points (plain C interface, loaded with ctypes):
 //   avenir_topk(...)             prologue + main kernel on the given
 //                                stream; cudaGetLastError() after them;
-//   avenir_topk_merge(...)       merge_kernel, likewise;
+//   avenir_topk_merge(...)       merge_kernel (K3m) on a MergePlan,
+//                                likewise;
+//   avenir_topk_device(...)      the SM count and opt-in shared memory;
+//   avenir_topk_merge_prepare(b) merge_kernel allowed b shared bytes;
 //   avenir_topk_error_string(e)  the CUDA error string.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// K3m's launch plan, computed on the host (ops/topk.py::merge_plan, read
+// through ops/topk.py::_MergePlan in this order): the shape, then a
+// block's `rows` consecutive rows of `warps` warps each; `slots` lists a
+// row in shared memory ([slots][rows][k] keys, `smem` bytes); `rounds`
+// staging rounds (the first fills every slot, each later one slots 1..);
+// `grid` blocks.
+struct MergePlan {
+  int32_t S, nq, k, warps, rows, slots, rounds, smem, grid;
+};
 
 namespace {
 
@@ -636,72 +649,173 @@ topk_kernel(const float* __restrict__ qT, const float* __restrict__ tT,
 }
 
 // ---------------------------------------------------------------------------
-// the merge of S sorted segment lists
+// K3m: the merge of S sorted lists per row
 // ---------------------------------------------------------------------------
+//
+// Replaces the merges the TPU ran outside Pallas: _lex_merge
+// (avenir_tpu/ops/pallas_topk.py:402, a two-key jnp sort of the segments'
+// and model shards' selections) and _merge_bins (avenir_tpu/ops/
+// distance.py:130, a ring hop's Batcher merge).  Each row's S lists hold
+// sorted unique int64 keys (value << 32) | index, INT64_MAX in empty
+// slots; the row's answer is its k smallest keys.
+//
+// What bounds it on the H100: neither bytes nor operations.  A serving
+// row is 16 KB (S = 128, k = 16), 5 ns at 3.35 TB/s; the time is the
+// chain of dependent steps.  A warp per row folding the lists into a
+// running list one after another (each step a global load, k rounds of
+// two shuffles and a trip through shared memory) took (S - 1) steps of
+// about 0.9 us, three times torch.topk at S = 128.  So:
+//
+//   - a row belongs to a group of `warps` warps (up to a whole block of
+//     32 where rows are few), and a block to `rows` rows (up to 4 rows of
+//     one warp each where they are many): the plan, ops/topk.py::
+//     merge_plan, fills the card at every nq;
+//   - all of a row's lists are staged in shared memory at once, in one
+//     round of 16-byte cp.async copies, so a row pays one memory latency
+//     and not one per list.  Where S lists do not fit a block (a caller's
+//     gather; K3's plan gives at most 264 segments on this card) they are
+//     staged in rounds, each later round behind the running list in slot
+//     0;
+//   - a tree of ceil(log2 n) levels of pairwise merges, each level's
+//     pairs merged at once by the group's warps, in place: a pair is one
+//     warp's, which reads both lists, __syncwarp, then writes list i's
+//     slot.  Two lists' k smallest lie in the union of each one's k
+//     smallest, so a pair keeps k;
+//   - a key's place in the merged pair by a branch-free binary search in
+//     the other list (count_upto: log2 k + 1 shared loads, the same code
+//     for a lane of either list, so the warp does not split): a_j goes to
+//     j + #(b < a_j), b_i to i + #(a <= b_i).  The ranks are distinct,
+//     the empty slots' equal keys included, and every rank below k has
+//     exactly one writer.
+//
+// A row is written only after all its lists were read (list 0 in the
+// first round), and only by the block that owns it: the keys-out form may
+// write into list 0 in place (a ring hop's carry).
 
-// One warp per query row: the running k smallest keys (lane holds
-// positions lane and lane + 32) merged with each segment's sorted list in
-// turn by rank (a_j: j + #(b < a_j); b_i: i + #(a <= b_i); the ranks are
-// distinct even among the empty slots' equal keys), through a per-warp
-// row of shared memory.  With keys_out the result stays keys (and, with
-// kth_out, each row's k-th value, INT32_MAX where the row holds fewer
-// than k): a ring hop merges its carry (list 0) and the hop's segment
-// lists back into list 0 in place, which is safe because a warp reads
-// every list of its row before it writes the row.
-constexpr int MERGE_WARPS = 8;
+constexpr int MERGE_TASKS = 2 * MAX_K / 32;   // a lane's keys of a pair
 
-__global__ void __launch_bounds__(32 * MERGE_WARPS)
-merge_kernel(const long long* keys, int S, int nq, int k,
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+                 :: "r"(s), "l"(gmem) : "memory");
+}
+
+// #(list <= xl) over a sorted list of k keys (the caller's xl is x - 1
+// for #(list < x), which wraps only at INT64_MIN, below every key of a
+// value >= 0): a bit-lift binary search of log2(top) + 1 steps, top the
+// highest power of two <= k (uniform in the block, so the unrolled steps
+// it skips split no warp), each step one shared load and a select,
+// without branches.  (Two such steps and then a count of the 16 keys
+// left as independent loads measured slower on the H100 at every shape
+// avenir_tpu_torch/merge_probe.py times.)
+__device__ __forceinline__ int count_upto(const long long* list, int k,
+                                          int top, long long xl) {
+    int n = 0;
+#pragma unroll
+    for (int step = MAX_K; step; step >>= 1) {
+        if (step > top) continue;
+        const int m = n + step;
+        n = m <= k && list[min(m, k) - 1] <= xl ? m : n;
+    }
+    return n;
+}
+
+__global__ void __launch_bounds__(1024)
+merge_kernel(const long long* keys, const MergePlan p, int vec16,
              int* __restrict__ out_v, int* __restrict__ out_i,
              long long* keys_out, int* __restrict__ kth_out) {
-    __shared__ long long rowbuf[MERGE_WARPS][MAX_K];
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const long long row = (long long)blockIdx.x * MERGE_WARPS + warp;
-    if (row >= nq) return;                             // uniform in the warp
-    long long* mine = rowbuf[warp];
-    const long long* src = keys + row * k;
-    long long a0 = lane < k ? src[lane] : SENT;
-    long long a1 = lane + 32 < k ? src[lane + 32] : SENT;
-    for (int s = 1; s < S; ++s) {
-        const long long* seg = keys + ((long long)s * nq + row) * k;
-        const long long b0 = lane < k ? seg[lane] : SENT;
-        const long long b1 = lane + 32 < k ? seg[lane + 32] : SENT;
-        int ra0 = lane, ra1 = lane + 32, rb0 = lane, rb1 = lane + 32;
-        for (int t = 0; t < k; ++t) {
-            const long long at = __shfl_sync(FULL, t < 32 ? a0 : a1, t & 31);
-            const long long bt = __shfl_sync(FULL, t < 32 ? b0 : b1, t & 31);
-            ra0 += bt < a0;
-            ra1 += bt < a1;
-            rb0 += at <= b0;
-            rb1 += at <= b1;
+    extern __shared__ __align__(16) long long slot[];  // [slots][rows][k]
+    const int k = p.k, tid = threadIdx.x, lane = tid & 31;
+    const int warp = tid >> 5, r = warp / p.warps, gw = warp - r * p.warps;
+    const long long row0 = (long long)blockIdx.x * p.rows;
+    const int nrows = (int)min((long long)p.rows, p.nq - row0);
+    const int step = p.rows * k;                   // keys from slot to slot
+    long long* mine = slot + r * k;                // this warp's row, slot 0
+    // a warp step merges ppw pairs (2k keys each).  This lane's keys: key
+    // e[j] of pair pj[j] of the step (-1 past the step), in the pair's
+    // first list (in_b[j] false; ranked by #(b < key)) or its second
+    // (ranked by #(a <= key))
+    const int ppw = max(1, 32 / (2 * k)), top = 1 << (31 - __clz(k));
+    const int tasks = (ppw * 2 * k + 31) / 32;     // this lane's keys a step
+    int pj[MERGE_TASKS], e[MERGE_TASKS];
+    bool in_b[MERGE_TASKS];
+#pragma unroll
+    for (int j = 0; j < MERGE_TASKS; ++j) {
+        const int t = lane + 32 * j;
+        pj[j] = t < ppw * 2 * k ? t / (2 * k) : -1;
+        e[j] = t - max(pj[j], 0) * 2 * k;
+        in_b[j] = e[j] >= k;
+        e[j] -= in_b[j] ? k : 0;
+    }
+    int next = 0;                                  // the next list to stage
+    for (int round = 0; round < p.rounds; ++round) {
+        const int first = round ? 1 : 0;
+        const int n_load = min(p.slots - first, p.S - next);
+        const int per = nrows * k;                 // keys of one list
+        const long long* src = keys + ((long long)next * p.nq + row0) * k;
+        if (vec16) {
+            const int vecs = per / 2;
+            for (int i = tid; i < n_load * vecs; i += blockDim.x) {
+                const int l = i / vecs, v = i - l * vecs;
+                cp_async16(slot + (first + l) * step + 2 * v,
+                           src + (long long)l * p.nq * k + 2 * v);
+            }
+        } else {
+            for (int i = tid; i < n_load * per; i += blockDim.x) {
+                const int l = i / per, v = i - l * per;
+                cp_async8(slot + (first + l) * step + v,
+                          src + (long long)l * p.nq * k + v);
+            }
         }
-        if (lane < k && ra0 < k) mine[ra0] = a0;
-        if (lane + 32 < k && ra1 < k) mine[ra1] = a1;
-        if (lane < k && rb0 < k) mine[rb0] = b0;
-        if (lane + 32 < k && rb1 < k) mine[rb1] = b1;
-        __syncwarp();
-        a0 = lane < k ? mine[lane] : SENT;
-        a1 = lane + 32 < k ? mine[lane + 32] : SENT;
-        __syncwarp();
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        next += n_load;
+        const int n = first + n_load;
+        for (int lg = 0; (1 << lg) < n; ++lg) {
+            const int stride = 1 << lg;
+            if (r < nrows) {
+                const int pairs = ((n - 1 - stride) >> (lg + 1)) + 1;
+                for (int c = gw * ppw; c < pairs; c += p.warps * ppw) {
+                    long long x[MERGE_TASKS];
+                    int at[MERGE_TASKS];
+#pragma unroll
+                    for (int j = 0; j < MERGE_TASKS; ++j) {
+                        at[j] = k;                 // k: not written
+                        const int q = c + pj[j];
+                        if (j >= tasks || pj[j] < 0 || q >= pairs) continue;
+                        const long long* a = mine + (2 * q << lg) * step;
+                        const long long* b = a + stride * step;
+                        x[j] = (in_b[j] ? b : a)[e[j]];
+                        at[j] = e[j] + count_upto(in_b[j] ? a : b, k, top,
+                                                  x[j] - !in_b[j]);
+                    }
+                    __syncwarp();
+#pragma unroll
+                    for (int j = 0; j < MERGE_TASKS; ++j)
+                        if (j < tasks && at[j] < k)
+                            mine[(2 * (c + pj[j]) << lg) * step + at[j]] =
+                                x[j];
+                }
+            }
+            if (p.warps == 1) __syncwarp(); else __syncthreads();
+        }
+        __syncthreads();        // the next round's copies or the output
     }
-    if (keys_out) {
-        if (lane < k) keys_out[row * k + lane] = a0;
-        if (lane + 32 < k) keys_out[row * k + lane + 32] = a1;
-        // SENT >> 32 is INT32_MAX: an empty k-th slot bounds nothing
-        if (kth_out && lane == ((k - 1) & 31))
-            kth_out[row] = (int)((k > 32 ? a1 : a0) >> 32);
-        return;
+    // slot 0 is [rows][k]: the block's rows, contiguous as in the output
+    for (int i = tid; i < nrows * k; i += blockDim.x) {
+        const long long key = slot[i], g = row0 * k + i;
+        if (keys_out) {
+            keys_out[g] = key;
+        } else {
+            out_v[g] = key == SENT ? 0x7fffffff : (int)(key >> 32);
+            out_i[g] = key == SENT ? -1 : (int)(key & 0xffffffffLL);
+        }
     }
-    if (lane < k) {
-        out_v[row * k + lane] = a0 == SENT ? 0x7fffffff : (int)(a0 >> 32);
-        out_i[row * k + lane] = a0 == SENT ? -1 : (int)(a0 & 0xffffffffLL);
-    }
-    if (lane + 32 < k) {
-        out_v[row * k + lane + 32] =
-            a1 == SENT ? 0x7fffffff : (int)(a1 >> 32);
-        out_i[row * k + lane + 32] =
-            a1 == SENT ? -1 : (int)(a1 & 0xffffffffLL);
-    }
+    // SENT >> 32 is INT32_MAX: an empty k-th slot bounds nothing
+    if (keys_out && kth_out)
+        for (int i = tid; i < nrows; i += blockDim.x)
+            kth_out[row0 + i] = (int)(slot[i * k + k - 1] >> 32);
 }
 
 template <bool EUCLID, int BM>
@@ -796,19 +910,44 @@ extern "C" int avenir_topk(const float* qn, const float* tn, int F,
 // of each row: as (value, index) int32 pairs in out_v / out_i, INT32_MAX
 // / -1 in empty slots; or, with keys_out [nq, k] (which may be keys' own
 // list 0), as sorted keys, with each row's k-th value in kth_out [nq]
-// when it is given.
-extern "C" int avenir_topk_merge(const long long* keys, int S, int nq, int k,
+// when it is given.  The plan's shape is the launch's (S, nq, k).
+extern "C" int avenir_topk_merge(const long long* keys, const MergePlan* plan,
                                  int* out_v, int* out_i, long long* keys_out,
                                  int* kth_out, void* stream) {
-    if (k < 1 || k > MAX_K || S < 1 || nq < 0
+    if (!plan) return (int)cudaErrorInvalidValue;
+    const MergePlan p = *plan;
+    if (p.k < 1 || p.k > MAX_K || p.S < 1 || p.nq < 0 || p.warps < 1
+        || p.rows < 1 || p.warps * p.rows > 32 || p.slots < 1
+        || p.slots > p.S || p.rounds < 1 || (p.rounds > 1 && p.slots < 2)
+        || p.slots + (long long)(p.rounds - 1) * (p.slots - 1) < p.S
+        || (long long)p.smem != 8LL * p.slots * p.rows * p.k
+        || (long long)p.grid * p.rows < p.nq || p.grid < 1
         || (!keys_out && (!out_v || !out_i)))
         return (int)cudaErrorInvalidValue;
-    if (nq == 0) return 0;
-    merge_kernel<<<(nq + MERGE_WARPS - 1) / MERGE_WARPS, 32 * MERGE_WARPS, 0,
-                   static_cast<cudaStream_t>(stream)>>>(keys, S, nq, k, out_v,
-                                                        out_i, keys_out,
-                                                        kth_out);
+    if (p.nq == 0) return 0;
+    const int vec16 = p.k % 2 == 0
+        && (reinterpret_cast<uintptr_t>(keys) & 15) == 0;
+    merge_kernel<<<p.grid, 32 * p.warps * p.rows, p.smem,
+                   static_cast<cudaStream_t>(stream)>>>(
+        keys, p, vec16, out_v, out_i, keys_out, kth_out);
     return (int)cudaGetLastError();
+}
+
+// The card's SM count and the shared memory a block may opt into
+// (merge_plan's inputs); and merge_kernel allowed that much on the
+// current device.
+extern "C" int avenir_topk_device(int device, int* sms, int* smem_optin) {
+    cudaError_t err = cudaDeviceGetAttribute(
+        sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(
+            smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    return (int)err;
+}
+
+extern "C" int avenir_topk_merge_prepare(int smem) {
+    return (int)cudaFuncSetAttribute(
+        merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
 extern "C" const char* avenir_topk_error_string(int err) {

@@ -29,7 +29,10 @@ faster engine at every shape ``chip_smoke.py`` measures).
 
 On the card K3 may cut the candidate axis into segments (``k3_plan``);
 each segment's sorted k-list goes to a scratch tensor and the merge kernel
-(``merge_topk_lists``, counted in ``MERGE_LAUNCHES``) merges them.  The
+K3m (``merge_topk_lists``, counted in ``MERGE_LAUNCHES``) merges them, on
+the launch plan ``merge_plan`` computes per shape: how many warps merge a
+row, how many rows a block holds, and how its lists are staged in shared
+memory.  The
 plain versions of that path are ``plain_split_pairwise_topk`` and
 ``plain_merge_topk``.
 
@@ -48,8 +51,9 @@ two-key sort ``_lex_merge`` that merge replaces.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
-from typing import List, Optional, Tuple, Union
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -233,6 +237,63 @@ def device_plan(nq: int, nt: int, device: torch.device
         device).multi_processor_count)
 
 
+# ---------------------------------------------------------------------------
+# the merge's launch plan (pure; held by the CPU tests)
+# ---------------------------------------------------------------------------
+
+_MERGE_BLOCK_WARPS = 4      # a block's warps where it holds several rows
+_MERGE_FILL_WARPS = 32      # warps an SM is given where rows are few
+
+
+class MergePlan(NamedTuple):
+    warps: int      # warps that merge one row (a power of two, <= 32)
+    rows: int       # consecutive rows a block owns
+    slots: int      # lists of a row in shared memory at once
+    rounds: int     # staging rounds (the first fills every slot, each
+                    # later one slots 1.. behind the running list)
+    smem: int       # dynamic shared bytes a block: slots x rows x k keys
+    grid: int       # blocks: ceil(nq / rows), at least one
+
+
+def merge_plan(S: int, nq: int, k: int, sms: int, smem_per_block: int
+               ) -> MergePlan:
+    """How ``csrc/topk.cu``'s ``merge_kernel`` (K3m) merges ``S`` sorted
+    lists of ``k`` keys for each of ``nq`` rows on a card with ``sms`` SMs
+    and ``smem_per_block`` shared bytes a block may opt into.
+
+    A row's tree of pairwise merges has ``S // 2`` pairs at its first
+    level, and a warp step merges ``max(1, 32 // 2k)`` of them.  A row gets
+    as many warps as that level has steps (a power of two, at most 32),
+    but no more than it takes to give every SM ``_MERGE_FILL_WARPS`` warps
+    over all the rows: many lists and few rows (a serving batch) spread a
+    row over a whole block, many rows (the kNN job) give a row one warp.
+    A block holds ``_MERGE_BLOCK_WARPS`` warps' worth of rows, fewer where
+    that would leave SMs without a block or where the rows' lists do not
+    fit its shared memory (a block that holds one row for that reason
+    gets that row the warps it had).  Every list of a row is staged at
+    once where they fit one block; else in rounds of ``slots - 1`` lists
+    behind the running list.  Raises where not even two lists fit."""
+    if S < 1 or nq < 0 or not 1 <= k <= _MAX_K or sms < 1:
+        raise ValueError(f"no merge plan for S={S} nq={nq} k={k} on "
+                         f"{sms} SMs")
+    list_bytes = 8 * k
+    steps = -(-(S // 2) // max(1, 32 // (2 * k)))
+    useful = min(32, 1 << max(steps - 1, 0).bit_length())
+    fill = max(1, sms * _MERGE_FILL_WARPS // max(nq, 1))
+    warps = min(useful, 1 << (fill.bit_length() - 1))
+    want = max(1, min(_MERGE_BLOCK_WARPS // warps, -(-nq // sms)))
+    rows = max(1, min(want, smem_per_block // (S * list_bytes)))
+    if rows < want:
+        warps = min(useful, warps * want // rows)
+    slots = min(S, smem_per_block // (rows * list_bytes))
+    if slots < min(S, 2):
+        raise ValueError(f"two lists of {k} keys do not fit "
+                         f"{smem_per_block} shared bytes")
+    rounds = 1 if slots >= S else 1 + -(-(S - slots) // (slots - 1))
+    return MergePlan(warps, rows, slots, rounds, rows * slots * list_bytes,
+                     max(1, -(-nq // rows)))
+
+
 def plain_merge_topk_keys(keys: torch.Tensor) -> torch.Tensor:
     """The keys-out merge in plain PyTorch: the k smallest keys of each
     row of ``keys`` [S, nq, k] (sorted unique int64 keys ``(value << 32) |
@@ -341,9 +402,13 @@ def _lib():
                                     cf, ci, ci, ci, ci, ci, vp, vp, vp, vp,
                                     vp, vp, vp, vp, ci, vp]
         lib.avenir_topk.restype = ci
-        lib.avenir_topk_merge.argtypes = [vp, ci, ci, ci, vp, vp, vp, vp,
-                                          vp]
+        lib.avenir_topk_merge.argtypes = [vp, vp, vp, vp, vp, vp, vp]
         lib.avenir_topk_merge.restype = ci
+        lib.avenir_topk_device.argtypes = [ci, ctypes.POINTER(ci),
+                                           ctypes.POINTER(ci)]
+        lib.avenir_topk_device.restype = ci
+        lib.avenir_topk_merge_prepare.argtypes = [ci]
+        lib.avenir_topk_merge_prepare.restype = ci
         lib.avenir_topk_error_string.argtypes = [ci]
         lib.avenir_topk_error_string.restype = ctypes.c_char_p
         _lib_topk = lib
@@ -360,43 +425,87 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _check_keys(keys: torch.Tensor) -> None:
+def _check_keys(keys: torch.Tensor) -> int:
+    """Raises on keys the merge does not take; else their CUDA device
+    index, or -1 on the CPU (indices, not ``torch.device`` objects: the
+    merge's call time at a serving batch is mostly the host's)."""
     if keys.dtype != torch.int64 or keys.dim() != 3 \
             or not keys.is_contiguous():
         raise ValueError("keys must be a contiguous int64 [S, nq, k] tensor")
     S, _, k = keys.shape
     if not 1 <= k <= _MAX_K or S < 1:
         raise ValueError(f"need S >= 1 and k in [1, {_MAX_K}]")
-    if keys.device.type not in ("cpu", "cuda"):
+    if not (keys.is_cuda or keys.is_cpu):
         raise ValueError(f"unsupported device {keys.device}")
+    return keys.get_device()
 
 
-def _merge_launch(keys, vals=None, idxs=None, out=None, kth=None) -> None:
+class _MergePlan(ctypes.Structure):
+    """A launch's shape and its ``MergePlan`` as csrc/topk.cu's
+    ``MergePlan``."""
+    _fields_ = [(name, ctypes.c_int32)
+                for name in ("S", "nq", "k") + MergePlan._fields]
+
+
+@functools.lru_cache(maxsize=None)
+def _merge_device(device: int) -> Tuple[int, int]:
+    """``(sms, smem_per_block)`` of a card, read once; and the merge
+    kernel allowed that card's whole opt-in shared memory."""
+    lib = _lib()
+    sms, smem = ctypes.c_int(), ctypes.c_int()
+    _raise_on(lib.avenir_topk_device(device, ctypes.byref(sms),
+                                     ctypes.byref(smem)), "device query")
+    with torch.cuda.device(device):
+        _raise_on(lib.avenir_topk_merge_prepare(smem.value),
+                  "topk merge shared-memory opt-in")
+    return sms.value, smem.value
+
+
+@functools.lru_cache(maxsize=1024)
+def _merge_launch_plan(device: int, S: int, nq: int, k: int) -> tuple:
+    """The merge plan of one launch shape as the kernel reads it, and the
+    address the kernel reads it at."""
+    st = _MergePlan(S, nq, k, *merge_plan(S, nq, k, *_merge_device(device)))
+    return st, ctypes.addressof(st)
+
+
+def _merge_launch(keys, device, vals=None, idxs=None, out=None,
+                  kth=None) -> None:
     S, nq, k = keys.shape
-    if nq:
-        lib = _lib()
-        with torch.cuda.device(keys.device):
-            stream = torch.cuda.current_stream(keys.device).cuda_stream
-            _raise_on(lib.avenir_topk_merge(keys.data_ptr(), S, nq, k,
-                                            _ptr(vals), _ptr(idxs), _ptr(out),
-                                            _ptr(kth), stream),
-                      "topk merge kernel")
-        _count_launch("MERGE_LAUNCHES")
+    if not nq:
+        return
+    # the struct stays referenced here until the launch has read it
+    plan, addr = _merge_launch_plan(device, S, nq, k)
+    args = (keys.data_ptr(), addr, _ptr(vals), _ptr(idxs), _ptr(out),
+            _ptr(kth))
+    # the current stream as a plain integer, as torch's own generated code
+    # reads it: no torch.cuda.Stream object is built per call
+    if device == torch._C._cuda_getDevice():
+        err = _lib().avenir_topk_merge(
+            *args, torch._C._cuda_getCurrentRawStream(device))
+    else:
+        with torch.cuda.device(device):
+            err = _lib().avenir_topk_merge(
+                *args, torch._C._cuda_getCurrentRawStream(device))
+    _raise_on(err, "topk merge kernel")
+    _count_launch("MERGE_LAUNCHES")
 
 
 def merge_topk_lists(keys: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The merge kernel of K3's split path (``csrc/topk.cu``
-    ``merge_kernel``): ``plain_merge_topk``'s function.  CPU tensors take
-    the plain version; CUDA tensors launch the kernel or raise.  Each
-    launch adds one to ``MERGE_LAUNCHES``."""
-    _check_keys(keys)
-    if keys.device.type == "cpu":
+    ``merge_kernel``, launched on ``merge_plan``'s plan):
+    ``plain_merge_topk``'s function.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel or raise.  Each launch adds one to
+    ``MERGE_LAUNCHES``."""
+    device = _check_keys(keys)
+    if device < 0:
         return plain_merge_topk(keys)
     S, nq, k = keys.shape
-    vals = torch.empty((nq, k), dtype=torch.int32, device=keys.device)
-    idxs = torch.empty((nq, k), dtype=torch.int32, device=keys.device)
-    _merge_launch(keys, vals=vals, idxs=idxs)
+    # one allocation for both outputs
+    vals, idxs = torch.empty((2, nq, k), dtype=torch.int32,
+                             device=keys.device).unbind()
+    _merge_launch(keys, device, vals=vals, idxs=idxs)
     return vals, idxs
 
 
@@ -410,23 +519,23 @@ def merge_topk_keys(keys: torch.Tensor, out: torch.Tensor,
     ``out``.  CPU tensors take the plain version (``plain_merge_topk_keys``);
     CUDA tensors launch the kernel or raise, adding one to
     ``MERGE_LAUNCHES``."""
-    _check_keys(keys)
+    device = _check_keys(keys)
     S, nq, k = keys.shape
     for name, t, dtype, shape in (("out", out, torch.int64, (nq, k)),
                                   ("kth", kth, torch.int32, (nq,))):
         if t is None:
             continue
-        if (t.dtype != dtype or tuple(t.shape) != shape
-                or not t.is_contiguous() or t.device != keys.device):
+        if (t.dtype != dtype or t.shape != shape
+                or not t.is_contiguous() or t.get_device() != device):
             raise ValueError(f"{name} must be a contiguous {dtype} {shape} "
                              f"tensor on {keys.device}")
-    if keys.device.type == "cpu":
+    if device < 0:
         best = plain_merge_topk_keys(keys)
         out.copy_(best)
         if kth is not None:
             kth.copy_((best[:, k - 1] >> 32).to(torch.int32))
         return out
-    _merge_launch(keys, out=out, kth=kth)
+    _merge_launch(keys, device, out=out, kth=kth)
     return out
 
 

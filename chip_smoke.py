@@ -12,10 +12,13 @@ table routes, with a hot-cell case and K2 over the whole int32 range, by
 call time, by the kernel's own device time and at one row, the launch
 floor, all by ``avenir_tpu_torch/timing.py``; K3 at its split and unsplit
 routes and over a grid of query and candidate counts, the crossover behind
-the fused engine's gate; the merge of K3's candidate segments at the main
-path's segment lists and at the serving batches'; K3's keys-out form with
-an index base and the merge's keys-out form at a ring hop's shape), then
-drives every ported path on the card and again on the CPU:
+the fused engine's gate; the merge of K3's candidate segments, K3m, at the
+main path's segment lists, at the serving batches' (lists out, and keys
+out in place into list 0), at K3's most segments for one query (257 lists,
+k = 16 and 64) and at one row of one list (its launch floor), each with
+the ``merge_plan`` it took; K3's keys-out form with an index base and the
+merge's keys-out form at a ring hop's shape), then drives every ported
+path on the card and again on the CPU:
 
 1. telecom-churn Naive Bayes at the repo's benchmark size (50,000 seeded
    rows repeated to 2,000,000; the first 1.6M train in 131,072-row chunks,
@@ -617,54 +620,96 @@ def run_topk_case(torch, topk, tag, algorithm, k, exact, sample, make,
             "bm": bm, "splits": splits}
 
 
+def merge_plan_note(topk, keys) -> str:
+    """The plan a merge launch on ``keys`` [S, nq, k] takes, for the log."""
+    S, nq, k = keys.shape
+    p = topk.merge_plan(S, nq, k, *topk._merge_device(keys.get_device()))
+    return (f"plan: {p.warps} warps a row, {p.rows} rows a block, "
+            f"{p.rounds} round(s) of {p.slots} lists, {p.grid} blocks, "
+            f"{p.smem} shared bytes")
+
+
 def run_merge_case(torch, topk, card, nq=KNN_ROWS, kid="K3merge",
-                   tag="main path's segments") -> dict:
+                   tag="main path's segments", nt=KNN_ROWS, F=KNN_F, k=KNN_K,
+                   in_place=False, floor=None) -> dict:
     """The merge kernel at the segment lists that K3's plan gives ``nq``
-    queries against the kNN job's 16,384 x 256 candidates (the main path's
-    call at ``nq = 16,384``; a serving batch's at nq <= 64), made by the
-    plain version on each segment, merged by the kernel and by its plain
-    version (exact: the keys are unique); timed beside ``torch.topk`` over
-    the lists laid side by side (the library yardstick, without the int32
-    split)."""
-    qn, qc, tn, tc, cw, wsum = topk_uniform(torch, nq, KNN_ROWS, KNN_F, 0,
-                                            1)()
+    queries against ``nt`` candidates of ``F`` features (default: the kNN
+    job's 16,384 x 256, the main path's call at ``nq = 16,384``; a serving
+    batch's at nq <= 64), made by the plain version on each segment,
+    merged by the kernel and by its plain version (exact: the keys are
+    unique); timed beside ``torch.topk`` over the lists laid side by side
+    (the library yardstick, without the int32 split).  With ``in_place``
+    the keys-out form (``merge_topk_keys``) is held exact writing into list
+    0 with each row's k-th value, as a ring hop does, and timed writing
+    into a tensor of its own.  ``floor``: the entry of the one-row case
+    (``nq = 1`` against 16 candidates: one list), whose times the entry
+    carries as its launch floor."""
+    qn, qc, tn, tc, cw, wsum = topk_uniform(torch, nq, nt, F, 0, 1)()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    _, splits, per = topk.k3_plan(nq, KNN_ROWS, sms)
+    _, splits, per = topk.k3_plan(nq, nt, sms)
     keys = topk.plain_segment_keys(
-        qn, qc, tn, tc, cw, wsum, 1000, KNN_K,
-        topk.segment_bounds(KNN_ROWS, splits, per))
+        qn, qc, tn, tc, cw, wsum, 1000, k,
+        topk.segment_bounds(nt, splits, per))
     del qn, qc, tn, tc
-    got = topk.merge_topk_lists(keys)
-    want = topk.plain_merge_topk(keys)
-    torch.cuda.synchronize()
-    err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
-    if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
-        raise AssertionError(f"merge kernel differs from its plain version "
-                             f"(max abs err {err})")
+    if in_place:
+        want = topk.plain_merge_topk_keys(keys)
+        want_kth = (want[:, k - 1] >> 32).to(torch.int32)
+        out, kth = torch.empty_like(want), torch.empty(
+            nq, dtype=torch.int32, device=keys.device)
+        # timed into out: in place, a second call would merge list 0's
+        # answer with the lists it came from, whose keys it repeats
+        kern = lambda: topk.merge_topk_keys(keys, out, kth)
+        plain = lambda: topk.plain_merge_topk_keys(keys)
+
+        def exact():
+            inplace, kth0 = keys.clone(), torch.empty_like(kth)
+            topk.merge_topk_keys(inplace, inplace[0], kth0)
+            kern()
+            return (torch.equal(inplace[0], want)
+                    and torch.equal(kth0, want_kth)
+                    and torch.equal(inplace[1:], keys[1:])
+                    and torch.equal(out, want) and torch.equal(kth, want_kth))
+        what, out_bytes = "merge_topk_keys", 8 * nq * k + 4 * nq
+        form = ", keys and k-th values out, in place into list 0"
+    else:
+        want = topk.plain_merge_topk(keys)
+        kern = lambda: topk.merge_topk_lists(keys)
+        plain = lambda: topk.plain_merge_topk(keys)
+
+        def exact():
+            return all(torch.equal(g, w) for g, w in zip(kern(), want))
+        what, out_bytes = "merge_topk_lists", 8 * nq * k
+        form = ""
+    if not exact():
+        raise AssertionError(f"{what} [{tag}: S={splits} nq={nq} k={k}] "
+                             f"differs from its plain version")
     reps = 50 if nq > 64 else 500
-    ms = time_ms(lambda: topk.merge_topk_lists(keys), reps)
-    plain_ms = time_ms(lambda: topk.plain_merge_topk(keys), 20)
+    ms = time_ms(kern, reps)
+    plain_ms = time_ms(plain, 20)
     flat = keys.permute(1, 0, 2).reshape(nq, -1).contiguous()
     library_ms = time_ms(lambda: torch.topk(
-        flat, KNN_K, dim=1, largest=False, sorted=True), 20)
-    device_ms = kernel_device_ms(lambda: topk.merge_topk_lists(keys), 20,
-                                 "merge_kernel")
-    n = splits * nq * KNN_K
-    bound_ms, bound_by = bound(8 * n + 8 * nq * KNN_K, 0)
-    log(f"K3 merge kernel [{tag}: S={splits} nq={nq} k={KNN_K}]: exact; "
-        f"kernel {ms:.4f} ms (device {device_ms:.4f} ms), plain "
-        f"{plain_ms:.4f} ms, torch.topk {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}) [{card}]")
+        flat, k, dim=1, largest=False, sorted=True), 20)
+    device_ms = kernel_device_ms(kern, 20, "merge_kernel")
+    if not exact():             # after the timed calls too
+        raise AssertionError(f"{what} [{tag}] changed over repeated calls")
+    bound_ms, bound_by = bound(8 * splits * nq * k + out_bytes, 0)
+    shape = (f"{tag}: S={splits} nq={nq} k={k}"
+             + (f", {nt:,} x {F} candidates" if nt != KNN_ROWS else ""))
+    log(f"K3 merge kernel [{shape}{form}]: exact; "
+        f"{merge_plan_note(topk, keys)}; kernel {ms:.4f} ms (device "
+        f"{device_ms:.4f} ms), plain {plain_ms:.4f} ms, torch.topk "
+        f"{library_ms:.4f} ms, bound {bound_ms:.7f} ms ({bound_by}) [{card}]")
     del keys, flat
     torch.cuda.empty_cache()
-    return {"name": f"K3 merge_topk_lists [{tag}: S={splits} nq={nq} "
-                    f"k={KNN_K}]",
+    return {"name": f"K3 {what} [{shape}{form}]",
             "route": "cuda", "source": MERGE_KERNEL[0],
             "replaces": MERGE_KERNEL[1], "kid": kid,
-            "launches": 0, "max_abs_err": err, "ms": ms,
+            "launches": 0, "max_abs_err": 0, "ms": ms,
             "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms,
+            "floor_ms": floor and floor["ms"],
+            "floor_device_ms": floor and floor["device_ms"]}
 
 
 # the tiles at which the mesh phase runs K3's keys-out form and its merge:
@@ -688,7 +733,7 @@ TILE_CASES = (
 
 
 def run_tile_case(torch, topk, card, tag, nq, nt, F, blocks, ring, seed,
-                  kid, mkid) -> list:
+                  kid, mkid, floor=None) -> list:
     """K3's keys-out form (``segment_keys``) and the merge at one tile of
     a multi-device engine, each against its plain version on the same
     inputs.  The tile is the last of ``blocks`` candidate blocks of ``nt``
@@ -816,7 +861,8 @@ def run_tile_case(torch, topk, card, tag, nq, nt, F, blocks, ring, seed,
     mbound_ms, mbound_by = bound(8 * n_lists * nq * KNN_K + out_bytes, 0)
     mlabel = (f"{tag}: " + form.format(n_lists - 1 if ring else n_lists)
               + f", nq={nq} k={KNN_K}")
-    log(f"K3 {what} [{mlabel}]: exact; kernel {mms:.4f} ms (device "
+    log(f"K3 {what} [{mlabel}]: exact; {merge_plan_note(topk, scratch)}; "
+        f"kernel {mms:.4f} ms (device "
         f"{mdev_ms:.4f} ms), plain {mplain_ms:.4f} ms, torch.topk "
         f"{mlib_ms:.4f} ms, bound {mbound_ms:.4f} ms ({mbound_by}) [{card}]")
     del qn, qc, keys, scratch, flat
@@ -826,7 +872,9 @@ def run_tile_case(torch, topk, card, tag, nq, nt, F, blocks, ring, seed,
         "route": "cuda", "source": MERGE_KERNEL[0], "replaces": replaces,
         "kid": mkid, "launches": 0, "max_abs_err": 0, "ms": mms,
         "device_ms": mdev_ms, "plain_ms": mplain_ms, "bound_ms": mbound_ms,
-        "bound_by": mbound_by, "library_ms": mlib_ms}]
+        "bound_by": mbound_by, "library_ms": mlib_ms,
+        "floor_ms": floor and floor["ms"],
+        "floor_device_ms": floor and floor["device_ms"]}]
 
 
 CROSSOVER_NQ = (64, 1024, 4096, KNN_ROWS)
@@ -2285,12 +2333,24 @@ def main() -> int:
         entries.append(run_topk_case(
             torch, topk, "serving batch", "euclidean", KNN_K, False, None,
             topk_uniform(torch, nq, KNN_ROWS, KNN_F, 0, 12), kid="K3serve"))
-    entries.append(run_merge_case(torch, topk, card))
+    # the launch floor: one row of one list (16 candidates, one segment)
+    floor = run_merge_case(torch, topk, card, 1, "K3merge", "one-row floor",
+                           nt=KNN_K)
+    entries.append(floor)
+    entries.append(run_merge_case(torch, topk, card, floor=floor))
     for nq in K3_SERVING_NQ:      # the merge of a serving batch's segments
         entries.append(run_merge_case(torch, topk, card, nq, "K3mserve",
-                                      "serving batch"))
+                                      "serving batch", floor=floor))
+        # the keys-out form (a ring hop's) in place at the same lists
+        entries.append(run_merge_case(torch, topk, card, nq, "K3mring",
+                                      "serving batch", in_place=True,
+                                      floor=floor))
+    for k in (KNN_K, 64):   # K3's most segments at nq = 1 on this card
+        entries.append(run_merge_case(torch, topk, card, 1, "K3merge",
+                                      "most segments", nt=SEG_NT, F=SEG_F,
+                                      k=k, floor=floor))
     for case in TILE_CASES:     # the mesh engines' tiles
-        entries += run_tile_case(torch, topk, card, *case)
+        entries += run_tile_case(torch, topk, card, *case, floor=floor)
     k3_crossover(torch, topk, entries, card)
     phase_done("kernels")
 
