@@ -40,6 +40,24 @@ JOBS: Dict[str, tuple] = {
     "org.avenir.knn.NearestNeighbor": ("knn", "NearestNeighbor", ""),
     "org.avenir.cluster.AgglomerativeGraphical":
         ("cluster", "AgglomerativeGraphical", ""),
+    "org.avenir.markov.MarkovStateTransitionModel":
+        ("markov", "MarkovStateTransitionModel", "mst"),
+    "org.avenir.markov.MarkovModelClassifier":
+        ("markov", "MarkovModelClassifier", ""),
+    "org.avenir.markov.HiddenMarkovModelBuilder":
+        ("markov", "HiddenMarkovModelBuilder", ""),
+    "org.avenir.markov.ViterbiStatePredictor":
+        ("markov", "ViterbiStatePredictor", ""),
+    "org.avenir.association.FrequentItemsApriori":
+        ("association", "FrequentItemsApriori", "fia"),
+    "org.avenir.association.AssociationRuleMiner":
+        ("association", "AssociationRuleMiner", "arm"),
+    "org.avenir.association.InfrequentItemMarker":
+        ("association", "InfrequentItemMarker", "iim"),
+    # the chombo legs that the runbooks run between avenir jobs
+    "org.chombo.mr.TemporalFilter": ("chombo", "TemporalFilter", "tef"),
+    "org.chombo.mr.Projection": ("chombo", "Projection", ""),
+    "org.chombo.mr.RunningAggregator": ("chombo", "RunningAggregator", ""),
 }
 
 

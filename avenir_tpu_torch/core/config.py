@@ -27,6 +27,9 @@ class JobConfig:
                 return v
         return self.props.get(key, self._MISSING)
 
+    def with_prefix(self, prefix: str) -> "JobConfig":
+        return JobConfig(self.props, prefix)
+
     def set(self, key: str, value) -> None:
         self.props[key] = str(value)
 
@@ -49,11 +52,19 @@ class JobConfig:
             return default
         return str(v).strip().lower() == "true"
 
+    def get_list(self, key: str, delim: str = ",",
+                 default=None) -> Optional[List[str]]:
+        v = self._raw(key)
+        return default if v is self._MISSING else str(v).split(delim)
+
     def must(self, key: str, msg: Optional[str] = None) -> str:
         v = self._raw(key)
         if v is self._MISSING:
             raise KeyError(msg or f"missing required configuration parameter: {key}")
         return v
+
+    def must_int(self, key: str, msg: Optional[str] = None) -> int:
+        return int(self.must(key, msg))
 
     def must_float(self, key: str, msg: Optional[str] = None) -> float:
         return float(self.must(key, msg))

@@ -23,8 +23,12 @@ Config: ``ingest.cache.enable`` (default false), ``ingest.cache.dir``
 (default ``<input>.ingestcache``), ``ingest.cache.fused`` (default true:
 the warm NB fold bins inside the count kernel from the raw matrix).
 
-Not ported yet: the shared-scan tee (``MultiScanCacheTee``) and the
-Markov pair cache, which wait for their slices.
+The Markov trainer's pair cache (``PairStreamCache``) keeps its
+flattened (from, to, class) transition-pair streams the same way, under
+``mkv-<job fingerprint>``.
+
+Not ported yet: the shared-scan tee (``MultiScanCacheTee``), which waits
+for the shared scan.
 """
 
 from __future__ import annotations
@@ -75,6 +79,11 @@ def encoder_fingerprint(enc, delim: str) -> str:
             for f in enc.schema.fields]
     blob = json.dumps({"v": FORMAT_VERSION, "delim": delim,
                        "fields": desc}, sort_keys=True, default=str)
+    return hashlib.sha1(blob.encode()).hexdigest()
+
+
+def _job_fingerprint(parts: dict) -> str:
+    blob = json.dumps({"v": FORMAT_VERSION, **parts}, sort_keys=True)
     return hashlib.sha1(blob.encode()).hexdigest()
 
 
@@ -343,3 +352,146 @@ class IngestCache:
 
     def builder(self, chunk_rows: int) -> MatrixCacheBuilder:
         return MatrixCacheBuilder(self, chunk_rows)
+
+
+# ---------------------------------------------------------------------------
+# Markov pair-stream cache
+# ---------------------------------------------------------------------------
+
+class CachedPairs:
+    """A validated transition-pair artifact: the flattened (from, to,
+    class) int32 streams + per-chunk lengths + class labels in input
+    discovery order — everything the Markov streamed counter folds."""
+
+    def __init__(self, d: str, meta: dict):
+        n = int(meta["n_pairs"])
+        self.meta = meta
+        self.class_labels = list(meta["class_labels"])
+        self.chunk_lens = [int(c) for c in meta["chunk_lens"]]
+        self.frm = np.memmap(os.path.join(d, "frm.bin"), dtype=np.int32,
+                             mode="r", shape=(n,))
+        self.to = np.memmap(os.path.join(d, "to.bin"), dtype=np.int32,
+                            mode="r", shape=(n,))
+        self.cls = np.memmap(os.path.join(d, "cls.bin"), dtype=np.int32,
+                             mode="r", shape=(n,))
+        self._bounds = np.cumsum([0] + self.chunk_lens)
+
+    def chunks(self):
+        for i in range(len(self.chunk_lens)):
+            lo, hi = int(self._bounds[i]), int(self._bounds[i + 1])
+            yield self.frm[lo:hi], self.to[lo:hi], self.cls[lo:hi]
+
+
+class PairCacheBuilder:
+    """Tee for the Markov streamed counter's parsed pair chunks."""
+
+    def __init__(self, cache: "PairStreamCache", chunk_rows: int):
+        self.cache = cache
+        self.chunk_rows = int(chunk_rows)
+        self._stage = _stage_path(cache.dir)
+        self._writers: Optional[dict] = None
+        self._lens: List[int] = []
+        self._aborted = False
+        self._input_fp = input_fingerprint(cache.in_path)
+
+    def add(self, frm, to, cls) -> None:
+        if self._aborted:
+            return
+        from .io import OutputWriter
+
+        try:
+            if self._writers is None:
+                os.makedirs(self._stage, exist_ok=True)
+                self._writers = {
+                    name: OutputWriter(self._stage, name=name + ".bin",
+                                       binary=True, mark_success=False)
+                    for name in ("frm", "to", "cls")}
+            for name, arr in (("frm", frm), ("to", to), ("cls", cls)):
+                self._writers[name].write_bytes(np.ascontiguousarray(
+                    arr, dtype=np.int32).tobytes())
+            self._lens.append(int(np.asarray(frm).shape[0]))
+        except Exception:  # noqa: BLE001 — best-effort
+            self.abort()
+
+    def abort(self) -> None:
+        self._aborted = True
+        if self._writers is not None:
+            for w in self._writers.values():
+                w.close(success_marker=False)
+            self._writers = None
+        shutil.rmtree(self._stage, ignore_errors=True)
+
+    def _is_current(self, meta: Optional[dict]) -> bool:
+        return (meta is not None and meta.get("kind") == "markov-pairs"
+                and meta.get("job") == self.cache.job_fp
+                and meta.get("input") == self._input_fp
+                and meta.get("chunk_rows") == self.chunk_rows)
+
+    def finish(self, class_labels: List[str]) -> bool:
+        from .io import OutputWriter
+
+        if self._aborted or self._writers is None or not sum(self._lens):
+            self.abort()
+            return False
+        meta = {"version": FORMAT_VERSION, "kind": "markov-pairs",
+                "input": self._input_fp, "job": self.cache.job_fp,
+                "n_pairs": int(sum(self._lens)), "chunk_lens": self._lens,
+                "chunk_rows": self.chunk_rows,
+                "class_labels": list(class_labels)}
+        try:
+            for w in self._writers.values():
+                w.close()
+            self._writers = None
+            with OutputWriter(self._stage, name=META_NAME,
+                              mark_success=True) as mw:
+                mw.write(json.dumps(meta, indent=1))
+            return _publish_dir(self._stage, self.cache.dir,
+                                self._is_current)
+        except Exception:  # noqa: BLE001 — torn publish = miss next run
+            self.abort()
+            return False
+
+
+class PairStreamCache:
+    """Cache of the Markov trainer's flattened transition-pair streams,
+    keyed on the input fingerprint + the parse-relevant job params
+    (states, skip, class ordinal, delimiter)."""
+
+    def __init__(self, base: str, in_path: str, states: List[str],
+                 eff_skip: int, class_ord: int, delim_regex: str):
+        self.base = base
+        self.in_path = in_path
+        self.job_fp = _job_fingerprint({
+            "states": list(states), "eff_skip": int(eff_skip),
+            "class_ord": int(class_ord), "delim": delim_regex})
+        self.dir = os.path.join(base, "mkv-" + self.job_fp[:16])
+
+    @classmethod
+    def from_config(cls, cfg, in_path: str, states, eff_skip: int,
+                    class_ord: int,
+                    delim_regex: str) -> Optional["PairStreamCache"]:
+        if not cache_enabled(cfg):
+            return None
+        return cls(cache_base(cfg, in_path), in_path, states, eff_skip,
+                   class_ord, delim_regex)
+
+    def load(self, chunk_rows: Optional[int]) -> Optional[CachedPairs]:
+        meta = _load_validated_meta(self.dir)
+        if meta is None or meta.get("kind") != "markov-pairs":
+            return None
+        if meta.get("job") != self.job_fp:
+            return None
+        try:
+            if meta.get("input") != input_fingerprint(self.in_path):
+                return None
+        except OSError:
+            return None
+        if chunk_rows is not None and meta.get("chunk_rows") != chunk_rows:
+            return None
+        try:
+            return CachedPairs(self.dir, meta)
+        except (OSError, ValueError):
+            return None
+
+    def builder(self, chunk_rows: int) -> PairCacheBuilder:
+        return PairCacheBuilder(self, chunk_rows)

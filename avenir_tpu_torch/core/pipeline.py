@@ -31,7 +31,8 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Callable, Iterable, List, Optional, Tuple
+import time
+from typing import Callable, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -77,6 +78,68 @@ def rows_for_budget(budget_bytes: int, row_bytes: int,
     up to ``depth`` queued + 1 folding + 1 in transfer."""
     live = prefetch_depth + 2
     return max(int(budget_bytes) // (max(int(row_bytes), 1) * live), 1)
+
+
+# ---------------------------------------------------------------------------
+# host side: line and field chunk readers
+# ---------------------------------------------------------------------------
+
+def _open_text(fp: str):
+    """One file-open attempt on the ingest path (a ``read`` fault point;
+    runs under ``with_retries`` so transient failures back off)."""
+    fi = faultinject.get_injector()
+    if fi is not None:
+        fi.fire("read")
+    return open(fp, "r")
+
+
+def iter_line_chunks(path: str, chunk_rows: int) -> Iterator[List[str]]:
+    """Yield non-empty record lines in chunks of ``chunk_rows``: the
+    row-chunked form of ``core.io.read_lines`` (same skip-blank contract),
+    reading one buffered file at a time so memory is O(chunk).  Each
+    chunk's file time is an ``ingest.read`` span."""
+    from .io import _input_files
+    from .resilience import with_retries
+
+    if chunk_rows <= 0:
+        raise ValueError(f"chunk_rows must be positive: {chunk_rows}")
+    tracer = get_tracer()
+    buf: List[str] = []
+    t0 = time.perf_counter_ns()
+    for fp in _input_files(path):
+        with with_retries(_open_text, fp, op="ingest.open") as fh:
+            for line in fh:
+                line = line.rstrip("\n")
+                if line:
+                    buf.append(line)
+                    if len(buf) >= chunk_rows:
+                        tracer.record_span("ingest.read", t0,
+                                           time.perf_counter_ns() - t0,
+                                           rows=len(buf))
+                        yield buf
+                        buf = []
+                        # the clock restarts after the consumer resumes
+                        # us: a read span times file I/O, not its work
+                        t0 = time.perf_counter_ns()
+    if buf:
+        tracer.record_span("ingest.read", t0,
+                           time.perf_counter_ns() - t0, rows=len(buf))
+        yield buf
+
+
+def iter_field_chunks(path: str, delim_regex: str,
+                      chunk_rows: int) -> Iterator[object]:
+    """Row chunks through ``split_field_lines`` (an ``ingest.parse`` span
+    each): a 2-D string array for a rectangular chunk and a plain
+    one-character delimiter, else per-line field lists."""
+    tracer = get_tracer()
+    for lines in iter_line_chunks(path, chunk_rows):
+        t0 = time.perf_counter_ns()
+        fields, bulk = split_field_lines(lines, delim_regex)
+        tracer.record_span("ingest.parse", t0,
+                           time.perf_counter_ns() - t0,
+                           rows=len(lines), bulk=bulk)
+        yield fields
 
 
 # ---------------------------------------------------------------------------
@@ -303,16 +366,19 @@ class ChunkTransfer:
 
 class ChunkFold:
     """One stream's fold state.  The first chunk's ``local_fn`` result
-    becomes the carry, a device int32 tensor; every later chunk calls
-    ``local_fn(..., out=carry)``, whose kernel adds into the carry in
-    place.  (The reference donates the carry buffer to a jitted
-    ``carry + psum(...)`` to get the same in-place accumulate.)"""
+    becomes the carry, a device tensor; every later chunk calls
+    ``local_fn(..., out=carry)``, which adds into the carry in place.
+    (The reference donates the carry buffer to a jitted
+    ``carry + psum(...)`` to get the same in-place accumulate.)
+    ``broadcast`` are device tensors passed to every call after the mask,
+    before the static arguments, as the reference's ``broadcast_args``."""
 
     def __init__(self, local_fn: Callable, static_args: tuple = (),
                  device: Optional[torch.device] = None, tracer=None,
-                 parent=None):
+                 parent=None, broadcast: Sequence[torch.Tensor] = ()):
         self.local_fn = local_fn
         self.static_args = tuple(static_args)
+        self.broadcast = tuple(broadcast)
         self.device = device
         self.tracer = tracer or get_tracer()
         self.parent = parent
@@ -360,10 +426,11 @@ class ChunkFold:
         *arrays, mask = dev
         with self.tracer.span("ingest.fold", parent=self.parent):
             if self.carry is None:
-                self.carry = self.local_fn(*arrays, mask, *self.static_args)
+                self.carry = self.local_fn(*arrays, mask, *self.broadcast,
+                                           *self.static_args)
             else:
-                self.local_fn(*arrays, mask, *self.static_args,
-                              out=self.carry)
+                self.local_fn(*arrays, mask, *self.broadcast,
+                              *self.static_args, out=self.carry)
 
     def block(self) -> None:
         if self.carry is not None and self.carry.is_cuda:
@@ -417,6 +484,7 @@ class AsyncCheckpointSaver:
 
 def streaming_fold(chunks: Iterable, local_fn: Callable,
                    static_args: tuple = (),
+                   broadcast_args: Sequence[np.ndarray] = (),
                    device: Optional[torch.device] = None,
                    prefetch_depth: int = DEFAULT_PREFETCH_DEPTH,
                    checkpointer=None, initial_carry=None
@@ -427,7 +495,9 @@ def streaming_fold(chunks: Iterable, local_fn: Callable,
     per-chunk host work (parsing, binning, moments, cap guards) belongs in
     the generator, which runs on the prefetch worker when
     ``prefetch_depth >= 1``.  Each chunk is copied to the device and
-    folded with ``local_fn(*arrays, mask, *static_args)``.  Returns the
+    folded with ``local_fn(*arrays, mask, *broadcast, *static_args)``,
+    where ``broadcast`` are ``broadcast_args`` copied to the device once
+    (the same for every chunk: a candidate index, a table).  Returns the
     table as a host numpy array, or None for an empty stream.  An
     exception in the generator reaches the caller whichever thread raised
     it.
@@ -440,8 +510,10 @@ def streaming_fold(chunks: Iterable, local_fn: Callable,
     tracer = get_tracer()
     parent = tracer.current_span_id()
     transfer = ChunkTransfer(device, tracer=tracer)
+    broadcast = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                      for a in broadcast_args)
     cf = ChunkFold(local_fn, static_args=static_args, device=device,
-                   tracer=tracer, parent=parent)
+                   tracer=tracer, parent=parent, broadcast=broadcast)
     if initial_carry is not None:
         cf.seed(initial_carry)
     saver = (AsyncCheckpointSaver(checkpointer, tracer, ChunkFold.host_copy)

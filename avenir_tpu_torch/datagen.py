@@ -1,18 +1,24 @@
 """Seeded datasets: the port's copies of the reference package's
-``gen_telecom_churn`` (``avenir_tpu/datagen/generators.py``) and the
-``blobs`` preset (``avenir_tpu/datagen/cli.py::_blobs``).
+generators (``avenir_tpu/datagen/generators.py``: ``gen_telecom_churn``,
+``gen_elearn``, ``gen_usage``, ``gen_transactions``,
+``gen_state_sequences``, ``gen_hmm_sequences``) and of the presets that
+the runbooks call (``avenir_tpu/datagen/cli.py``).
 
 The same seed gives the same rows as the reference package's generators
 (both draw from ``numpy.random.default_rng``).  Command line::
 
-    python -m avenir_tpu_torch.datagen telecom_churn|blobs N [--seed S] [--out FILE]
+    python -m avenir_tpu_torch.datagen <preset> <sizes...> [--seed S] [--out FILE]
+
+with the presets of :data:`PRESETS` (``transactions`` and
+``timed_transactions`` take two sizes, transactions and items; the others
+one).
 """
 
 from __future__ import annotations
 
 import os
 import sys
-from typing import List
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -80,6 +86,186 @@ def gen_telecom_churn(n: int, seed: int = 42) -> List[List[str]]:
     return rows
 
 
+def gen_transactions(n_trans: int, n_items: int,
+                     planted: Sequence[Sequence[int]] = ((3, 7, 11),),
+                     planted_support: float = 0.2,
+                     items_per_trans: Tuple[int, int] = (4, 10),
+                     with_time: bool = False,
+                     time_range: Tuple[int, int] = (1446336000, 1447545600),
+                     seed: int = 42) -> List[List[str]]:
+    """Market-basket rows ``transId, itemId, itemId, ...`` with planted
+    frequent itemsets; with ``with_time`` an epoch-second timestamp is
+    inserted at field 1 (the input of ``TemporalFilter``)."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for t in range(n_trans):
+        k = int(rng.integers(items_per_trans[0], items_per_trans[1] + 1))
+        items = set(rng.integers(0, n_items, k).tolist())
+        for pset in planted:
+            if rng.random() < planted_support:
+                items.update(pset)
+        row = [f"T{t:06d}"] + [f"I{i:05d}" for i in sorted(items)]
+        if with_time:
+            row.insert(1, str(int(rng.integers(*time_range))))
+        rows.append(row)
+    return rows
+
+
+def gen_state_sequences(n_seqs: int, states: Sequence[str],
+                        trans_by_class: dict,
+                        seq_len: Tuple[int, int] = (10, 30),
+                        class_probs: Sequence[float] = None,
+                        seed: int = 42) -> List[List[str]]:
+    """Rows ``entityId, classLabel, s1, s2, ...`` from class-conditional
+    Markov chains; ``trans_by_class`` maps a class label to a
+    row-stochastic ``[S, S]`` matrix."""
+    rng = np.random.default_rng(seed)
+    classes = list(trans_by_class.keys())
+    if class_probs is None:
+        class_probs = [1.0 / len(classes)] * len(classes)
+    S = len(states)
+    rows = []
+    for i in range(n_seqs):
+        c = classes[rng.choice(len(classes), p=np.asarray(class_probs))]
+        T = np.asarray(trans_by_class[c], dtype=float)
+        L = int(rng.integers(seq_len[0], seq_len[1] + 1))
+        s = int(rng.integers(0, S))
+        seq = [states[s]]
+        for _ in range(L - 1):
+            s = int(rng.choice(S, p=T[s]))
+            seq.append(states[s])
+        rows.append([f"E{i:06d}", c] + seq)
+    return rows
+
+
+def gen_hmm_sequences(n_seqs: int, states: Sequence[str], obs: Sequence[str],
+                      A: np.ndarray, B: np.ndarray, pi: np.ndarray,
+                      seq_len: Tuple[int, int] = (8, 20),
+                      seed: int = 42) -> List[List[str]]:
+    """Fully tagged HMM rows ``entityId, obs1:state1, obs2:state2, ...``
+    (the ``HiddenMarkovModelBuilder`` input)."""
+    rng = np.random.default_rng(seed)
+    A = np.asarray(A, float); B = np.asarray(B, float); pi = np.asarray(pi, float)
+    rows = []
+    for i in range(n_seqs):
+        L = int(rng.integers(seq_len[0], seq_len[1] + 1))
+        s = int(rng.choice(len(states), p=pi))
+        pairs = []
+        for t in range(L):
+            o = int(rng.choice(len(obs), p=B[s]))
+            pairs.append(f"{obs[o]}:{states[s]}")
+            s = int(rng.choice(len(states), p=A[s]))
+        rows.append([f"E{i:06d}"] + pairs)
+    return rows
+
+
+def _weighted_choice(rng, values_weights) -> str:
+    values = [v for v, _ in values_weights]
+    w = np.asarray([w for _, w in values_weights], dtype=float)
+    return values[int(rng.choice(len(values), p=w / w.sum()))]
+
+
+def gen_elearn(n: int, seed: int = 42) -> List[List[str]]:
+    """E-learning rows: userId, nine activity features and a P/F status
+    drawn from an accumulated fail probability (resource/elearn_nb)."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(n):
+        fail_prob = 10
+        user_id = 1000000 + int(rng.integers(0, 1000001))
+        content = max(int(rng.normal(300, 100)), 0)
+        fail_prob += 10 if content < 100 else (6 if content < 150 else 0)
+        discuss = max(int(rng.normal(80, 40)), 0)
+        fail_prob += 8 if discuss < 30 else (4 if discuss < 50 else 0)
+        organizer = max(int(rng.normal(40, 20)), 0)
+        fail_prob += 5 if discuss < 10 else 0   # the reference checks discuss
+        email = max(int(rng.normal(10, 6)), 0)
+        fail_prob += 6 if email < 3 else 0
+        test = int(np.clip(rng.normal(50, 30), 10, 100))
+        fail_prob += 34 if test < 30 else (20 if test < 40 else
+                                           (14 if test < 50 else 0))
+        assign = int(np.clip(rng.normal(60, 40), 10, 100))
+        fail_prob += 28 if assign < 35 else (18 if assign < 50 else
+                                             (10 if assign < 60 else 0))
+        chat = max(int(rng.normal(100, 60)), 0)
+        fail_prob += 4 if chat < 20 else 0
+        search = max(int(rng.normal(60, 40)), 0)
+        fail_prob += 7 if search < 15 else (3 if search < 30 else 0)
+        bookmarks = max(int(rng.normal(12, 8)), 0)
+        fail_prob += 8 if bookmarks < 4 else 0
+        status = "F" if rng.integers(0, 101) < fail_prob else "P"
+        rows.append([str(user_id), str(content), str(discuss), str(organizer),
+                     str(email), str(test), str(assign), str(chat),
+                     str(search), str(bookmarks), status])
+    return rows
+
+
+def gen_usage(n: int, seed: int = 42) -> List[List[str]]:
+    """Categorical account-usage rows: id, minute usage, data usage, CS
+    calls, payment history, account age and status open/closed
+    (resource/usage_churn_nb)."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(n):
+        uid = f"{int(rng.integers(10**11, 10**12))}"
+        mins = _weighted_choice(rng, [("low", 2), ("med", 5), ("high", 3),
+                                      ("overage", 2)])
+        data = _weighted_choice(rng, [("low", 4), ("med", 6), ("high", 2)])
+        cs = _weighted_choice(rng, [("low", 6), ("med", 3), ("high", 1)])
+        pay = _weighted_choice(rng, [("poor", 2), ("average", 5), ("good", 4)])
+        acct_age = int(rng.integers(4)) + 1
+        pr = 25.0
+        pr *= {"low": 1.2, "high": 1.4, "overage": 1.8}.get(mins, 1.0)
+        pr *= {"low": 1.1, "med": 1.3, "high": 1.6}.get(data, 1.0)
+        pr *= {"med": 1.2, "high": 1.6}.get(cs, 1.0)
+        pr *= 1.3 if pay == "poor" else 1.0
+        pr *= {3: 1.05, 4: 1.2}.get(acct_age, 1.0)
+        pr = min(pr, 99.0)
+        status = "closed" if rng.integers(100) < pr else "open"
+        rows.append([uid, mins, data, cs, pay, str(acct_age), status])
+    return rows
+
+
+# the presets' model parameters (``avenir_tpu/datagen/cli.py``)
+CHURN_STATES = ["LL", "LH", "HL", "HH"]
+HMM_STATES = ["s0", "s1", "s2"]
+HMM_OBS = ["a", "b", "c", "d"]
+HMM_A = np.array([[.7, .2, .1], [.1, .7, .2], [.2, .1, .7]])
+HMM_B = np.array([[.7, .1, .1, .1], [.1, .7, .1, .1], [.1, .1, .1, .7]])
+HMM_PI = np.array([.5, .3, .2])
+CHURN_CHAINS = {"L": np.full((4, 4), 0.25),
+                "C": np.asarray([[0.1, 0.1, 0.1, 0.7]] * 4)}
+
+
+def churn_state_seqs(n: int, seed: int = 42) -> List[List[str]]:
+    """The churn_markov runbook's sequences: the loyal chain mixes its four
+    states, the churner chain is absorbed into HH."""
+    return gen_state_sequences(n, CHURN_STATES, CHURN_CHAINS,
+                               seq_len=(15, 25), seed=seed)
+
+
+def hmm_seqs(n: int, seed: int = 42) -> List[List[str]]:
+    return gen_hmm_sequences(n, HMM_STATES, HMM_OBS, HMM_A, HMM_B, HMM_PI,
+                             seed=seed)
+
+
+def hmm_obs(n: int, seed: int = 67) -> List[List[str]]:
+    """Observation-only rows (states stripped) for the Viterbi decoder."""
+    return [[r[0]] + [p.split(":")[0] for p in r[1:]]
+            for r in hmm_seqs(n, seed=seed)]
+
+
+def transactions(n_trans: int, n_items: int, seed: int = 42):
+    return gen_transactions(n_trans, n_items, planted=((3, 7, 11),),
+                            planted_support=0.5, seed=seed)
+
+
+def timed_transactions(n_trans: int, n_items: int, seed: int = 42):
+    """Transactions with an epoch timestamp at field 1."""
+    return gen_transactions(n_trans, n_items, planted=((3, 7, 11),),
+                            planted_support=0.5, with_time=True, seed=seed)
+
+
 def gen_blobs(n: int, seed: int = 41) -> List[List[str]]:
     """Rows ``id,x,y,cls`` (resource/knn_classify/blobs.json): two
     Gaussian blobs, class A around (0, 0) on even rows and class B around
@@ -94,17 +280,29 @@ def gen_blobs(n: int, seed: int = 41) -> List[List[str]]:
     return rows
 
 
-PRESETS = {"telecom_churn": gen_telecom_churn, "blobs": gen_blobs}
+# preset -> (generator, number of positional sizes)
+PRESETS: Dict[str, tuple] = {
+    "telecom_churn": (gen_telecom_churn, 1),
+    "blobs": (gen_blobs, 1),
+    "elearn": (gen_elearn, 1),
+    "usage": (gen_usage, 1),
+    "transactions": (transactions, 2),
+    "timed_transactions": (timed_transactions, 2),
+    "churn_state_seqs": (churn_state_seqs, 1),
+    "hmm_seqs": (hmm_seqs, 1),
+    "hmm_obs": (hmm_obs, 1),
+}
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    usage = ("usage: python -m avenir_tpu_torch.datagen telecom_churn|blobs "
-             "N [--seed S] [--out FILE]")
+    usage = ("usage: python -m avenir_tpu_torch.datagen <preset> <sizes...> "
+             "[--seed S] [--out FILE]\npresets:\n  "
+             + "\n  ".join(sorted(PRESETS)))
     if not argv or argv[0] not in PRESETS:
         print(usage, file=sys.stderr)
         return 2
-    fn, rest = PRESETS[argv[0]], argv[1:]
+    (fn, n_sizes), rest = PRESETS[argv[0]], argv[1:]
     seed, out, sizes = None, None, []
     try:
         i = 0
@@ -117,12 +315,12 @@ def main(argv=None) -> int:
                 raise ValueError(f"unknown option {rest[i]}")
             else:
                 sizes.append(int(rest[i])); i += 1
-        if len(sizes) != 1:
-            raise ValueError(f"expected one size, got {len(sizes)}")
+        if len(sizes) != n_sizes:
+            raise ValueError(f"expected {n_sizes} size(s), got {len(sizes)}")
     except (IndexError, ValueError) as e:
         print(f"bad arguments: {e}\n{usage}", file=sys.stderr)
         return 2
-    rows = fn(sizes[0], **({} if seed is None else {"seed": seed}))
+    rows = fn(*sizes, **({} if seed is None else {"seed": seed}))
     text = "\n".join(",".join(r) for r in rows) + "\n"
     if out:
         d = os.path.dirname(out)

@@ -67,12 +67,13 @@ def topk_smallest(dist: torch.Tensor, k: int, method: str = "exact"
     return vals[..., :k], idx[..., :k].to(torch.int32)
 
 
-def _assert_no_tf32(device: torch.device) -> None:
+def _assert_no_tf32(device: torch.device,
+                    user: str = "the distance engine") -> None:
     if device.type == "cuda" and (torch.backends.cuda.matmul.allow_tf32
                                   or torch.get_float32_matmul_precision()
                                   != "highest"):
         raise RuntimeError(
-            "TF32 matmul is enabled; the distance engine needs full float32 "
+            f"TF32 matmul is enabled; {user} needs full float32 "
             "products (torch.backends.cuda.matmul.allow_tf32 = False, "
             "torch.set_float32_matmul_precision('highest'))")
 

@@ -6,10 +6,11 @@ answer prediction requests at low latency (the Clipper-style adaptive
 micro-batching architecture; see PAPERS.md "Online serving").
 
 - ``engine``   — per-model scorer adapters wrapping the ported predict
-  paths (NB f32 log-space and f64 scorers; kNN on kernel K3) behind one
-  ``predict_lines(lines) -> lines`` surface, with a build-counted bounded
-  cache of scorers keyed on power-of-two batch buckets.  The Markov,
-  decision-tree and bandit kinds are refused at load (not ported yet).
+  paths (NB f32 log-space and f64 scorers; kNN on kernel K3; the Markov
+  log-odds classifier) behind one ``predict_lines(lines) -> lines``
+  surface, with a build-counted bounded cache of scorers keyed on
+  power-of-two batch buckets.  The decision-tree and bandit kinds are
+  refused at load (not ported yet).
 - ``registry`` — loads artifacts from their reference text formats,
   keyed by model name + version, with explicit warmup (each scorer built
   and run once at the configured buckets) and atomic hot-swap reload.

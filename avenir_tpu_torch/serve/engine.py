@@ -11,10 +11,13 @@ line the batch predictor would have written for the same row:
 - ``nearestNeighbor``   — the training set moved to the device once at
   load (``ops.distance.ResidentTraining``) + the fused distance + top-k
   kernel K3 feeding ``NearestNeighbor.classify_group`` voting.
+- ``markovClassifier``  — ``MarkovModelClassifier``'s log-ratio table on
+  the device + its gather and ordered log-odds sum, bucketed on rows and
+  on sequence length.
 
-The reference's ``markovClassifier``, ``decisionTree`` and
-``banditDecision`` kinds are not ported yet: a model of one of those
-kinds is refused at load (:data:`UNPORTED_KINDS`), never skipped.
+The reference's ``decisionTree`` and ``banditDecision`` kinds are not
+ported yet: a model of one of those kinds is refused at load
+(:data:`UNPORTED_KINDS`), never skipped.
 
 Every adapter computes on one explicit ``torch.device`` (``cuda:0``
 unless the caller asks for the CPU); a ``None`` device resolves to the
@@ -65,6 +68,12 @@ VARIANT_PRESETS: Dict[str, Dict[str, dict]] = {
         "f32": {"overlay": {"bp.score.precision": "float32"},
                 "latency_class": "fast", "accuracy_class": "standard"},
         "f64": {"overlay": {"bp.score.precision": "float64"},
+                "latency_class": "standard", "accuracy_class": "parity"},
+    },
+    "markovClassifier": {
+        "f32": {"overlay": {"mmc.score.precision": "float32"},
+                "latency_class": "fast", "accuracy_class": "standard"},
+        "f64": {"overlay": {"mmc.score.precision": "float64"},
                 "latency_class": "standard", "accuracy_class": "parity"},
     },
 }
@@ -540,12 +549,97 @@ class NearestNeighborAdapter(ModelAdapter):
         return results
 
 
+# ---------------------------------------------------------------------------
+# Markov log-odds classifier
+# ---------------------------------------------------------------------------
+
+class MarkovClassifierAdapter(ModelAdapter):
+    """Wraps ``MarkovModelClassifier``: its log-ratio table lives on the
+    adapter's device, and the scorer (the batch job's own
+    ``_mmc_pair_log_odds``) is bucketed on both axes: rows by powers of
+    two, sequence lengths by the ``seq.buckets`` config list (default
+    "16,64") with power-of-two fallback above the largest.  The ordered
+    log-odds sum makes the padding invisible, so each response is the
+    batch classifier's line byte for byte."""
+
+    KIND = "markovClassifier"
+
+    def __init__(self, config: JobConfig, counters: Counters, **kw):
+        super().__init__(config, counters, **kw)
+        from ..models.markov import MarkovModelClassifier
+
+        self.classifier = MarkovModelClassifier(config, device=self.device)
+        self.classifier._prepare()
+        self.seq_buckets = sorted({
+            int(v) for v in
+            (config.get("seq.buckets", "16,64")).split(",")})
+        # shape signature (see NaiveBayesAdapter): the table's shape and
+        # dtype, so same-state-space tenants share one built scorer per
+        # (row, length) bucket pair
+        self._shape_sig = tuple((tuple(t.shape), str(t.dtype))
+                                for t in self.tensors())
+
+    def tensors(self) -> Tuple[torch.Tensor, ...]:
+        """The device-resident log-ratio table (what ``device_bytes``
+        counts)."""
+        return self.classifier.tables()
+
+    def device_bytes(self) -> int:
+        return sum(int(t.numel() * t.element_size()) for t in self.tensors())
+
+    def _len_bucket(self, length: int) -> int:
+        for b in self.seq_buckets:
+            if length <= b:
+                return b
+        return pow2_bucket(length)
+
+    def _compiled(self, bucket: int, len_bucket: int):
+        from ..models.markov import _mmc_pair_log_odds
+        return self.cache.get(
+            ("markov", self._shape_sig, bucket, len_bucket),
+            lambda: telemetry.profiled_build(
+                _mmc_pair_log_odds,
+                f"serve.markov.score.b{bucket}.l{len_bucket}"))
+
+    def warm(self, bucket: int) -> None:
+        for lb in self.seq_buckets:
+            fn = self._compiled(bucket, lb)
+            frm = torch.full((bucket, lb - 1), -1, dtype=torch.int32,
+                             device=self.device)
+            valid = torch.zeros((bucket, lb - 1), dtype=torch.bool,
+                                device=self.device)
+            fn(frm, frm, valid, *self.tensors()).cpu()
+
+    def predict_lines(self, lines: List[str]) -> List[Optional[str]]:
+        clf = self.classifier
+        records = self._split(lines)
+        ok = [i for i, r in enumerate(records)
+              if len(r) >= clf.min_fields()
+              and all(s in clf.model.index for s in r[clf.skip:])
+              and (not clf.validation or len(r) > clf.class_ord)]
+        results: List[Optional[str]] = [None] * len(lines)
+        if not ok:
+            return results
+        recs = [records[i] for i in ok]
+        n = len(recs)
+        b = self._bucket(n)
+        lmax = max(len(r) - clf.skip for r in recs)
+        lb = self._len_bucket(lmax)
+        out = clf.classify_records(
+            recs, self.counters, score_fn=self._compiled(b, lb),
+            pad_rows_to=b, pad_len_to=lb)
+        for j, i in enumerate(ok):
+            results[i] = out[j]
+        return results
+
+
 ADAPTER_KINDS: Dict[str, type] = {
-    cls.KIND: cls for cls in (NaiveBayesAdapter, NearestNeighborAdapter)}
+    cls.KIND: cls for cls in (NaiveBayesAdapter, NearestNeighborAdapter,
+                              MarkovClassifierAdapter)}
 
 #: the reference's other adapter kinds, refused at load until their
 #: models are ported
-UNPORTED_KINDS = ("markovClassifier", "decisionTree", "banditDecision")
+UNPORTED_KINDS = ("decisionTree", "banditDecision")
 
 
 def adapter_class(kind: str) -> type:

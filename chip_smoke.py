@@ -69,10 +69,33 @@ path on the card and again on the CPU:
    contract, one K3 launch per batch and no plain-version call, the
    training tensors resident; K3 is also held against its plain version
    at the server's batch sizes (1, 8 and 64 queries).
+7. ``nb_runbooks``: ``resource/elearn_nb`` and ``resource/usage_churn_nb``
+   at their sizes through the command line;
+8. ``apriori``: ``resource/freq_items/run.sh``'s steps through the command
+   line, then bench.py:507's Apriori cell at full width (1M transactions
+   over 50,000 items, threshold 0.003, count mode, k = 1-5) cold and warm
+   (the incidence resident), with its census (|F2| >= 1,000, the three
+   planted 5-itemsets at k = 5), the k-pass times and the support matmul's
+   device time, and its first 100,000 transactions on the card and on the
+   CPU;
+9. ``markov``: ``resource/churn_markov/run.sh`` and
+   ``resource/hmm_viterbi/run.sh``'s steps through the command line, then
+   the family at a real size from vectorized generators of the same
+   chains: the trainer streamed over 500,000 sequences (cold, then warm
+   off the pair cache), the classifier at float64 and float32 on 100,000,
+   the HMM builder on 200,000 tagged rows and Viterbi on 100,000;
+10. ``serve_markov``: ``python -m avenir_tpu_torch serve`` with the
+   churn_markov model as a ``markovClassifier`` in f32 and f64 variants,
+   16 concurrent single-row clients and batch requests of 1-64 rows, each
+   response byte-identical to the batch classifier's line, no scorer
+   built after warmup.  Phases 7-10 launch no kernel of the port but K1
+   (the NB runbooks' training); each prints its host-clock times and a
+   ``torch.profiler`` device-busy and idle share.
 
 Kernel counts (and the native encoder's call count) are set to 0 just
 before each path and read just after.
-Outputs must be byte-identical between the card and the CPU, except kNN
+Outputs must be byte-identical between the card and the CPU (phases 7-9
+compare every output), except kNN
 pair lines whose distance lands on an int-scale rounding boundary: those
 may differ by one unit, and a float64 oracle must confirm them.
 
@@ -2273,6 +2296,723 @@ def knn_serve_contract(torch, adapter, queries, differ, d, feats) -> None:
                                      f"oracle distances")
 
 
+# ---------------------------------------------------------------------------
+# the NB runbooks, Apriori, the Markov family and Markov serving
+# ---------------------------------------------------------------------------
+
+NB_RUNBOOKS = (("elearn_nb", "elearn", "3", "elearn.json"),
+               ("usage_churn_nb", "usage", "9", "usage.json"))
+FREQ_ITEMS = os.path.join(ROOT, "resource", "freq_items")
+CHURN_MARKOV = os.path.join(ROOT, "resource", "churn_markov")
+HMM_VITERBI = os.path.join(ROOT, "resource", "hmm_viterbi")
+# bench.py:507-607's Apriori cell: 1M transactions over 50,000 items, 40
+# blocks of 12 items (6 drawn a transaction) plus one tail item, three
+# planted 5-itemsets at support 0.008, threshold 0.003, count mode, k 1-5
+APRIORI_N, APRIORI_ITEMS, APRIORI_THRESHOLD = 1_000_000, 50_000, 0.003
+APRIORI_BLOCKS, APRIORI_BLOCK_SZ, APRIORI_DRAWS = 40, 12, 6
+APRIORI_PLANTED = ((3001, 3007, 3011, 3013, 3017),
+                   (4001, 4202, 4303, 4404, 4505),
+                   (5001, 5002, 5003, 5004, 5005))
+APRIORI_CPU_ROWS = 100_000          # the card-against-CPU comparison's rows
+NL = b"\n"
+MARKOV_SEQS, MARKOV_CHUNK = 500_000, 65_536
+MARKOV_SCORED, HMM_TAGGED, HMM_DECODED = 100_000, 200_000, 100_000
+
+
+@contextlib.contextmanager
+def in_dir(path):
+    """Run a runbook's steps with the working directory at its layout
+    (its .properties name paths relative to it)."""
+    cwd = os.getcwd()
+    os.makedirs(path, exist_ok=True)
+    os.chdir(path)
+    try:
+        yield path
+    finally:
+        os.chdir(cwd)
+
+
+def write_part(path: str, data: bytes) -> str:
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "part-00000"), "wb") as fh:
+        fh.write(data)
+    return path
+
+
+def report_phase(name, by_kind, wall_s, kernel_kind, card) -> None:
+    log(f"{name}: a {wall_s:.3f} s profiled run")
+    report_device(by_kind, wall_s, kernel_kind, card)
+
+
+def nb_runbooks(torch, histogram, card) -> None:
+    """``resource/elearn_nb`` and ``resource/usage_churn_nb`` at their
+    runbook sizes (4,000 generated rows, 3,200 trained, 800 scored)
+    through the command line on cuda:0 and on the CPU: the model and the
+    predictions byte-equal."""
+    from avenir_tpu_torch import datagen
+
+    for name, preset, seed, schema in NB_RUNBOOKS:
+        book = os.path.join(ROOT, "resource", name)
+        got, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            with in_dir(os.path.join(WORK, "nb_runbooks", name, dev)) as w:
+                shutil.copy(os.path.join(book, schema), w)
+                if datagen.main([preset, "4000", "--seed", seed,
+                                 "--out", "work/all.csv"]) != 0:
+                    raise AssertionError(f"datagen {preset} failed")
+                with open("work/all.csv", "rb") as fh:
+                    lines = fh.read().splitlines(keepends=True)
+                write_part("work/train", b"".join(lines[:3200]))
+                write_part("work/test", b"".join(lines[-800:]))
+
+                def run(out="work"):
+                    run_job(["BayesianDistribution",
+                             f"-Dconf.path={book}/nb.properties",
+                             "work/train", f"{out}/model", "--device", dev])
+                    run_job(["BayesianPredictor",
+                             f"-Dconf.path={book}/bp.properties",
+                             f"-Dbayesian.model.file.path={out}/model",
+                             "work/test", f"{out}/pred", "--device", dev])
+
+                histogram.reset_launch_counts()
+                t = time.perf_counter()
+                run()
+                secs[dev] = time.perf_counter() - t
+                k1 = histogram.K1_LAUNCHES
+                got[dev] = (read_bytes("work/model"), read_bytes("work/pred"))
+                if dev == "cuda":
+                    if k1 < 1:
+                        raise AssertionError(f"{name}: no K1 launch")
+                    launches = k1
+                    by_kind, wall_s = profile_device(
+                        torch, lambda: run("profiled"),
+                        {"histogram kernel": "histogram_kernel"})
+        if got["cuda"] != got["cpu"]:
+            raise AssertionError(f"{name}: card and CPU outputs differ")
+        log(f"{name} runbook (3,200 trained, 800 scored; train + score "
+            f"through the CLI): cuda {secs['cuda']:.3f} s, cpu "
+            f"{secs['cpu']:.3f} s; model and predictions byte-equal; K1 "
+            f"launches {launches} [{card}]")
+        report_phase(f"{name} train + score", by_kind, wall_s,
+                     "histogram kernel", card)
+
+
+def freq_items_runbook(work: str, dev: str) -> dict:
+    """``resource/freq_items/run.sh``'s steps through the command line:
+    datagen, TemporalFilter, k = 1-3 in the trans-id and id-free forms,
+    the marker and the rule miner; returns every output's bytes."""
+    from avenir_tpu_torch import datagen
+
+    with in_dir(work):
+        os.makedirs("work/freq_all")
+        datagen.main(["timed_transactions", "500", "60", "--seed", "37",
+                      "--out", "work/raw/part-00000"])
+        dv = ["--device", dev]
+        run_job(["TemporalFilter", f"-Dconf.path={FREQ_ITEMS}/tef.properties",
+                 "work/raw", "work/trans"] + dv)
+        with open("work/trans/part-r-00000") as fh:
+            n = sum(1 for _ in fh)
+        for k in (1, 2, 3):
+            prev = [f"-Dfia.item.set.file.path=work/k{k - 1}"] if k > 1 else []
+            for form, more in (("", []),
+                               ("f", ["-Dfia.trans.id.output=false"])):
+                run_job(["FrequentItemsApriori",
+                         f"-Dconf.path={FREQ_ITEMS}/fia.properties",
+                         f"-Dfia.item.set.length={k}",
+                         f"-Dfia.total.tans.count={n}", *more, *prev,
+                         "work/trans", f"work/k{k}{form}"] + dv)
+            shutil.copy(f"work/k{k}f/part-r-00000", f"work/freq_all/part-{k}")
+        run_job(["InfrequentItemMarker",
+                 f"-Dconf.path={FREQ_ITEMS}/iim.properties", "work/trans",
+                 "work/marked"] + dv)
+        run_job(["AssociationRuleMiner",
+                 f"-Dconf.path={FREQ_ITEMS}/arm.properties", "work/freq_all",
+                 "work/rules"] + dv)
+        return {name: read_bytes(f"work/{name}") for name in
+                ("trans", "k1", "k1f", "k2", "k2f", "k3", "k3f", "marked",
+                 "rules")}
+
+
+def digits(x, width: int):
+    """Zero-padded decimal digits of ``x`` as a uint8 ``[n, width]``
+    character matrix."""
+    import numpy as np
+    x = np.asarray(x, np.int64)
+    p = 10 ** np.arange(width - 1, -1, -1, dtype=np.int64)
+    return ((x[:, None] // p) % 10 + 48).astype(np.uint8)
+
+
+def symbols(names, codes):
+    """Equal-width symbol names picked by ``codes``, as a uint8 character
+    matrix ``[*codes.shape, width]``."""
+    import numpy as np
+    table = np.frombuffer("".join(names).encode(), np.uint8).reshape(
+        len(names), -1)
+    return table[codes]
+
+
+def join_fields(fields):
+    """Comma-joined rows of fixed-width uint8 field matrices, each row
+    ending in a newline; returns the ``[n, width]`` byte matrix."""
+    import numpy as np
+    n = fields[0].shape[0]
+    parts = []
+    for i, f in enumerate(fields):
+        if i:
+            parts.append(np.full((n, 1), ord(","), np.uint8))
+        parts.append(f)
+    parts.append(np.full((n, 1), ord("\n"), np.uint8))
+    return np.concatenate(parts, axis=1)
+
+
+def rows_in_order(groups, n: int) -> bytes:
+    """Rows built per group (``(row indices, [m, width] byte matrix)``)
+    written back in row order."""
+    import numpy as np
+    out = np.empty(n, dtype=object)
+    for idx, buf in groups:
+        out[idx] = buf.view(f"S{buf.shape[1]}").ravel().tolist()
+    return b"".join(out.tolist())
+
+
+def write_apriori_workload(n: int):
+    """bench.py's Apriori transactions (the same draws from
+    ``default_rng(5)``), written by a vectorized writer: ``T%07d`` and
+    seven ``I%05d`` items a row, a planted 5-itemset appended where its
+    flag is set.  Returns the file's bytes."""
+    import numpy as np
+    rng = np.random.default_rng(5)
+    B, S, D = APRIORI_BLOCKS, APRIORI_BLOCK_SZ, APRIORI_DRAWS
+    block = rng.integers(0, B, n)
+    perm = np.argsort(rng.random((n, S)), axis=1)[:, :D]
+    ids = block[:, None] * S + perm
+    tail = rng.integers(B * S, APRIORI_ITEMS, (n, 1))
+    ids = np.concatenate([ids, tail], axis=1)
+    flags = rng.random((n, len(APRIORI_PLANTED))) < 0.008
+    fields = [np.concatenate([np.full((n, 1), ord("T"), np.uint8),
+                              digits(np.arange(n), 7)], axis=1)]
+    for j in range(ids.shape[1]):
+        fields.append(np.concatenate([np.full((n, 1), ord("I"), np.uint8),
+                                      digits(ids[:, j], 5)], axis=1))
+    buf = join_fields(fields)
+    suffix = [("," + ",".join(f"I{i:05d}" for i in p)).encode()
+              for p in APRIORI_PLANTED]
+    flagged = np.flatnonzero(flags.any(axis=1))
+    parts, lo = [], 0
+    for r in flagged:
+        parts.append(buf[lo:r].tobytes())
+        parts.append(buf[r, :-1].tobytes() + b"".join(
+            suffix[j] for j in np.flatnonzero(flags[r])) + b"\n")
+        lo = r + 1
+    parts.append(buf[lo:].tobytes())
+    return b"".join(parts)
+
+
+def apriori_passes(torch, in_path: str, out_base: str, n_trans: int,
+                   dev: str, profile_k: int = 0):
+    """k = 1-5 over ``in_path`` (count mode, threshold 0.003) through
+    ``FrequentItemsApriori`` on ``dev``; returns each pass's seconds and
+    output bytes, and the profile of pass ``profile_k`` if asked."""
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.models.association import FrequentItemsApriori
+
+    base = {"fia.skip.field.count": "1", "fia.tans.id.ord": "0",
+            "fia.support.threshold": str(APRIORI_THRESHOLD),
+            "fia.total.tans.count": str(n_trans),
+            "fia.emit.trans.id": "false"}
+    secs, outs, prof = [], [], None
+    for k in range(1, 6):
+        props = dict(base, **{"fia.item.set.length": str(k)})
+        if k > 1:
+            props["fia.item.set.file.path"] = f"{out_base}{k - 1}"
+        job = FrequentItemsApriori(JobConfig(props), device=dev)
+
+        def run():
+            job.run(in_path, f"{out_base}{k}")
+            if dev == "cuda":
+                torch.cuda.synchronize()
+
+        t = time.perf_counter()
+        if k == profile_k:
+            prof = profile_device(torch, run, {"support matmul": "gemm"})
+        else:
+            run()
+        secs.append(time.perf_counter() - t)
+        outs.append(read_bytes(f"{out_base}{k}"))
+    return secs, outs, prof
+
+
+def apriori_paths(torch, card) -> None:
+    """The freq_items runbook on the card and on the CPU, byte-equal; then
+    bench.py's Apriori cell at full width on the card, cold and warm (the
+    incidence resident), with its census (|F2| >= 1,000, the three
+    planted 5-itemsets at k = 5), and its first 100,000 transactions on
+    the card and on the CPU, byte-equal."""
+    from avenir_tpu_torch.models import association
+
+    w = os.path.join(WORK, "apriori")
+    t = time.perf_counter()
+    rb = {dev: freq_items_runbook(os.path.join(w, f"runbook_{dev}"), dev)
+          for dev in ("cuda", "cpu")}
+    runbook_s = time.perf_counter() - t
+    if rb["cuda"] != rb["cpu"]:
+        bad = [k for k in rb["cuda"] if rb["cuda"][k] != rb["cpu"][k]]
+        raise AssertionError(f"freq_items runbook outputs differ: {bad}")
+    log(f"freq_items runbook through the CLI on cuda and cpu in "
+        f"{runbook_s:.3f} s: {len(rb['cuda'])} outputs byte-equal "
+        f"({rb['cuda']['trans'].count(NL)} transactions kept, "
+        f"{rb['cuda']['k3'].count(NL)} frequent 3-itemsets, "
+        f"{rb['cuda']['rules'].count(NL)} rules) [{card}]")
+
+    t = time.perf_counter()
+    data = write_apriori_workload(APRIORI_N)
+    full = write_part(os.path.join(w, "trans"), data)
+    cut = 0
+    for _ in range(APRIORI_CPU_ROWS):
+        cut = data.index(b"\n", cut) + 1
+    head = write_part(os.path.join(w, "trans_head"), data[:cut])
+    log(f"apriori workload: {APRIORI_N} transactions, {len(data)} bytes, "
+        f"written in {time.perf_counter() - t:.3f} s")
+
+    association._encode_cache.clear()
+    association._inc_device_cache.clear()
+    cold_s, cold, _ = apriori_passes(torch, full, os.path.join(w, "k"),
+                                     APRIORI_N, "cuda")
+    warm_s, warm, prof = apriori_passes(torch, full, os.path.join(w, "wk"),
+                                        APRIORI_N, "cuda", profile_k=4)
+    if warm != cold:
+        raise AssertionError("warm Apriori passes differ from the cold ones")
+    sizes = [o.count(NL) for o in cold]
+    if sizes[1] < 1000:
+        raise AssertionError(f"|F2| = {sizes[1]} < 1,000")
+    found = {tuple(l.split(b",")[:5]) for l in cold[4].splitlines()}
+    for p in APRIORI_PLANTED:
+        want = tuple(f"I{i:05d}".encode() for i in sorted(p))
+        if want not in found:
+            raise AssertionError(f"planted {want} not found at k = 5")
+    (entry,) = association._inc_device_cache.values()
+    inc = entry[1][0]
+    log(f"apriori full width (bench.py:507, {APRIORI_N} transactions, "
+        f"threshold {APRIORI_THRESHOLD}, count mode) on cuda:0: |F1..F5| = "
+        f"{sizes}; the three planted 5-itemsets found; resident incidence "
+        f"{tuple(inc.shape)} {inc.dtype}; k-pass seconds cold "
+        f"{[round(s, 3) for s in cold_s]} (sum {sum(cold_s):.3f}), warm "
+        f"{[round(s, 3) for s in warm_s]} (sum {sum(warm_s):.3f}) [{card}]")
+    by_kind, wall_s = prof
+    t_mm, n_mm = by_kind["support matmul"]
+    log(f"apriori warm k = 4 pass ({sizes[2]} candidate 3-itemsets x "
+        f"{inc.shape[1]} items over {inc.shape[0]} rows): support matmul "
+        f"{t_mm / 1e3:.4f} ms of device time in {n_mm} launches")
+    report_phase("apriori warm k = 4 pass", by_kind, wall_s,
+                 "support matmul", card)
+
+    head_out = {}
+    for dev in ("cuda", "cpu"):
+        t = time.perf_counter()
+        s, head_out[dev], _ = apriori_passes(
+            torch, head, os.path.join(w, f"h{dev}"), APRIORI_CPU_ROWS, dev)
+        log(f"apriori first {APRIORI_CPU_ROWS} transactions on {dev}: "
+            f"k-pass seconds {[round(x, 3) for x in s]}")
+    if head_out["cuda"] != head_out["cpu"]:
+        raise AssertionError("apriori outputs on the first 100,000 "
+                             "transactions differ between card and CPU")
+    log(f"apriori first {APRIORI_CPU_ROWS} transactions: k = 1-5 outputs "
+        f"byte-equal card and CPU (|F| = "
+        f"{[o.count(NL) for o in head_out['cuda']]})")
+
+
+def markov_runbooks(work: str, dev: str) -> dict:
+    """``resource/churn_markov/run.sh`` and ``resource/hmm_viterbi/run.sh``
+    through the command line (the Projection leg's event rows shuffled by
+    a seeded permutation, which the job orders again); returns every
+    output's bytes."""
+    import numpy as np
+
+    from avenir_tpu_torch import datagen
+
+    dv = ["--device", dev]
+    with in_dir(work):
+        datagen.main(["churn_state_seqs", "800", "--seed", "31",
+                      "--out", "work/all.csv"])
+        with open("work/all.csv") as fh:
+            rows = fh.read().splitlines()
+        events = [f"{f[0]},{f[1]},{i - 2},{f[i]}"
+                  for f in (r.split(",") for r in rows)
+                  for i in range(2, len(f))]
+        perm = np.random.default_rng(2024).permutation(len(events))
+        write_part("work/events",
+                   ("\n".join(events[i] for i in perm) + "\n").encode())
+        run_job(["Projection",
+                 f"-Dconf.path={CHURN_MARKOV}/projection.properties",
+                 "work/events", "work/seqs"] + dv)
+        with open("work/seqs/part-r-00000") as fh:
+            if sorted(fh.read().splitlines()) != sorted(rows):
+                raise AssertionError("Projection did not reassemble the "
+                                     "sequences")
+        write_part("work/train", ("\n".join(rows[:600]) + "\n").encode())
+        write_part("work/test", ("\n".join(rows[-200:]) + "\n").encode())
+        run_job(["MarkovStateTransitionModel",
+                 f"-Dconf.path={CHURN_MARKOV}/mst.properties", "work/train",
+                 "work/model"] + dv)
+        run_job(["MarkovModelClassifier",
+                 f"-Dconf.path={CHURN_MARKOV}/mmc.properties", "work/test",
+                 "work/pred"] + dv)
+        datagen.main(["hmm_seqs", "300", "--seed", "23",
+                      "--out", "work/htrain/part-00000"])
+        datagen.main(["hmm_obs", "40", "--seed", "67",
+                      "--out", "work/obs/part-00000"])
+        run_job(["HiddenMarkovModelBuilder",
+                 f"-Dconf.path={HMM_VITERBI}/hmm.properties", "work/htrain",
+                 "work/hmm"] + dv)
+        run_job(["ViterbiStatePredictor",
+                 f"-Dconf.path={HMM_VITERBI}/vit.properties",
+                 "-Dhmm.model.path=work/hmm", "work/obs", "work/dec"] + dv)
+        return {name: read_bytes(f"work/{name}")
+                for name in ("seqs", "model", "pred", "hmm", "dec")}
+
+
+def sample_chain(rng, cum, start, cls, steps: int):
+    """``steps`` states of each row's chain: row i starts at ``start[i]``
+    and moves by ``cum[cls[i], state]`` (cumulative transition rows)."""
+    import numpy as np
+    n = start.shape[0]
+    seq = np.empty((n, steps), np.int64)
+    seq[:, 0] = start
+    u = rng.random((n, steps - 1))
+    last = cum.shape[-1] - 1
+    for t in range(1, steps):
+        c = cum[cls, seq[:, t - 1]]
+        seq[:, t] = np.minimum((u[:, t - 1:t] > c).sum(axis=1), last)
+    return seq
+
+
+def write_churn_sequences(n: int, seed: int) -> bytes:
+    """``churn_state_seqs``-shaped rows (``E%06d``, the class, 15-25
+    states of its chain: the loyal chain mixes the four states, the
+    churner chain is absorbed into HH), drawn in bulk."""
+    import numpy as np
+
+    from avenir_tpu_torch.datagen import CHURN_CHAINS, CHURN_STATES
+
+    rng = np.random.default_rng(seed)
+    classes = list(CHURN_CHAINS)
+    cls = rng.integers(0, len(classes), n)
+    lengths = rng.integers(15, 26, n)
+    cum = np.cumsum(np.stack([CHURN_CHAINS[c] for c in classes]), axis=2)
+    seq = sample_chain(rng, cum, rng.integers(0, len(CHURN_STATES), n), cls,
+                       int(lengths.max()))
+    ids = np.concatenate([np.full((n, 1), ord("E"), np.uint8),
+                          digits(np.arange(n), 6)], axis=1)
+    labels = symbols(classes, cls)
+    groups = []
+    for L in np.unique(lengths):
+        idx = np.flatnonzero(lengths == L)
+        states = [symbols(CHURN_STATES, seq[idx, t]) for t in range(L)]
+        groups.append((idx, join_fields([ids[idx], labels[idx]] + states)))
+    return rows_in_order(groups, n)
+
+
+def write_hmm_rows(n: int, seed: int, tagged: bool) -> bytes:
+    """``hmm_seqs``-shaped rows (``E%06d`` then 8-20 ``obs:state`` pairs of
+    the runbook's HMM) or, untagged, their observations only
+    (``hmm_obs``), drawn in bulk."""
+    import numpy as np
+
+    from avenir_tpu_torch.datagen import (HMM_A, HMM_B, HMM_OBS, HMM_PI,
+                                          HMM_STATES)
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(8, 21, n)
+    T = int(lengths.max())
+    start = (rng.random((n, 1)) > np.cumsum(HMM_PI)).sum(axis=1)
+    states = sample_chain(rng, np.cumsum(HMM_A, axis=1)[None],
+                          np.minimum(start, len(HMM_STATES) - 1),
+                          np.zeros(n, np.int64), T)
+    cum_b = np.cumsum(HMM_B, axis=1)
+    u = rng.random((n, T))
+    obs = np.minimum((u[:, :, None] > cum_b[states]).sum(axis=2),
+                     len(HMM_OBS) - 1)
+    ids = np.concatenate([np.full((n, 1), ord("E"), np.uint8),
+                          digits(np.arange(n), 6)], axis=1)
+    groups = []
+    colon = np.full((1, 1), ord(":"), np.uint8)
+    for L in np.unique(lengths):
+        idx = np.flatnonzero(lengths == L)
+        tokens = []
+        for t in range(L):
+            o = symbols(HMM_OBS, obs[idx, t])
+            if tagged:
+                o = np.concatenate([o, np.repeat(colon, len(idx), 0),
+                                    symbols(HMM_STATES, states[idx, t])],
+                                   axis=1)
+            tokens.append(o)
+        groups.append((idx, join_fields([ids[idx]] + tokens)))
+    return rows_in_order(groups, n)
+
+
+def markov_paths(torch, card) -> dict:
+    """The churn_markov and hmm_viterbi runbooks on the card and on the
+    CPU, byte-equal; then the family at a real size through the command
+    line, card against CPU: the trainer streamed over 500,000 sequences
+    (cold, then warm off the pair cache), the classifier at float64 and
+    float32 on 100,000, the HMM builder on 200,000 tagged rows and Viterbi
+    on 100,000 observation rows.  Returns the serving phase's inputs."""
+    w = os.path.join(WORK, "markov")
+    t = time.perf_counter()
+    rb = {dev: markov_runbooks(os.path.join(w, f"runbook_{dev}"), dev)
+          for dev in ("cuda", "cpu")}
+    runbook_s = time.perf_counter() - t
+    if rb["cuda"] != rb["cpu"]:
+        bad = [k for k in rb["cuda"] if rb["cuda"][k] != rb["cpu"][k]]
+        raise AssertionError(f"Markov runbook outputs differ: {bad}")
+    log(f"churn_markov + hmm_viterbi runbooks through the CLI on cuda and "
+        f"cpu in {runbook_s:.3f} s: {len(rb['cuda'])} outputs byte-equal")
+
+    t = time.perf_counter()
+    seqs = write_churn_sequences(MARKOV_SEQS, 31)
+    train = write_part(os.path.join(w, "train"), seqs)
+    cut = 0
+    for _ in range(MARKOV_SCORED):
+        cut = seqs.index(b"\n", cut) + 1
+    scored = write_part(os.path.join(w, "scored"), seqs[:cut])
+    tagged = write_part(os.path.join(w, "tagged"),
+                        write_hmm_rows(HMM_TAGGED, 23, True))
+    obs = write_part(os.path.join(w, "obs"),
+                     write_hmm_rows(HMM_DECODED, 67, False))
+    log(f"markov data: {MARKOV_SEQS} sequences, {HMM_TAGGED} tagged and "
+        f"{HMM_DECODED} observation rows written in "
+        f"{time.perf_counter() - t:.3f} s")
+
+    def steps(d: str, cache: bool):
+        """(label, argv, output) of the real-size runs writing under
+        ``d``; the trainer with the pair cache when ``cache``."""
+        model, hmm = os.path.join(d, "model"), os.path.join(d, "hmm")
+        mst = [f"-Dconf.path={CHURN_MARKOV}/mst.properties",
+               f"-Dpipeline.chunk.rows={MARKOV_CHUNK}"]
+        if cache:
+            mst += ["-Dingest.cache.enable=true",
+                    f"-Dingest.cache.dir={os.path.join(d, 'paircache')}"]
+        mmc = [f"-Dconf.path={CHURN_MARKOV}/mmc.properties",
+               f"-Dmm.model.path={model}"]
+        out = [("trainer cold", ["MarkovStateTransitionModel", *mst, train,
+                                 model], model)]
+        if cache:
+            warm = os.path.join(d, "model_warm")
+            out.append(("trainer warm", ["MarkovStateTransitionModel", *mst,
+                                         train, warm], warm))
+        return out + [
+            ("classifier f64", ["MarkovModelClassifier", *mmc, scored,
+                                os.path.join(d, "pred64")],
+             os.path.join(d, "pred64")),
+            ("classifier f32", ["MarkovModelClassifier", *mmc,
+                                "-Dmmc.score.precision=float32", scored,
+                                os.path.join(d, "pred32")],
+             os.path.join(d, "pred32")),
+            ("HMM builder", ["HiddenMarkovModelBuilder",
+                             f"-Dconf.path={HMM_VITERBI}/hmm.properties",
+                             tagged, hmm], hmm),
+            ("Viterbi", ["ViterbiStatePredictor",
+                         f"-Dconf.path={HMM_VITERBI}/vit.properties",
+                         f"-Dhmm.model.path={hmm}", obs,
+                         os.path.join(d, "dec")], os.path.join(d, "dec"))]
+
+    secs, got = {"cuda": {}, "cpu": {}}, {"cuda": {}, "cpu": {}}
+    card_steps = steps(os.path.join(w, "cuda"), cache=True)
+    for dev, todo in (("cuda", card_steps),
+                      ("cpu", steps(os.path.join(w, "cpu"), cache=False))):
+        for label, argv, out in todo:
+            t = time.perf_counter()
+            text = run_job(argv + ["--device", dev])
+            secs[dev][label] = time.perf_counter() - t
+            got[dev][label] = read_bytes(out)
+            if label == "trainer cold" and counter(
+                    text, "Markov", "Transitions") <= 0:
+                raise AssertionError("the trainer counted no transition")
+    if got["cuda"]["trainer warm"] != got["cuda"]["trainer cold"]:
+        raise AssertionError("the warm trainer's model differs from the "
+                             "cold one")
+    bad = [label for label in got["cpu"]
+           if got["cpu"][label] != got["cuda"][label]]
+    if bad:
+        raise AssertionError(f"Markov {bad}: card and CPU outputs differ")
+    log("markov real size on cuda:0 and on the CPU, every output "
+        "byte-equal: " + "; ".join(
+            f"{label} cuda {secs['cuda'][label]:.3f} s"
+            + (f" cpu {secs['cpu'][label]:.3f} s"
+               if label in secs["cpu"] else "")
+            for label, _, _ in card_steps) + f" [{card}]")
+    secs = secs["cuda"]
+    log(f"markov rates on cuda:0: trainer {MARKOV_SEQS / secs['trainer cold']:.0f}"
+        f" sequences/s cold, {MARKOV_SEQS / secs['trainer warm']:.0f} warm; "
+        f"classifier {MARKOV_SCORED / secs['classifier f64']:.0f} rows/s f64, "
+        f"{MARKOV_SCORED / secs['classifier f32']:.0f} f32; HMM builder "
+        f"{HMM_TAGGED / secs['HMM builder']:.0f} rows/s; Viterbi "
+        f"{HMM_DECODED / secs['Viterbi']:.0f} rows/s [{card}]")
+    for label, argv, _ in card_steps:
+        if label in ("trainer warm", "classifier f32"):
+            continue
+        prof_argv = [a for a in argv if not a.startswith("-Dingest.cache")]
+        prof_argv[-1] = prof_argv[-1] + "_profiled"
+        kind = {"trainer cold": ("count (index_add_)", "index"),
+                "HMM builder": ("count (index_add_)", "index"),
+                "classifier f64": ("gather", "index"),
+                "Viterbi": ("max / argmax", "reduce")}[label]
+        by_kind, wall_s = profile_device(
+            torch, lambda: run_job(prof_argv + ["--device", "cuda"]),
+            {kind[0]: kind[1]})
+        report_phase(f"markov {label}", by_kind, wall_s, kind[0], card)
+    return {"model": os.path.join(w, "runbook_cuda", "work", "model"),
+            "test": os.path.join(w, "runbook_cuda", "work", "test")}
+
+
+def serve_markov(torch, card, arts) -> None:
+    """``python -m avenir_tpu_torch serve`` with the churn_markov
+    runbook's model as a ``markovClassifier`` in f32 and f64 variants (two
+    replicas each, batches to 64, 2 ms window) on cuda:0: its 200 test
+    rows from 16 concurrent single-row TCP clients, then batch requests of
+    1-64 rows; every response byte-equal to the batch classifier's line
+    on the card, no scorer built after warmup."""
+    import re
+    import signal
+
+    w = os.path.join(WORK, "serve_markov")
+    os.makedirs(w)
+    mmc = os.path.join(w, "mmc.properties")
+    with open(os.path.join(CHURN_MARKOV, "mmc.properties")) as src, \
+            open(mmc, "w") as fh:
+        fh.write(src.read() + f"\nmm.model.path={arts['model']}\n")
+    with open(os.path.join(arts["test"], "part-00000")) as fh:
+        test = fh.read().splitlines()
+    batch = {}
+    for variant, precision in (("f32", "float32"), ("f64", "float64")):
+        out = os.path.join(w, f"pred_{variant}")
+        run_job(["MarkovModelClassifier", f"-Dconf.path={mmc}",
+                 f"-Dmmc.score.precision={precision}", arts["test"], out,
+                 "--device", "cuda"])
+        batch[variant] = read_bytes(out).decode().splitlines()
+    conf = os.path.join(w, "serve.properties")
+    with open(conf, "w") as fh:
+        fh.write("serve.models=seg\nserve.model.seg.kind=markovClassifier\n"
+                 f"serve.model.seg.conf={mmc}\n"
+                 "serve.model.seg.variants=f32,f64\nserve.pool.replicas=2\n"
+                 "serve.batch.max.size=64\nserve.batch.max.delay.ms=2\n"
+                 "serve.queue.max.depth=256\n")
+    log_path = os.path.join(w, "server.log")
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t_start = time.perf_counter()
+    with open(log_path, "w") as log_fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "avenir_tpu_torch", "serve",
+             f"-Dconf.path={conf}", "-Dserve.port=0"], cwd=w, env=env,
+            stdout=log_fh, stderr=subprocess.STDOUT)
+    try:
+        port = None
+        while port is None:
+            if proc.poll() is not None:
+                raise AssertionError(f"serve exited {proc.returncode}: "
+                                     + open(log_path).read()[-2000:])
+            if time.perf_counter() - t_start > 180:
+                raise AssertionError("serve did not come up in 180 s")
+            m = re.search(r"serving .* on ([\w.]+):(\d+)",
+                          open(log_path).read())
+            port = int(m.group(2)) if m else None
+            time.sleep(0.1)
+        up_s = time.perf_counter() - t_start
+        stats0 = request(port, {"cmd": "stats"})
+        seg = stats0["models"]["seg"]
+        devices = [r["device"] for v in seg["variants"].values()
+                   for r in v["replicas"]]
+        if devices != ["cuda:0"] * 4:
+            raise AssertionError(f"serve replicas on {devices}, not 2 x 2 "
+                                 f"on cuda:0")
+        builds0 = merged_counter(stats0, "seg", "Scorer compilations")
+        hits0 = merged_counter(stats0, "seg", "Scorer cache hits")
+        if builds0 != 2 * 2 * 7 * 2:
+            raise AssertionError(f"warmup built {builds0} scorers, not 56")
+        items = [(v, i) for v in ("f32", "f64") for i in range(len(test))]
+        t = time.perf_counter()
+        outs, lat = fan_out(lambda it: request(port, {
+            "model": "seg", "row": test[it[1]], "variant": it[0]}), items)
+        single_s = time.perf_counter() - t
+        bad = [(v, i, o) for (v, i), o in zip(items, outs)
+               if o.get("output") != batch[v][i] or o.get("variant") != v]
+        if bad:
+            raise AssertionError(f"{len(bad)} single-row responses differ "
+                                 f"from the batch classifier, e.g. {bad[0]}")
+        n_rows, t = 0, time.perf_counter()
+        for v in ("f32", "f64"):
+            lo = 0
+            for size in SERVE_BATCH_SIZES:
+                resp = request(port, {"model": "seg", "variant": v,
+                                      "rows": test[lo:lo + size]})
+                if resp.get("outputs") != batch[v][lo:lo + size]:
+                    raise AssertionError(f"a {size}-row {v} response "
+                                         f"differs from the batch lines")
+                lo, n_rows = lo + size, n_rows + size
+        batch_s = time.perf_counter() - t
+        stats1 = request(port, {"cmd": "stats"})
+        builds1 = merged_counter(stats1, "seg", "Scorer compilations")
+        hits1 = merged_counter(stats1, "seg", "Scorer cache hits")
+        if builds1 != builds0 or hits1 <= hits0:
+            raise AssertionError(f"scorer builds {builds0} -> {builds1}, "
+                                 f"cache hits {hits0} -> {hits1} after "
+                                 f"warmup")
+        lat_ms = stats1["models"]["seg"]["latency_ms"]
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        raise AssertionError(f"serve exited {rc} on SIGINT: "
+                             + open(log_path).read()[-2000:])
+    p50, p99 = quantiles_ms(lat)
+    log(f"serve_markov (CLI, TCP, 2 variants x 2 replicas on cuda:0): up in "
+        f"{up_s:.3f} s; {len(items)} single-row requests from "
+        f"{SERVE_CLIENTS} clients {len(items) / single_s:.1f} rows/s, client "
+        f"p50 {p50:.3f} ms p99 {p99:.3f} ms; stats surface (primary replica) "
+        f"p50 {lat_ms.get('p50')} ms p99 {lat_ms.get('p99')} ms; {n_rows} "
+        f"rows in {2 * len(SERVE_BATCH_SIZES)} batch requests "
+        f"{n_rows / batch_s:.1f} rows/s; every response byte-identical to the "
+        f"batch classifier (f32 and f64); scorer builds {builds0} at warmup, "
+        f"{builds1 - builds0} after [{card}]")
+    serve_markov_profiled(torch, conf, test, batch, card)
+
+
+def serve_markov_profiled(torch, conf, test, batch, card) -> None:
+    """The single-row traffic against an in-process server on cuda:0
+    under ``torch.profiler``: device busy time and idle share, every
+    replica's table on the card."""
+    from avenir_tpu_torch.core.config import load_job_config
+    from avenir_tpu_torch.serve import PredictionServer
+
+    srv = PredictionServer(load_job_config({"conf.path": conf,
+                                            "serve.port": "0"}),
+                           device="cuda")
+    try:
+        port = srv.start()
+        n_rep = check_replicas_on(torch, srv, "seg", "cuda:0")
+        items = [(("f32", "f64")[i % 2], i) for i in range(len(test))]
+
+        def traffic():
+            outs, _ = fan_out(lambda it: request(port, {
+                "model": "seg", "row": test[it[1]], "variant": it[0]}), items)
+            if any(o.get("output") != batch[v][i]
+                   for (v, i), o in zip(items, outs)):
+                raise AssertionError("in-process serve responses differ")
+
+        by_kind, wall_s = profile_device(torch, traffic,
+                                         {"log-odds gather": "index"})
+        log(f"serve_markov in process ({n_rep} replicas, tables on cuda:0): "
+            f"{len(items)} single-row requests, {wall_s:.3f} s "
+            f"({len(items) / wall_s:.1f} rows/s) under the profiler")
+        report_device(by_kind, wall_s, "log-odds gather", card)
+    finally:
+        srv.stop()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2371,6 +3111,21 @@ def main() -> int:
     phase_done("serve_nb")
     launches.update(serve_knn(torch, topk, knn_data, card))
     phase_done("serve_knn")
+    # the paths without a custom kernel, but the NB runbooks' K1: counts
+    # are set to 0 before each and read after it
+    nb_runbooks(torch, histogram, card)
+    phase_done("nb_runbooks")
+    outs = {}
+    for path in (apriori_paths, markov_paths):
+        histogram.reset_launch_counts()
+        topk.reset_launch_counts()
+        outs[path] = path(torch, card)
+        log(f"{path.__name__} launches: K1 {histogram.K1_LAUNCHES}, K2 "
+            f"{histogram.K2_LAUNCHES}, K3 {topk.K3_LAUNCHES}, K3m "
+            f"{topk.MERGE_LAUNCHES}")
+        phase_done(path.__name__.replace("_paths", ""))
+    serve_markov(torch, card, outs[markov_paths])
+    phase_done("serve_markov")
     log(f"main-path launches: {launches}")
     log(f"phase seconds: {phases}")
     for e in entries:

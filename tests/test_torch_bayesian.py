@@ -521,3 +521,80 @@ def test_drift_baseline_load_failure_does_not_fail_the_job(
                     if l.startswith("drift:")]
     assert len(line) == 1 and baseline in line[0]
     assert _read(tmp_path / "port") == _read(runbook / "model_jax")
+
+
+# ---------------------------------------------------------------------------
+# the two other NB runbooks, through both command lines
+# ---------------------------------------------------------------------------
+
+NB_RUNBOOKS = {"elearn_nb": ("elearn", "3", "elearn.json"),
+               "usage_churn_nb": ("usage", "9", "usage.json")}
+
+
+def _nb_runbook(work, name, main, dg, extra=()):
+    """resource/<name>/run.sh's steps (4,000 generated rows, 3,200 trained,
+    800 scored) with the working directory at the runbook's layout."""
+    import contextlib
+    import io
+
+    preset, seed, schema = NB_RUNBOOKS[name]
+    book = os.path.join(REPO, "resource", name)
+    os.makedirs(os.path.join(work, "work", "train"))
+    os.makedirs(os.path.join(work, "work", "test"))
+    shutil.copy(os.path.join(book, schema), work)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        assert dg([preset, "4000", "--seed", seed,
+                   "--out", "work/all.csv"]) == 0
+        with open("work/all.csv") as fh:
+            lines = fh.read().splitlines(keepends=True)
+        with open("work/train/part-00000", "w") as fh:
+            fh.writelines(lines[:3200])
+        with open("work/test/part-00000", "w") as fh:
+            fh.writelines(lines[-800:])
+        for argv in (["BayesianDistribution",
+                      f"-Dconf.path={book}/nb.properties", "work/train",
+                      "work/model"],
+                     ["BayesianPredictor", f"-Dconf.path={book}/bp.properties",
+                      "work/test", "work/pred"]):
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                rc = main(argv + list(extra))
+            assert rc in (0, None), err.getvalue()
+    finally:
+        os.chdir(cwd)
+
+
+@pytest.fixture(scope="module")
+def nb_runbooks(tmp_path_factory):
+    from avenir_tpu.cli import main as jax_main
+    from avenir_tpu.datagen.cli import main as jax_datagen
+
+    from avenir_tpu_torch.cli import main as port_main
+
+    tmp = tmp_path_factory.mktemp("nb_runbooks")
+    for name in NB_RUNBOOKS:
+        _nb_runbook(str(tmp / name / "jax"), name, jax_main, jax_datagen)
+        _nb_runbook(str(tmp / name / "port"), name, port_main, datagen.main,
+                    extra=("--device", "cpu"))
+    return tmp
+
+
+@pytest.mark.parametrize("output", ["all.csv", "model", "pred"])
+@pytest.mark.parametrize("name", sorted(NB_RUNBOOKS))
+def test_nb_runbook_byte_identical(nb_runbooks, name, output):
+    """resource/elearn_nb and resource/usage_churn_nb through
+    ``python -m avenir_tpu_torch ... --device cpu``: the port's generated
+    data, model and predictions are the reference's bytes."""
+    def read(side):
+        path = nb_runbooks / name / side / "work" / output
+        if output == "all.csv":
+            with open(path, "rb") as fh:
+                return fh.read()
+        return _read(path)
+
+    got = read("port")
+    assert got == read("jax")
+    assert len(got.splitlines()) == {"all.csv": 4000, "pred": 800}.get(
+        output, len(got.splitlines()))

@@ -317,3 +317,84 @@ def test_torn_input_part_is_refused_like_the_reference(tmp_path):
         list(jio.read_lines(out))
     assert str(mine.value).split(":")[0] == str(theirs.value).split(":")[0]
     assert "is 12 bytes but _MANIFEST records 8" in str(mine.value)
+
+
+@pytest.mark.parametrize("argv", [
+    ["telecom_churn", "40", "--seed", "5"], ["blobs", "30"],
+    ["elearn", "200", "--seed", "3"], ["usage", "200", "--seed", "9"],
+    ["transactions", "120", "60", "--seed", "17"],
+    ["timed_transactions", "500", "60", "--seed", "37"],
+    ["churn_state_seqs", "80", "--seed", "31"], ["hmm_seqs", "60", "--seed", "23"],
+    ["hmm_obs", "40", "--seed", "67"], ["hmm_obs", "25"]],
+    ids=lambda a: "-".join(a[:2]))
+def test_datagen_presets_match_reference(tmp_path, argv):
+    """Each preset of the port's ``datagen`` writes the reference
+    command's bytes for the same arguments."""
+    from avenir_tpu.datagen.cli import main as jax_datagen
+
+    from avenir_tpu_torch import datagen
+
+    for name, main in (("jax", jax_datagen), ("port", datagen.main)):
+        assert main(argv + ["--out", str(tmp_path / name / "rows.csv")]) == 0
+    with open(tmp_path / "port" / "rows.csv", "rb") as a, \
+            open(tmp_path / "jax" / "rows.csv", "rb") as b:
+        got = a.read()
+        assert got == b.read()
+    assert got.count(b"\n") == int(argv[1])
+
+
+@pytest.mark.parametrize("argv", [["transactions", "10"], ["elearn", "1", "2"],
+                                  ["nope", "3"], ["usage", "4", "--x", "1"]])
+def test_datagen_refuses_what_the_reference_refuses(argv, capsys):
+    from avenir_tpu.datagen.cli import main as jax_datagen
+
+    from avenir_tpu_torch import datagen
+
+    assert datagen.main(argv) == 2 == jax_datagen(argv)
+    assert capsys.readouterr().out == ""
+
+
+def test_line_and_field_chunk_readers_match_reference(tmp_path):
+    lines = ["a,1,2", "", "b,3", "c,4,5", "d,6,7", "", "e,8,9"]
+    os.makedirs(tmp_path / "in")
+    with open(tmp_path / "in" / "part-00000", "w") as fh:
+        fh.write("\n".join(lines[:4]) + "\n")
+    with open(tmp_path / "in" / "part-00001", "w") as fh:
+        fh.write("\n".join(lines[4:]) + "\n")
+    for rows in (1, 2, 3, 10):
+        got = list(pipeline.iter_line_chunks(str(tmp_path / "in"), rows))
+        assert got == list(jpipeline.iter_line_chunks(str(tmp_path / "in"),
+                                                      rows))
+        for g, w in zip(pipeline.iter_field_chunks(str(tmp_path / "in"), ",",
+                                                   rows),
+                        jpipeline.iter_field_chunks(str(tmp_path / "in"), ",",
+                                                    rows)):
+            assert type(g) is type(w)
+            assert np.asarray(g, dtype=object).tolist() == \
+                np.asarray(w, dtype=object).tolist()
+    with pytest.raises(ValueError):
+        next(pipeline.iter_line_chunks(str(tmp_path / "in"), 0))
+
+
+def test_streaming_fold_passes_broadcast_args():
+    """``broadcast_args`` reach every fold after the mask, on the device,
+    as the reference's do."""
+    import torch
+
+    seen = []
+
+    def local(x, mask, table, scale, out=None):
+        seen.append((mask, table.device.type))
+        part = (table[x] * scale).sum(dim=0, keepdim=True)
+        if out is None:
+            return part
+        out += part
+        return out
+
+    chunks = [(np.array([0, 1, 2]),), (np.array([2, 2]),)]
+    got = pipeline.streaming_fold(iter(chunks), local, static_args=(3,),
+                                  broadcast_args=(np.array([1, 10, 100]),),
+                                  device=torch.device("cpu"),
+                                  prefetch_depth=0)
+    assert got.tolist() == [(1 + 10 + 100 + 200) * 3]
+    assert seen == [(None, "cpu"), (None, "cpu")]

@@ -40,13 +40,18 @@ def test_importing_every_module_leaves_jax_out():
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'avenir_tpu' or "
         "m.startswith('avenir_tpu.'))\n"
-        "print(len(names))\n"
+        "print(' '.join(names))\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     run = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert run.returncode == 0, run.stderr
-    assert int(run.stdout.split()[-1]) >= 15    # every module was imported
+    names = set(run.stdout.split())
+    assert len(names) >= 15                     # every module was imported
+    assert {f"avenir_tpu_torch.{m}" for m in (
+        "models.association", "models.markov", "models.chombo",
+        "core.tabular", "core.pipeline", "core.ingestcache", "datagen",
+        "serve.engine")} <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(),

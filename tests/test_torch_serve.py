@@ -1,7 +1,7 @@
 """The port's prediction server held against the JAX package's on the CPU.
 
 The same artifacts (the serving runbook's churn set: telecom_churn 3000,
-seed 29, 2,400 rows trained and 600 scored; the kNN fixture of
+seed 29, 2,400 rows trained and 600 scored; the kNN and Markov fixtures of
 tests/test_serve.py) are built with both packages from one seed, and the
 reference ``avenir_tpu.serve.PredictionServer`` and the port's run in
 this process, each on port 0, with ``resource/serving/serve.properties``'s
@@ -22,15 +22,18 @@ import torch
 from avenir_tpu.core.config import JobConfig as JaxConfig
 from avenir_tpu.core.io import write_output as jax_write_output
 from avenir_tpu.core.schema import FeatureSchema as JaxSchema
-from avenir_tpu.datagen import gen_telecom_churn
+from avenir_tpu.datagen import gen_state_sequences, gen_telecom_churn
 from avenir_tpu.serve import PredictionServer as JaxServer
 from avenir_tpu.serve import engine as jengine
 
 from avenir_tpu_torch.core import telemetry
 from avenir_tpu_torch.core.config import JobConfig
+from avenir_tpu_torch.core.metrics import Counters
 from avenir_tpu_torch.core.schema import FeatureSchema
 from avenir_tpu_torch.models.bayesian import (BayesianDistribution,
                                               BayesianPredictor)
+from avenir_tpu_torch.models.markov import (MarkovModelClassifier,
+                                            MarkovStateTransitionModel)
 from avenir_tpu_torch.serve import PredictionServer, engine
 from avenir_tpu_torch.serve.engine import SERVE_GROUP
 from avenir_tpu_torch.serve.registry import ModelRegistry
@@ -300,8 +303,7 @@ def test_knn_training_set_is_resident(servers):
 # load-time refusals and device selection
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kind", ["markovClassifier", "decisionTree",
-                                  "banditDecision"])
+@pytest.mark.parametrize("kind", ["decisionTree", "banditDecision"])
 def test_unported_kind_is_refused_at_load(arts, kind):
     props = _props(arts, **{"serve.models": "m", "serve.model.m.kind": kind})
     with pytest.raises(NotImplementedError, match=f"{kind}.*not ported"):
@@ -446,3 +448,187 @@ def test_profiled_build_bills_the_first_call_once():
     # the CPU holds no device memory: nothing to sample, no gauge
     telemetry.watch_device("cpu")
     assert telemetry.sample_device_memory(force=True) is None
+
+
+# ---------------------------------------------------------------------------
+# the Markov log-odds classifier (tests/test_serve.py:223,
+# tests/test_pool.py:213): byte parity with the reference and the batch job
+# ---------------------------------------------------------------------------
+
+MARKOV_STATES = ["LL", "LM", "LH", "ML", "MM", "MH", "HL", "HM", "HH"]
+# rows that fail per row: an unknown state, and two records too short to
+# hold a transition
+MARKOV_BAD_ROWS = ["B1,L,LL,XX,HH", "B2,C,LL", "B3"]
+
+
+def _markov_chain(diag):
+    S = len(MARKOV_STATES)
+    T = np.full((S, S), (1 - diag) / (S - 1))
+    np.fill_diagonal(T, diag)
+    return T
+
+
+@pytest.fixture(scope="module")
+def markov(tmp_path_factory):
+    """tests/test_serve.py's Markov artifact (300 sequences, seed 9, 200
+    trained), trained by the port, and the port's batch classifier lines
+    for the other 100 under both precisions."""
+    tmp = tmp_path_factory.mktemp("torch_serve_markov")
+    seqs = [",".join(r) for r in gen_state_sequences(
+        300, MARKOV_STATES, {"L": _markov_chain(0.6),
+                             "C": _markov_chain(0.15)},
+        seq_len=(15, 40), seed=9)]
+    jax_write_output(str(tmp / "train"), seqs[:200])
+    jax_write_output(str(tmp / "test"), seqs[200:])
+    MarkovStateTransitionModel(JobConfig({
+        "model.states": ",".join(MARKOV_STATES),
+        "class.label.field.ord": "1", "skip.field.count": "1",
+        "trans.prob.scale": "1000"}), device="cpu").run(
+        str(tmp / "train"), str(tmp / "model"))
+    props = {"mm.model.path": str(tmp / "model"),
+             "class.label.based.model": "true", "class.labels": "L,C",
+             "validation.mode": "true", "class.label.field.ord": "1",
+             "skip.field.count": "1"}
+    batch = {}
+    for variant, precision in (("f32", "float32"), ("f64", "float64")):
+        out = str(tmp / f"pred_{variant}")
+        MarkovModelClassifier(JobConfig(dict(
+            props, **{"mmc.score.precision": precision})),
+            device="cpu").run(str(tmp / "test"), out)
+        with open(os.path.join(out, "part-r-00000")) as fh:
+            batch[variant] = fh.read().splitlines()
+    assert batch["f32"] != batch["f64"]        # the variants differ
+    return {"props": props, "test": seqs[200:], "batch": batch}
+
+
+def _markov_props(markov, **over):
+    props = {"serve.models": "seg", "serve.model.seg.kind": "markovClassifier",
+             "serve.model.seg.variants": "f32,f64",
+             "serve.pool.replicas": "2", "serve.batch.max.size": "64",
+             "serve.batch.max.delay.ms": "2", "serve.queue.max.depth": "256",
+             "serve.port": "0"}
+    for k, v in markov["props"].items():
+        props[f"serve.model.seg.{k}"] = v
+    props.update(over)
+    return props
+
+
+@pytest.fixture(scope="module")
+def markov_servers(markov):
+    port_srv = PredictionServer(JobConfig(_markov_props(markov)),
+                                device="cpu")
+    ref_srv = JaxServer(JaxConfig(_markov_props(markov)))
+    try:
+        yield (port_srv, port_srv.start()), (ref_srv, ref_srv.start())
+    finally:
+        port_srv.stop()
+        ref_srv.stop()
+
+
+@pytest.mark.parametrize("variant", ["f32", "f64"])
+def test_markov_responses_match_reference_and_batch(markov_servers, markov,
+                                                    variant):
+    """Over TCP, in batches that cross every row bucket and one row at a
+    time: the reference server's response and the batch line."""
+    (_, port), (_, ref) = markov_servers
+    test, batch = markov["test"], markov["batch"][variant]
+    lo = 0
+    for size in (64, 1, 2, 3, 5, 8, 13, 4):
+        obj = {"model": "seg", "rows": test[lo:lo + size],
+               "variant": variant}
+        mine = _ask(port, obj)
+        assert mine == _ask(ref, obj)
+        assert mine["variant"] == variant
+        assert mine["outputs"] == batch[lo:lo + size]
+        lo += size
+    for i in (0, 57, 99):
+        obj = {"model": "seg", "row": test[i], "variant": variant}
+        mine = _ask(port, obj)
+        assert mine == _ask(ref, obj) and mine["output"] == batch[i]
+
+
+@pytest.mark.parametrize("variant", ["f32", "f64"])
+def test_markov_per_row_errors_match_reference(markov_servers, markov,
+                                               variant):
+    (_, port), (_, ref) = markov_servers
+    rows = MARKOV_BAD_ROWS + markov["test"][:3] + MARKOV_BAD_ROWS[:1]
+    obj = {"model": "seg", "rows": rows, "variant": variant}
+    mine = _ask(port, obj)
+    assert mine == _ask(ref, obj)
+    assert mine["errors"] == len(MARKOV_BAD_ROWS) + 1
+    assert mine["outputs"][len(MARKOV_BAD_ROWS):len(MARKOV_BAD_ROWS) + 3] \
+        == markov["batch"][variant][:3]
+    for row in MARKOV_BAD_ROWS:
+        obj = {"model": "seg", "row": row, "variant": variant}
+        mine = _ask(port, obj)
+        assert mine == _ask(ref, obj) and "error" in mine
+
+
+def test_markov_warmup_leaves_no_builds_for_traffic(markov_servers, markov):
+    """Warmup built every (row bucket, length bucket) scorer on each
+    replica: 7 row buckets x the default length buckets 16 and 64; traffic
+    of 1-16 rows under both variants builds nothing new."""
+    (srv, port), _ = markov_servers
+    groups = srv.pool.variant_groups("seg")
+    counters = [r.entry.counters for g in groups for r in g.replicas]
+    assert all(c.get(SERVE_GROUP, "Warmup buckets") == 7 for c in counters)
+    before = [c.get(SERVE_GROUP, "Scorer compilations") for c in counters]
+    assert all(b == 14 for b in before)
+    for variant in ("f32", "f64"):
+        for size in range(1, 17):
+            resp = _ask(port, {"model": "seg", "variant": variant,
+                               "rows": markov["test"][:size]})
+            assert resp["outputs"] == markov["batch"][variant][:size]
+    assert [c.get(SERVE_GROUP, "Scorer compilations")
+            for c in counters] == before
+
+
+def test_markov_concurrent_clients_over_two_replicas(markov_servers, markov):
+    (srv, port), _ = markov_servers
+    test, batch = markov["test"], markov["batch"]
+    failures = []
+
+    def client(t):
+        variant = ("f32", "f64")[t % 2]
+        for i in range(t, len(test), 16):
+            resp = request(HOST, port, {"model": "seg", "variant": variant,
+                                        "row": test[i]})
+            if resp.get("output") != batch[variant][i]:
+                failures.append((t, i, resp))
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(16)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not failures, failures[:3]
+
+
+def test_markov_tables_live_on_the_replica_device(markov_servers):
+    """markovClassifier loads (no refusal); each replica's log-ratio table
+    is on its device, 9 x 9 in the variant's precision."""
+    (srv, _), _ = markov_servers
+    for group in srv.pool.variant_groups("seg"):
+        dt = {"f32": torch.float32, "f64": torch.float64}[group.variant]
+        for rep in group.replicas:
+            ad = rep.entry.adapter
+            assert ad.KIND == "markovClassifier" == engine.MarkovClassifierAdapter.KIND
+            (table,) = ad.tensors()
+            assert table.device == rep.device == torch.device("cpu")
+            assert table.dtype == dt and tuple(table.shape) == (9, 9)
+            assert ad.device_bytes() == 81 * table.element_size()
+            ptr = table.data_ptr()
+            ad.predict_lines(["Q,L,LL,LM,HH,HH"])
+            assert ad.tensors()[0].data_ptr() == ptr
+
+
+def test_markov_adapter_length_buckets(markov):
+    """Lengths past the largest configured bucket fall back to powers of
+    two, and the scores keep their bits there too."""
+    cfg = JobConfig(dict(markov["props"], **{"seq.buckets": "4,8"}))
+    ad = engine.MarkovClassifierAdapter(cfg, Counters(), device="cpu")
+    assert [ad._len_bucket(n) for n in (1, 4, 5, 8, 9, 40)] == \
+        [4, 4, 8, 8, 16, 64]
+    want = markov["batch"]["f64"][:5]
+    assert ad.predict_lines(markov["test"][:5]) == want
