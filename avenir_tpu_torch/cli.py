@@ -7,7 +7,9 @@ prediction server: ``python -m avenir_tpu_torch serve
 The same invocation, ``.properties`` files, schema JSONs and in/out
 directory layout as the reference package's ``python -m avenir_tpu``; job
 counters print to stderr.  Jobs run on ``cuda:0`` unless ``--device cpu``
-asks for the CPU, and fail when there is no card.
+asks for the CPU, and fail when there is no card.  A job whose ``run``
+returns a status instead of counters (``LogisticRegressionJob``: 100
+converged, 101 not yet) exits with it, as the reference's driver does.
 
 ``--resume`` sets ``checkpoint.resume=true``: a streaming job restarts
 from its sidecar checkpoint when one exists (core.checkpoint).
@@ -26,6 +28,7 @@ import sys
 from typing import Dict, Optional
 
 from .core.config import load_job_config, parse_cli_args
+from .core.metrics import Counters
 
 # reference driver class -> (module under models, job class, config prefix)
 JOBS: Dict[str, tuple] = {
@@ -54,6 +57,25 @@ JOBS: Dict[str, tuple] = {
         ("association", "AssociationRuleMiner", "arm"),
     "org.avenir.association.InfrequentItemMarker":
         ("association", "InfrequentItemMarker", "iim"),
+    "org.avenir.markov.ProbabilisticSuffixTreeGenerator":
+        ("pst", "ProbabilisticSuffixTreeGenerator", ""),
+    "org.avenir.explore.MutualInformation":
+        ("mutual_info", "MutualInformation", ""),
+    "org.avenir.explore.CramerCorrelation":
+        ("correlation", "CramerCorrelation", ""),
+    "org.avenir.explore.HeterogeneityReductionCorrelation":
+        ("correlation", "HeterogeneityReductionCorrelation", ""),
+    "org.avenir.explore.NumericalCorrelation":
+        ("correlation", "NumericalCorrelation", "nco"),
+    "org.avenir.explore.ClassPartitionGenerator":
+        ("tree", "ClassPartitionGenerator", ""),
+    "org.avenir.tree.SplitGenerator": ("tree", "SplitGenerator", ""),
+    "org.avenir.tree.DecisionTreeBuilder":
+        ("tree", "DecisionTreeBuilder", "dtb"),
+    "org.avenir.tree.DataPartitioner": ("tree", "DataPartitioner", ""),
+    "org.avenir.text.WordCounter": ("text", "WordCounter", ""),
+    "org.avenir.regress.LogisticRegressionJob":
+        ("regress", "LogisticRegressionJob", ""),
     # the chombo legs that the runbooks run between avenir jobs
     "org.chombo.mr.TemporalFilter": ("chombo", "TemporalFilter", "tef"),
     "org.chombo.mr.Projection": ("chombo", "Projection", ""),
@@ -177,14 +199,18 @@ def main(argv: Optional[list] = None) -> int:
     mod = importlib.import_module(f"{__package__}.models.{module}")
     job = getattr(mod, clsname)(config, device=device)
     try:
-        counters = job.run(positional[0], positional[1])
+        result = job.run(positional[0], positional[1])
     finally:
         if trace_path:
             n = obs.get_tracer().export_chrome_trace(trace_path)
             print(f"obs: wrote {n} trace events to {trace_path}",
                   file=sys.stderr)
-    print(counters.format(), file=sys.stderr)
-    return 0
+    if isinstance(result, Counters):
+        print(result.format(), file=sys.stderr)
+        return 0
+    # an iterative job's status (LogisticRegressionJob: 100 converged,
+    # 101 not yet) is the exit code, as the reference driver's
+    return int(result or 0)
 
 
 if __name__ == "__main__":

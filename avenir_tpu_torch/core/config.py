@@ -69,6 +69,10 @@ class JobConfig:
     def must_float(self, key: str, msg: Optional[str] = None) -> float:
         return float(self.must(key, msg))
 
+    def must_list(self, key: str, delim: str = ",",
+                  msg: Optional[str] = None) -> List[str]:
+        return self.must(key, msg).split(delim)
+
     def field_delim_regex(self) -> str:
         return self.get("field.delim.regex", ",")
 

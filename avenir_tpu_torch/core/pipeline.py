@@ -366,7 +366,8 @@ class ChunkTransfer:
 
 class ChunkFold:
     """One stream's fold state.  The first chunk's ``local_fn`` result
-    becomes the carry, a device tensor; every later chunk calls
+    becomes the carry, a device tensor (or a dict of them); every later
+    chunk calls
     ``local_fn(..., out=carry)``, which adds into the carry in place.
     (The reference donates the carry buffer to a jitted
     ``carry + psum(...)`` to get the same in-place accumulate.)
@@ -433,11 +434,17 @@ class ChunkFold:
                               *self.static_args, out=self.carry)
 
     def block(self) -> None:
-        if self.carry is not None and self.carry.is_cuda:
-            torch.cuda.synchronize(self.carry.device)
+        first = (next(iter(self.carry.values()))
+                 if isinstance(self.carry, dict) else self.carry)
+        if first is not None and first.is_cuda:
+            torch.cuda.synchronize(first.device)
 
-    def result(self) -> Optional[np.ndarray]:
-        """The carry as a host numpy array (None if nothing was folded)."""
+    def result(self):
+        """The carry as a host numpy array, or a dict of them for a
+        ``local_fn`` that returns a dict of tables (None if nothing was
+        folded)."""
+        if isinstance(self.carry, dict):
+            return {k: v.cpu().numpy() for k, v in self.carry.items()}
         return None if self.carry is None else self.carry.cpu().numpy()
 
 

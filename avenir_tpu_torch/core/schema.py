@@ -64,6 +64,9 @@ class FeatureField:
     def is_categorical(self) -> bool:
         return self.dataType == "categorical"
 
+    def is_integer(self) -> bool:
+        return self.dataType == "int"
+
     def is_bucket_width_defined(self) -> bool:
         return self.bucketWidth is not None and self.bucketWidth > 0
 
@@ -116,3 +119,9 @@ class FeatureSchema:
         if not implicit:
             raise ValueError("schema has no class attribute field")
         return implicit[-1]
+
+    def field_by_ordinal(self, ordinal: int) -> FeatureField:
+        for f in self.fields:
+            if f.ordinal == ordinal:
+                return f
+        raise KeyError(f"no field with ordinal {ordinal}")

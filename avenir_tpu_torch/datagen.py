@@ -1,7 +1,9 @@
 """Seeded datasets: the port's copies of the reference package's
 generators (``avenir_tpu/datagen/generators.py``: ``gen_telecom_churn``,
 ``gen_elearn``, ``gen_usage``, ``gen_transactions``,
-``gen_state_sequences``, ``gen_hmm_sequences``) and of the presets that
+``gen_state_sequences``, ``gen_hmm_sequences``, ``gen_retarget``,
+``gen_hosp_readmit``, ``gen_visit_history``, ``gen_text_classified``) and
+of the presets that
 the runbooks call (``avenir_tpu/datagen/cli.py``).
 
 The same seed gives the same rows as the reference package's generators
@@ -280,6 +282,148 @@ def gen_blobs(n: int, seed: int = 41) -> List[List[str]]:
     return rows
 
 
+RETARGET_CONVERSION = {"1C": 75, "1S": 60, "1N": 50, "2C": 60, "2S": 40,
+                       "2N": 30, "3C": 20, "3S": 20, "3N": 15}
+
+
+def gen_retarget(n: int, seed: int = 42) -> List[List[str]]:
+    """Abandoned-shopping-cart retarget rows per resource/retarget.py:9-23:
+    custID, retarget type (send hour 1/2/3 x recommendation C/S/N), cart
+    amount, converted Y/N with the planted per-type conversion rates —
+    the decision-tree / split-gain fixture."""
+    rng = np.random.default_rng(seed)
+    types = list(RETARGET_CONVERSION)
+    rows = []
+    for _ in range(n):
+        cust = 1000000 + int(rng.integers(0, 1000000))
+        t = types[int(rng.integers(9))]
+        conv = "Y" if rng.integers(1, 101) < RETARGET_CONVERSION[t] else "N"
+        amount = 20 + int(rng.integers(0, 301))
+        rows.append([str(cust), t, str(amount), conv])
+    return rows
+
+
+def gen_hosp_readmit(n: int, seed: int = 42) -> List[List[str]]:
+    """Hospital-readmission rows per resource/hosp_readmit.rb:5-99:
+    patID, age, weight, height, employment, family status, diet, exercise,
+    follow-up, smoking, alcohol, readmitted Y/N.  Age, living alone, and
+    poor follow-up carry the strongest planted readmission signal — the MI
+    feature-selection fixture (tutorial_hospital_readmit.txt:15-17)."""
+    rng = np.random.default_rng(seed)
+    age_d = [((10, 20), 2), ((21, 30), 3), ((31, 40), 6), ((41, 50), 10),
+             ((51, 60), 14), ((61, 70), 19), ((71, 80), 25), ((81, 90), 21)]
+    wt_d = [((130, 140), 9), ((141, 150), 13), ((151, 160), 16),
+            ((161, 170), 20), ((171, 180), 23), ((181, 190), 20),
+            ((191, 200), 17), ((201, 210), 14), ((211, 220), 10),
+            ((221, 230), 7), ((231, 240), 5), ((241, 250), 3)]
+    ht_d = [((50, 55), 9), ((56, 60), 12), ((61, 65), 16), ((66, 70), 23),
+            ((71, 75), 14)]
+
+    def ranged(dist):
+        (lo, hi) = _weighted_choice(rng, [(r, w) for r, w in dist])
+        return int(rng.integers(lo, hi + 1))
+
+    rows = []
+    for i in range(n):
+        p = 20
+        pid = f"{int(rng.integers(10**11, 10**12))}"
+        age = ranged(age_d)
+        p += 10 if age > 80 else (5 if age > 70 else (3 if age > 60 else 0))
+        wt, ht = ranged(wt_d), ranged(ht_d)
+        if wt > 200 and ht < 70:
+            p += 5
+        elif wt > 180 and ht < 60:
+            p += 3
+        emp = _weighted_choice(rng, [("employed", 10), ("unemployed", 1),
+                                     ("retired", 3)])
+        if age > 68 and rng.integers(10) < 8:
+            emp = "retired"
+        p += 6 if emp == "unemployed" else (4 if emp == "retired" else 0)
+        fam = _weighted_choice(rng, [("alone", 10), ("withPartner", 15)])
+        p += 9 if fam == "alone" else 0
+        diet = _weighted_choice(rng, [("average", 10), ("poor", 4), ("good", 2)])
+        if emp == "unemployed" and rng.integers(10) < 7:
+            diet = "poor"
+        p += 4 if diet == "poor" else (2 if diet == "average" else 0)
+        ex = _weighted_choice(rng, [("average", 10), ("low", 12), ("high", 4)])
+        p += 3 if ex == "low" else (1 if ex == "average" else 0)
+        fup = _weighted_choice(rng, [("average", 10), ("low", 14), ("high", 3)])
+        p += 8 if fup == "low" else (3 if fup == "average" else 0)
+        smoke = _weighted_choice(rng, [("nonSmoker", 10), ("smoker", 3)])
+        p += 6 if smoke == "smoker" else 0
+        alco = _weighted_choice(rng, [("average", 10), ("low", 16), ("high", 4)])
+        p += 5 if alco == "high" else (2 if alco == "average" else 0)
+        readmit = "Y" if rng.integers(100) < p else "N"
+        rows.append([pid, str(age), str(wt), str(ht), emp, fam, diet, ex,
+                     fup, smoke, alco, readmit])
+    return rows
+
+
+def gen_visit_history(n: int, conv_rate: int = 30, label: bool = False,
+                      seed: int = 42) -> List[List[str]]:
+    """Site-visit session sequences per resource/visit_history.py:12-77:
+    userID [, T/F conversion label], then session-summary states combining
+    elapsed-time and duration letters (HL, MM, ...).  Converted users skew
+    to short-elapsed / long-duration sessions — the PST / Markov sequence
+    fixture."""
+    rng = np.random.default_rng(seed)
+
+    def state(conv: bool) -> str:
+        s = int(rng.integers(0, 101))
+        if conv:
+            elapsed = "H" if s <= 15 else ("M" if s <= 40 else "L")
+        else:
+            elapsed = "L" if s <= 20 else ("M" if s <= 45 else "H")
+        s = int(rng.integers(0, 101))
+        if conv:
+            duration = "L" if s <= 15 else ("M" if s <= 40 else "H")
+        else:
+            duration = "H" if s <= 20 else ("M" if s <= 45 else "L")
+        return elapsed + duration
+
+    rows = []
+    for _ in range(n):
+        uid = f"U{int(rng.integers(10**10, 10**11))}"
+        row = [uid]
+        converted = rng.integers(0, 101) < conv_rate
+        if label:
+            truth = rng.integers(0, 101) < 90
+            row.append(("T" if truth else "F") if converted
+                       else ("F" if truth else "T"))
+        n_sess = int(rng.integers(2, 21 if converted else 13))
+        row += [state(converted) for _ in range(n_sess)]
+        rows.append(row)
+    return rows
+
+
+def gen_text_classified(n: int, seed: int = 42) -> List[List[str]]:
+    """Short review texts with a planted sentiment signal for the Naive
+    Bayes text mode (BayesianDistribution.java:187-196): positive rows draw
+    mostly from a positive word pool, negative rows from a negative pool,
+    both mixed with shared neutral filler.  Row = [text, classVal]."""
+    rng = np.random.default_rng(seed)
+    pos = ["excellent", "great", "fantastic", "loved", "wonderful", "superb"]
+    neg = ["terrible", "awful", "broken", "refund", "worst", "disappointed"]
+    neutral = ["product", "delivery", "box", "ordered", "arrived", "item",
+               "week", "store", "price", "color"]
+    rows = []
+    for _ in range(n):
+        positive = rng.random() < 0.5
+        pool = pos if positive else neg
+        k_sig = int(rng.integers(2, 5))
+        k_neu = int(rng.integers(3, 8))
+        words = [pool[rng.integers(len(pool))] for _ in range(k_sig)]
+        words += [neutral[rng.integers(len(neutral))] for _ in range(k_neu)]
+        rng.shuffle(words)
+        rows.append([" ".join(words), "P" if positive else "N"])
+    return rows
+
+
+def visit_history(n: int, seed: int = 42) -> List[List[str]]:
+    """The ``visit_history`` preset: half the users convert, rows labelled."""
+    return gen_visit_history(n, conv_rate=50, label=True, seed=seed)
+
+
 # preset -> (generator, number of positional sizes)
 PRESETS: Dict[str, tuple] = {
     "telecom_churn": (gen_telecom_churn, 1),
@@ -291,6 +435,10 @@ PRESETS: Dict[str, tuple] = {
     "churn_state_seqs": (churn_state_seqs, 1),
     "hmm_seqs": (hmm_seqs, 1),
     "hmm_obs": (hmm_obs, 1),
+    "retarget": (gen_retarget, 1),
+    "hosp_readmit": (gen_hosp_readmit, 1),
+    "visit_history": (visit_history, 1),
+    "text_classified": (gen_text_classified, 1),
 }
 
 

@@ -13,6 +13,11 @@ mode).  The model text format and every output byte are the reference's:
   products (float64, the strict-parity path) or a log-space sum
   (float32, the default), then arbitrates and writes one line per record.
 
+Text mode (``tabular.input=false``): the trainer tokenizes ``text,class``
+rows with the reference's analyzer (``models.text``) and counts (token,
+class) pairs with K1 at F = 1 over the token vocabulary; the predictor
+scores each row's tokens on the host in float64, as the reference does.
+
 Training parses with the native C ingest (core.binning, ``native/``),
 ``ingest.parse.threads`` chunks at a time, and carries the reference's
 resilience layer: the sidecar checkpoint every
@@ -37,8 +42,7 @@ is exact, so TF32 cannot round it.  The float64 factors use XLA's float64
 contracted multiply-adds (ops.xla_math) and its order of summation
 (``_sum_last``), so the feature probabilities that
 ``output.feature.prob.only`` prints are the reference's bits.  Not
-ported yet: text mode (``tabular.input=false``) and the shared-scan
-FoldSpec.
+ported yet: the shared-scan FoldSpec.
 """
 
 from __future__ import annotations
@@ -352,11 +356,11 @@ class BayesianDistribution:
                  schema: Optional[FeatureSchema] = None, device=None):
         self.config = config
         self.tabular = config.get_boolean("tabular.input", True)
-        if not self.tabular:
-            raise NotImplementedError(
-                "text mode (tabular.input=false) is not ported yet")
-        self.schema = schema or FeatureSchema.from_file(
-            config.must("feature.schema.file.path"))
+        if self.tabular:
+            self.schema = schema or FeatureSchema.from_file(
+                config.must("feature.schema.file.path"))
+        else:
+            self.schema = schema      # text mode needs no feature schema
         self.device = resolve_device(device)
 
     @traced_run
@@ -364,6 +368,9 @@ class BayesianDistribution:
         counters = Counters()
         delim_in = self.config.field_delim_regex()
         delim = self.config.field_delim_out()
+        if not self.tabular:
+            return self._run_text(in_path, out_path, counters, delim_in,
+                                  delim)
         tracer = get_tracer()
         with tracer.span("phase:train"):
             lines = self._train_streamed(in_path, delim_in, delim, counters,
@@ -748,6 +755,58 @@ class BayesianDistribution:
             counters.set("Drift", f"{name} (KL x1e6)",
                          int(round(div * 1e6)))
 
+    # -- text-classification mode -----------------------------------------
+    TEXT_ORDINAL = 1   # fixed featureAttrOrdinal (BayesianDistribution.java:121)
+
+    def _run_text(self, in_path: str, out_path: str, counters: Counters,
+                  delim_in: str, delim: str) -> Counters:
+        """``tabular.input=false``: each record is ``text<delim>classVal``;
+        tokens are counted as binned feature values of ordinal 1
+        (BayesianDistribution.java:187-196).  Tokenizing and the token
+        vocabulary are host passes; the count is the tabular path's, one
+        (token, class) row per token occurrence, so K1 runs at F = 1 with
+        as many bins as the vocabulary has tokens."""
+        from ..core.binning import Vocab
+        from .text import standard_tokenize
+
+        tracer = get_tracer()
+        with tracer.span("phase:train"):
+            vocab = Vocab()
+            class_vocab = Vocab()
+            tok_ids: List[int] = []
+            cls_ids: List[int] = []
+            for line in read_lines(in_path):
+                items = split_line(line, delim_in)
+                cv = class_vocab.add(items[1])
+                for tok in standard_tokenize(items[0]):
+                    tok_ids.append(vocab.add(tok))
+                    cls_ids.append(cv)
+            x = np.asarray(tok_ids, dtype=np.int32)[:, None]
+            y = np.asarray(cls_ids, dtype=np.int32)
+            counts = sharded_reduce(
+                _nb_local, x, y, device=self.device,
+                static_args=(len(class_vocab), max(len(vocab), 1))
+            ).cpu().numpy()
+
+        with tracer.span("phase:emit"):
+            lines: List[str] = []
+            o = self.TEXT_ORDINAL
+            for c, class_val in enumerate(class_vocab.values):
+                for b, tok in enumerate(vocab.values):
+                    cnt = int(counts[c, 0, b])
+                    if cnt == 0:
+                        continue
+                    counters.incr("Distribution Data",
+                                  "Feature posterior binned ")
+                    lines.append(f"{class_val}{delim}{o}{delim}{tok}{delim}"
+                                 f"{cnt}")
+                    counters.incr("Distribution Data", "Class prior")
+                    lines.append(f"{class_val}{delim}{delim}{delim}{cnt}")
+                    counters.incr("Distribution Data", "Feature prior binned ")
+                    lines.append(f"{delim}{o}{delim}{tok}{delim}{cnt}")
+            write_output(out_path, lines)
+        return counters
+
 
 # ---------------------------------------------------------------------------
 # model (the reference's text format)
@@ -827,6 +886,20 @@ class NaiveBayesModel:
     def class_prior_prob(self, class_val: str) -> float:
         return self.class_prob.get(class_val, 0.0)
 
+    def feature_prior_prob(self, feature_values) -> float:
+        """The product of the feature priors of ``(ordinal, value)``
+        pairs, left to right (the text predictor's scalar path)."""
+        p = 1.0
+        for ordinal, v in feature_values:
+            p *= self.prior[ordinal].prob(v)
+        return p
+
+    def feature_post_prob(self, class_val: str, feature_values) -> float:
+        p = 1.0
+        for ordinal, v in feature_values:
+            p *= self.post[(class_val, ordinal)].prob(v)
+        return p
+
 
 # ---------------------------------------------------------------------------
 # predictor
@@ -840,11 +913,11 @@ class BayesianPredictor:
                  model: Optional[NaiveBayesModel] = None, device=None):
         self.config = config
         self.tabular = config.get_boolean("tabular.input", True)
-        if not self.tabular:
-            raise NotImplementedError(
-                "text mode (tabular.input=false) is not ported yet")
-        self.schema = schema or FeatureSchema.from_file(
-            config.must("feature.schema.file.path"))
+        if self.tabular:
+            self.schema = schema or FeatureSchema.from_file(
+                config.must("feature.schema.file.path"))
+        else:
+            self.schema = schema
         self.model = model or NaiveBayesModel.load(
             config.must("bayesian.model.file.path"),
             config.field_delim_regex())
@@ -860,9 +933,12 @@ class BayesianPredictor:
         pc = self.config.get("bp.predict.class")
         if pc is not None:
             self.predicting_classes = pc.split(delim)
-        else:
+        elif self.schema is not None:
             card = self.schema.class_attr_field().cardinality
             self.predicting_classes = [card[0], card[1]]
+        else:
+            # text mode without bp.predict.class: the model's classes
+            self.predicting_classes = list(self.model.class_count)[:2]
 
         costs = self.config.get("bp.predict.class.cost")
         self.arbitrator = None
@@ -1079,6 +1155,28 @@ class BayesianPredictor:
         return (ds, tables, probs.cpu().numpy(), feat_prior.cpu().numpy(),
                 feat_post.cpu().numpy())
 
+    def score_text(self, records):
+        """Text mode (``tabular.input=false``): each record's tokens scored
+        on the host through the loaded model in float64, as the reference
+        scores them (the token vocabulary lives in the model text);
+        returns ``(probs, feat_prior, feat_post)``."""
+        from .text import standard_tokenize
+
+        o = BayesianDistribution.TEXT_ORDINAL
+        n, C = len(records), len(self.predicting_classes)
+        probs = np.zeros((n, C), dtype=np.int64)
+        feat_prior = np.zeros(n)
+        feat_post = np.zeros((n, C))
+        for i, items in enumerate(records):
+            fv = [(o, t) for t in standard_tokenize(items[0])]
+            feat_prior[i] = self.model.feature_prior_prob(fv)
+            for ci, cv in enumerate(self.predicting_classes):
+                feat_post[i, ci] = self.model.feature_post_prob(cv, fv)
+                ratio = (feat_post[i, ci] * self.model.class_prior_prob(cv)
+                         / max(feat_prior[i], 1e-300))
+                probs[i, ci] = int(ratio * 100)
+        return probs, feat_prior, feat_post
+
     @traced_run
     def run(self, in_path: str, out_path: str) -> Counters:
         """Score ``in_path`` and write one prediction line per record."""
@@ -1087,9 +1185,13 @@ class BayesianPredictor:
         delim = self.config.field_delim_out()
         raw_lines = list(read_lines(in_path))
         records = [split_line(l, delim_regex) for l in raw_lines]
-        _, _, probs, feat_prior, feat_post = self.score(records)
-        cls_ord = self.schema.class_attr_field().ordinal
-        actuals = [r[cls_ord] for r in records]
+        if not self.tabular:
+            probs, feat_prior, feat_post = self.score_text(records)
+            actuals = [items[1] for items in records]
+        else:
+            _, _, probs, feat_prior, feat_post = self.score(records)
+            cls_ord = self.schema.class_attr_field().ordinal
+            actuals = [r[cls_ord] for r in records]
         out = self.emit_lines(raw_lines, records, actuals, probs, feat_prior,
                               feat_post, delim, counters)
         write_output(out_path, out)

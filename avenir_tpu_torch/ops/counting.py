@@ -9,7 +9,10 @@ kernel K2 (``ops.histogram``); on a CPU tensor their plain PyTorch
 versions run.  The TPU package's choice between an einsum, the Pallas
 kernel and a scatter was a TPU decision and has no counterpart here.
 ``sharded_reduce`` runs a count over the positions of a device mesh and
-sums the tables, as the reference's ``shard_map`` + ``psum`` does.
+sums the tables, as the reference's ``shard_map`` + ``psum`` does;
+``sharded_ngram_counts`` counts the sliding windows of one long symbol
+stream cut into one chunk per position, each chunk reading the head of
+the next through a halo.
 
 Drop contract (shared by every function here): an element whose index is
 out of range, or whose row is masked, adds nothing.
@@ -138,3 +141,92 @@ def sharded_reduce_resident(local_fn: Callable, *row_arrays, mask, mesh,
     if isinstance(first, dict):
         return {key: psum([o[key] for o in outs])[0] for key in first}
     return type(first)(psum(list(parts))[0] for parts in zip(*outs))
+
+
+def _ngram_windows(chunk: torch.Tensor, halo: torch.Tensor, w: int):
+    """The ``w`` columns of every window that starts in ``chunk``: column
+    ``i`` is the chunk shifted left by ``i`` with the halo after it."""
+    ext = torch.cat([chunk, halo])
+    n = chunk.shape[0]
+    return tuple(ext[i:i + n] for i in range(w))
+
+
+def _ngram_local(chunk, halo, sg, sg_halo, vocab_size: int, w: int,
+                 n_seg: int) -> torch.Tensor:
+    """One chunk's window counts (the reference's ``local``,
+    ``counting.py:316-331``): a window holding a token < 0 adds nothing;
+    with segment ids (``sg``) every token of a window must share one
+    segment, which becomes the table's leading index."""
+    cols = _ngram_windows(chunk, halo, w)
+    if sg is None:
+        return count_table((vocab_size,) * w, cols)
+    scols = _ngram_windows(sg, sg_halo, w)
+    same = torch.ones_like(scols[0], dtype=torch.bool)
+    for sc in scols[1:]:
+        same &= sc == scols[0]
+    return count_table((n_seg,) + (vocab_size,) * w, (scols[0],) + cols,
+                       mask=same)
+
+
+def sharded_ngram_counts(stream, vocab_size: int, w: int, seg=None,
+                         n_seg: int = 1, device: Optional[torch.device] = None,
+                         mesh=None) -> torch.Tensor:
+    """Counts of every length-``w`` window of one long symbol stream: the
+    dense int32 ``[vocab_size] * w`` table (``[n_seg] + [vocab_size] * w``
+    with ``seg``).
+
+    Tokens < 0 (the -1 that separates sessions, and the padding) void
+    every window that holds one.  With ``seg``, an int32 segment id per
+    token, a window counts only when all its tokens share one segment,
+    under that segment's index.
+
+    With ``device``: the whole stream is one chunk on that device, so the
+    windows are plain sliding windows.  With ``mesh`` (the reference's
+    form, ``counting.py:249``): the stream, padded with -1, is cut into
+    one chunk of ``max(ceil(L / d), w)`` tokens per mesh position, in the
+    row-major order of ``('data', 'model')``; each position counts the
+    windows that START in its chunk, reading the first ``w - 1`` tokens
+    (and segment ids) of the next position's chunk as its halo through
+    one ``ppermute_ring`` hop, and the last position's halo is -1.  The
+    tables are summed by the mesh's ``psum`` onto its first device, where
+    the result lies."""
+    if (device is None) == (mesh is None):
+        raise ValueError("pass exactly one of device and mesh")
+    d = 1 if mesh is None else mesh.size
+    stream = np.asarray(stream, dtype=np.int32)
+    L = stream.shape[0]
+    chunk_len = max(-(-max(L, 1) // d), w)
+    padded = np.full(d * chunk_len, -1, dtype=np.int32)
+    padded[:L] = stream
+    segged = seg is not None
+    if segged:
+        seg_p = np.full(d * chunk_len, -1, dtype=np.int32)
+        seg_p[:L] = np.asarray(seg, dtype=np.int32)
+    if mesh is None:
+        chunks = [torch.from_numpy(padded).to(device)]
+        segs = [torch.from_numpy(seg_p).to(device)] if segged else [None]
+    else:
+        from ..parallel.mesh import shard_rows
+        chunks = shard_rows(padded, mesh, ("data", "model"))
+        segs = (shard_rows(seg_p, mesh, ("data", "model")) if segged
+                else [None] * d)
+    # the halo: the next position's head, one ring hop away; the last
+    # position's wraps to the stream's head and is voided to -1
+    heads = [torch.stack([c[:w - 1], s[:w - 1]]) if segged else c[:w - 1]
+             for c, s in zip(chunks, segs)]
+    if mesh is None:
+        halos = [torch.full_like(heads[0], -1)]
+    else:
+        from ..parallel.mesh import ppermute_ring
+        halos = ppermute_ring(heads)
+        halos[-1] = torch.full_like(halos[-1], -1)
+    outs = []
+    for c, s, h in zip(chunks, segs, halos):
+        if segged:
+            outs.append(_ngram_local(c, h[0], s, h[1], vocab_size, w, n_seg))
+        else:
+            outs.append(_ngram_local(c, h, None, None, vocab_size, w, n_seg))
+    if mesh is None:
+        return outs[0]
+    from ..parallel.mesh import psum
+    return psum(outs)[0]

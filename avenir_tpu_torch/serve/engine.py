@@ -15,9 +15,12 @@ line the batch predictor would have written for the same row:
   the device + its gather and ordered log-odds sum, bucketed on rows and
   on sequence length.
 
-The reference's ``decisionTree`` and ``banditDecision`` kinds are not
-ported yet: a model of one of those kinds is refused at load
-(:data:`UNPORTED_KINDS`), never skipped.
+- ``decisionTree``      — the tree builder's ``DecisionPathList``: each
+  record routed to its first leaf path by one predicate matrix a batch
+  (host NumPy, ``models.split``), as the reference's adapter (copied).
+
+The reference's ``banditDecision`` kind is not ported yet: such a model
+is refused at load (:data:`UNPORTED_KINDS`), never skipped.
 
 Every adapter computes on one explicit ``torch.device`` (``cuda:0``
 unless the caller asks for the CPU); a ``None`` device resolves to the
@@ -633,13 +636,110 @@ class MarkovClassifierAdapter(ModelAdapter):
         return results
 
 
+# ---------------------------------------------------------------------------
+# Decision-path (tree) evaluation
+# ---------------------------------------------------------------------------
+
+class DecisionTreeAdapter(ModelAdapter):
+    """Routes each record down the trained ``DecisionPathList`` (the tree
+    builder's JSON checkpoint): a record's response is the first leaf path
+    whose every predicate it satisfies — ``id, pathStr, population,
+    infoContent`` — evaluated as one vectorized predicate matrix per batch
+    (host NumPy; decision paths are tiny, so this path never compiles)."""
+
+    KIND = "decisionTree"
+
+    def __init__(self, config: JobConfig, counters: Counters, **kw):
+        super().__init__(config, counters, **kw)
+        from ..core.schema import FeatureSchema
+        from ..models.split import AttributePredicate
+        from ..models.tree import ROOT_PATH, DecisionPathList
+
+        self.schema = FeatureSchema.from_file(
+            config.must("feature.schema.file.path"))
+        self.dpl = DecisionPathList.from_file(
+            config.must("decision.file.path"))
+        if not self.dpl.paths:
+            raise ValueError("decision path list is empty")
+        self.id_ord = (self.schema.id_field().ordinal
+                       if self.schema.id_field() is not None else 0)
+        # unique predicates across all leaves -> one evaluation column each
+        self._pred_index: Dict[str, int] = {}
+        self._preds = []
+        self._leaf_pred_cols: List[List[int]] = []
+        for p in self.dpl.paths:
+            cols = []
+            for ps in p.predicate_strs:
+                if ps == ROOT_PATH:
+                    continue
+                k = self._pred_index.get(ps)
+                if k is None:
+                    k = len(self._preds)
+                    self._pred_index[ps] = k
+                    attr = int(ps.split()[0])
+                    self._preds.append(AttributePredicate.parse(
+                        ps, self.schema.field_by_ordinal(attr)))
+                cols.append(k)
+            self._leaf_pred_cols.append(cols)
+        self._attrs = sorted({p.attr for p in self._preds})
+        self._min_fields = max(
+            [self.id_ord] + [p.attr for p in self._preds]) + 1
+
+    def predict_lines(self, lines: List[str]) -> List[Optional[str]]:
+        from ..models.split import predicate_matrix
+        from ..models.tree import _column
+
+        records = self._split(lines)
+        ok = [i for i, r in enumerate(records)
+              if len(r) >= self._min_fields]
+        results: List[Optional[str]] = [None] * len(lines)
+        if not ok:
+            return results
+        recs = [records[i] for i in ok]
+        try:
+            col_by_attr = {a: _column(recs, self.schema.field_by_ordinal(a))
+                           for a in self._attrs}
+        except ValueError:
+            return self._predict_rowwise(lines, records, ok, results)
+        bmat = predicate_matrix(self._preds, col_by_attr)
+        for j, i in enumerate(ok):
+            results[i] = self._route(recs[j], bmat[j])
+        return results
+
+    def _predict_rowwise(self, lines, records, ok, results):
+        """Per-row fallback when one record's numeric field fails to parse
+        (so one malformed row cannot fail its whole micro-batch)."""
+        from ..models.split import predicate_matrix
+        from ..models.tree import _column
+
+        for i in ok:
+            rec = records[i]
+            try:
+                col_by_attr = {
+                    a: _column([rec], self.schema.field_by_ordinal(a))
+                    for a in self._attrs}
+            except ValueError:
+                continue
+            bmat = predicate_matrix(self._preds, col_by_attr)
+            results[i] = self._route(rec, bmat[0])
+        return results
+
+    def _route(self, rec: List[str], brow: np.ndarray) -> Optional[str]:
+        for leaf, cols in zip(self.dpl.paths, self._leaf_pred_cols):
+            if all(brow[k] for k in cols):
+                return self.delim.join(
+                    [rec[self.id_ord], leaf.path_str, str(leaf.population),
+                     repr(leaf.info_content)])
+        return None
+
+
 ADAPTER_KINDS: Dict[str, type] = {
     cls.KIND: cls for cls in (NaiveBayesAdapter, NearestNeighborAdapter,
-                              MarkovClassifierAdapter)}
+                              MarkovClassifierAdapter, DecisionTreeAdapter)}
 
-#: the reference's other adapter kinds, refused at load until their
-#: models are ported
-UNPORTED_KINDS = ("decisionTree", "banditDecision")
+#: the reference's other adapter kind, refused at load until its model is
+#: ported
+UNPORTED_KINDS = ("banditDecision",)
 
 
 def adapter_class(kind: str) -> type:

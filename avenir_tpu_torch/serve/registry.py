@@ -4,7 +4,7 @@ Configuration surface (all in the one ``serve.properties`` the CLI loads;
 see resource/serving/ for a complete runbook):
 
     serve.models=churn,segments            # models to load at startup
-    serve.model.<name>.kind=naiveBayes|nearestNeighbor|markovClassifier
+    serve.model.<name>.kind=naiveBayes|nearestNeighbor|markovClassifier|decisionTree
     serve.model.<name>.version=1           # optional, default "1"
     serve.model.<name>.conf=<job.properties>   # the model's OWN job config
     serve.model.<name>.<key>=<value>       # inline overrides of that config
@@ -13,8 +13,8 @@ see resource/serving/ for a complete runbook):
     serve.model.<name>.variant.<v>.latency.class=fast|standard
     serve.model.<name>.variant.<v>.accuracy.class=standard|parity
 
-The reference's ``decisionTree`` and ``banditDecision`` kinds are
-refused at load: they are not ported yet (engine.UNPORTED_KINDS).
+The reference's ``banditDecision`` kind is refused at load: it is not
+ported yet (engine.UNPORTED_KINDS).
 
 Variants (INFaaS-style, PAPERS.md) are alternative scorer builds of the
 SAME artifact — ``f32``/``f64`` are built-in presets for the NB and

@@ -88,14 +88,41 @@ path on the card and again on the CPU:
    churn_markov model as a ``markovClassifier`` in f32 and f64 variants,
    16 concurrent single-row clients and batch requests of 1-64 rows, each
    response byte-identical to the batch classifier's line, no scorer
-   built after warmup.  Phases 7-10 launch no kernel of the port but K1
-   (the NB runbooks' training); each prints its host-clock times and a
-   ``torch.profiler`` device-busy and idle share.
+   built after warmup;
+11. ``mi_corr``: ``resource/hosp_readmit_mi``, ``resource/churn_cramer``
+   and ``resource/correlation_suite``'s two correlation legs through the
+   command line, then bench.py:840's shared-scan cell (400,000 churn rows,
+   the all-binned schema): MI monolithic (one K1 launch), streamed in
+   65,536-row chunks writing the ingest cache (one K1 launch a chunk) and
+   warm off it, and Cramer;
+12. ``tree``: ``resource/decision_tree`` (three levels) and
+   ``resource/retarget_tree`` through the command line (``decpath.json``,
+   every level's records, the ``split=.../segment=...`` tree), bench.py:1327's
+   level pass at full width (2,000,000 rows x 64 predicates x 8 paths x 2
+   classes; its first 200,000 rows against the CPU, its total against the
+   closed form), ``DecisionTreeBuilder`` streamed over 1,000,000 retarget
+   rows, and ``serve_tree``: the runbook's tree as a ``decisionTree`` model
+   behind ``python -m avenir_tpu_torch serve``, 16 single-row clients and
+   batches of 1-64, each response equal to the CPU route;
+13. ``pst``: ``resource/visit_pst``, then 200,000 visit rows (windows 2-4)
+   on cuda:0, on a mesh of [cuda:0] * 4 (the halo) and on the CPU;
+14. ``text``: ``resource/word_count`` and ``resource/text_classify``, then
+   200,000 text rows: NB text training (one K1 launch at F = 1), scoring
+   and ``WordCounter``; K1 is held to its plain version at the text shape
+   (the runbook's 22 tokens, and 2,000,000 tokens over a 40,000-token
+   vocabulary, the cluster route);
+15. ``regress``: ``resource/logistic_regression``'s loop (the same
+   iteration as the CPU, histories within rtol 1e-9), then gen.py's rows at
+   1,000,000 for 10 iterations on one resident batch, with the seconds per
+   iteration.  Phases 7-15 launch no kernel of the port but K1 (the NB
+   runbooks' training, MI, NB text training); each prints its host-clock
+   times and a ``torch.profiler`` device-busy and idle share.
 
 Kernel counts (and the native encoder's call count) are set to 0 just
 before each path and read just after.
 Outputs must be byte-identical between the card and the CPU (phases 7-9
-compare every output), except kNN
+and 11-14 compare every output; the regression's float64 histories agree
+within rtol 1e-9, the reference's own tolerance), except kNN
 pair lines whose distance lands on an int-scale rounding boundary: those
 may differ by one unit, and a float64 oracle must confirm them.
 
@@ -355,15 +382,17 @@ def run_histogram_case(torch, histogram, kid, tag, C, B, widths,
     n, F = x.shape
     dev = x.device
 
+    k1 = widths is None
+
     def call(x, y, mask, out=None):
-        if kid == "K1":
+        if k1:
             return histogram.wide_feature_class_counts(x, y, C, B, mask=mask,
                                                        out=out)
         return histogram.wide_feature_class_counts_rawbin(
             x, y, C, B, widths, mask=mask, out=out)
 
     kern = lambda out=None: call(x, y, mask, out)
-    if kid == "K1":
+    if k1:
         plain = lambda: histogram.plain_feature_class_counts(x, y, C, B, mask)
         binned = x.long()
         name = "wide_feature_class_counts"
@@ -407,7 +436,7 @@ def run_histogram_case(torch, histogram, kid, tag, C, B, widths,
                                        50, "histogram_kernel")
     plan = histogram.histogram_plan(
         n, F, C, B, x.element_size(),
-        *histogram._device_info(dev.index), rawbin=kid == "K2")
+        *histogram._device_info(dev.index), rawbin=not k1)
     table = histogram.ROUTES[plan.route] + (
         f" of {plan.cluster} blocks" if plan.cluster > 1 else "")
     plain_ms = time_ms(plain, 5)
@@ -423,7 +452,7 @@ def run_histogram_case(torch, histogram, kid, tag, C, B, widths,
     masked = ", mask" if mask is not None else ""
     del x, y, mask, got, want, binned, key, valid, acc, one
     torch.cuda.empty_cache()
-    return {"name": f"{kid} {name} [{tag}: n={n} F={F} C={C} B={B} "
+    return {"name": f"{kid[:2]} {name} [{tag}: n={n} F={F} C={C} B={B} "
                     f"{dtype}{masked}]",
             "route": "cuda", "source": COUNT_KERNEL[0],
             "replaces": COUNT_KERNEL[1], "kid": kid,
@@ -3013,6 +3042,828 @@ def serve_markov_profiled(torch, conf, test, batch, card) -> None:
         srv.stop()
 
 
+# ---------------------------------------------------------------------------
+# the count-table family: MI and correlations, the tree, the PST, text, LR
+# ---------------------------------------------------------------------------
+
+MI_BOOK = os.path.join(ROOT, "resource", "hosp_readmit_mi")
+CRAMER_BOOK = os.path.join(ROOT, "resource", "churn_cramer")
+SUITE_BOOK = os.path.join(ROOT, "resource", "correlation_suite")
+DTB_BOOK = os.path.join(ROOT, "resource", "decision_tree")
+RT_BOOK = os.path.join(ROOT, "resource", "retarget_tree")
+PST_BOOK = os.path.join(ROOT, "resource", "visit_pst")
+WC_BOOK = os.path.join(ROOT, "resource", "word_count")
+TC_BOOK = os.path.join(ROOT, "resource", "text_classify")
+LR_BOOK = os.path.join(ROOT, "resource", "logistic_regression")
+# bench.py:822-880's shared-scan cell: 400,000 churn rows (50,000 seeded
+# rows repeated), the all-binned schema, 65,536-row chunks
+SHARED_ROWS, SHARED_CHUNK = 400_000, 65_536
+SHARED_SCAN_SCHEMA = {"fields": [
+    {"name": "id", "ordinal": 0, "id": True, "dataType": "string"},
+    {"name": "plan", "ordinal": 1, "dataType": "categorical",
+     "feature": True, "cardinality": ["planA", "planB"]},
+    {"name": "minUsed", "ordinal": 2, "dataType": "int", "feature": True,
+     "min": 0, "max": 2200, "bucketWidth": 200},
+    {"name": "dataUsed", "ordinal": 3, "dataType": "int", "feature": True,
+     "min": 0, "max": 1000, "bucketWidth": 100},
+    {"name": "csCall", "ordinal": 4, "dataType": "int", "feature": True,
+     "min": 0, "max": 14, "bucketWidth": 2},
+    {"name": "csEmail", "ordinal": 5, "dataType": "int", "feature": True,
+     "min": 0, "max": 22, "bucketWidth": 4},
+    {"name": "network", "ordinal": 6, "dataType": "int", "feature": True,
+     "min": 0, "max": 12, "bucketWidth": 2},
+    {"name": "churned", "ordinal": 7, "dataType": "categorical",
+     "cardinality": ["N", "Y"]}]}
+# bench.py:1327's level pass at full width; its CPU comparison's rows
+LEVEL_N, LEVEL_PATHS, LEVEL_PREDS, LEVEL_CLASSES = 2_000_000, 8, 64, 2
+LEVEL_CPU_ROWS = 200_000
+DTB_STREAM_ROWS, DTB_STREAM_CHUNK = 1_000_000, 65_536
+TREE_SERVE_ROWS = 200
+PST_ROWS, TEXT_ROWS = 200_000, 200_000
+TEXT_TRAIN = 160_000                 # the rest are scored
+TEXT_WIDE_N, TEXT_WIDE_V = 2_000_000, 40_000   # K1's cluster-route text case
+LR_ROWS, LR_ITERS, LR_RTOL = 1_000_000, 10, 1e-9
+
+
+def on_both(fn) -> dict:
+    """``fn(dev)`` on the card and on the CPU; each result and its
+    host-clock seconds."""
+    out, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        t = time.perf_counter()
+        out[dev] = fn(dev)
+        secs[dev] = time.perf_counter() - t
+    return out, secs
+
+
+def same_on_both(label, out) -> None:
+    if out["cuda"] != out["cpu"]:
+        bad = ([k for k in out["cuda"] if out["cuda"][k] != out["cpu"][k]]
+               if isinstance(out["cuda"], dict) else label)
+        raise AssertionError(f"{label}: card and CPU outputs differ: {bad}")
+
+
+def dir_bytes(root: str) -> dict:
+    """Every file under ``root``: relative path -> bytes."""
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            p = os.path.join(d, f)
+            out[os.path.relpath(p, root)] = open(p, "rb").read()
+    return out
+
+
+def mi_corr_runbooks(work: str, dev: str) -> dict:
+    """``resource/hosp_readmit_mi``, ``resource/churn_cramer`` and the two
+    correlation legs of ``resource/correlation_suite`` through the command
+    line; every output's bytes."""
+    from avenir_tpu_torch import datagen
+
+    dv = ["--device", dev]
+    with in_dir(work):
+        shutil.copy(os.path.join(MI_BOOK, "hosp_readmit.json"), work)
+        shutil.copy(os.path.join(CRAMER_BOOK, "churn.json"), work)
+        datagen.main(["hosp_readmit", "6000", "--seed", "13",
+                      "--out", "work/hosp/part-00000"])
+        run_job(["MutualInformation", f"-Dconf.path={MI_BOOK}/mi.properties",
+                 "work/hosp", "work/mi"] + dv)
+        datagen.main(["telecom_churn", "3000", "--seed", "29",
+                      "--out", "work/churn/part-00000"])
+        run_job(["CramerCorrelation",
+                 f"-Dconf.path={CRAMER_BOOK}/cramer.properties",
+                 "work/churn", "work/cramer"] + dv)
+        run_job(["NumericalCorrelation",
+                 f"-Dconf.path={SUITE_BOOK}/numerical.properties",
+                 "work/churn", "work/num"] + dv)
+        run_job(["HeterogeneityReductionCorrelation",
+                 f"-Dconf.path={SUITE_BOOK}/hetero.properties",
+                 "work/churn", "work/het"] + dv)
+        return {k: read_bytes(f"work/{k}")
+                for k in ("mi", "cramer", "num", "het")}
+
+
+def mi_corr_paths(torch, histogram, card) -> tuple:
+    """The MI and correlation runbooks on the card and on the CPU, then
+    bench.py's shared-scan cell: MI monolithic, streamed in 65,536-row
+    chunks writing the ingest cache, and warm off it; Cramer monolithic;
+    card against CPU, K1's launches per MI run.  Returns the main path's
+    K1 launches and the MI shape's histogram case."""
+    import numpy as np
+
+    from avenir_tpu_torch.core.binning import DatasetEncoder
+    from avenir_tpu_torch.core.schema import FeatureSchema
+    from avenir_tpu_torch.datagen import gen_telecom_churn
+
+    w = os.path.join(WORK, "mi_corr")
+    histogram.reset_launch_counts()      # the CPU runs launch no kernel
+    rb, secs = on_both(lambda dev: mi_corr_runbooks(
+        os.path.join(w, f"runbook_{dev}"), dev))
+    runbook_k1 = histogram.K1_LAUNCHES
+    same_on_both("MI / correlation runbooks", rb)
+    if runbook_k1 != 1:
+        raise AssertionError(f"the MI runbook launched K1 {runbook_k1} "
+                             f"times, not once")
+    log(f"hosp_readmit_mi, churn_cramer and correlation_suite's two legs "
+        f"through the CLI: cuda {secs['cuda']:.3f} s, cpu "
+        f"{secs['cpu']:.3f} s; {len(rb['cuda'])} outputs byte-equal; MI's "
+        f"K1 launches 1 [{card}]")
+
+    # the shared-scan cell
+    t = time.perf_counter()
+    base = "".join(",".join(r) + "\n" for r in gen_telecom_churn(50_000,
+                                                                 seed=5))
+    inp = write_part(os.path.join(w, "shared_in"),
+                     (base * (SHARED_ROWS // 50_000)).encode())
+    schema = os.path.join(w, "shared.json")
+    with open(schema, "w") as fh:
+        json.dump(SHARED_SCAN_SCHEMA, fh)
+    log(f"shared-scan cell: {SHARED_ROWS} churn rows written in "
+        f"{time.perf_counter() - t:.3f} s")
+    mi = ["MutualInformation", f"-Dfeature.schema.file.path={schema}"]
+    cache = [f"-Dpipeline.chunk.rows={SHARED_CHUNK}",
+             "-Dingest.cache.enable=true",
+             f"-Dingest.cache.dir={os.path.join(w, 'ingestcache')}"]
+    cramer = ["CramerCorrelation", f"-Dfeature.schema.file.path={schema}",
+              "-Dsource.attributes=1", "-Ddest.attributes=7"]
+    runs = [("MI monolithic", mi, 1), ("MI streamed cold", mi + cache, 7),
+            ("MI streamed warm", mi + cache, 7), ("Cramer", cramer, 0)]
+    got, times, k1 = {}, {}, {}
+    for label, argv, want_k1 in runs:
+        out = os.path.join(w, label.replace(" ", "_"))
+        histogram.reset_launch_counts()
+        t = time.perf_counter()
+        run_job(argv + [inp, out, "--device", "cuda"])
+        times[label] = time.perf_counter() - t
+        k1[label] = histogram.K1_LAUNCHES
+        got[label] = read_bytes(out)
+        if k1[label] != want_k1:
+            raise AssertionError(f"{label}: {k1[label]} K1 launches, not "
+                                 f"{want_k1}")
+    for label in ("MI streamed cold", "MI streamed warm"):
+        if got[label] != got["MI monolithic"]:
+            raise AssertionError(f"{label}'s bytes differ from the "
+                                 f"monolithic run's")
+    cpu = {}
+    for label, argv, _ in (runs[0], runs[3]):
+        out = os.path.join(w, "cpu_" + label.replace(" ", "_"))
+        t = time.perf_counter()
+        run_job(argv + [inp, out, "--device", "cpu"])
+        times["cpu " + label] = time.perf_counter() - t
+        cpu[label] = read_bytes(out)
+        if cpu[label] != got[label]:
+            raise AssertionError(f"{label}: card and CPU outputs differ")
+    log("shared-scan cell on cuda:0 (every MI run's bytes equal, and equal "
+        "to the CPU's): " + "; ".join(
+            f"{label} {times[label]:.3f} s ({SHARED_ROWS / times[label]:.0f} "
+            f"rows/s, K1 {k1[label]})" for label, _, _ in runs)
+        + f"; cpu MI {times['cpu MI monolithic']:.3f} s, Cramer "
+        f"{times['cpu Cramer']:.3f} s [{card}]")
+    prof_out = os.path.join(w, "MI_profiled")
+    by_kind, wall_s = profile_device(torch, lambda: run_job(
+        mi + [inp, prof_out, "--device", "cuda"]),
+        {"histogram kernel": "histogram_kernel", "pair count": "index"})
+    report_phase(f"MI monolithic ({SHARED_ROWS} rows)", by_kind, wall_s,
+                 "histogram kernel", card)
+
+    # K1's case at the MI job's own call: the encoded 400,000 rows
+    enc = DatasetEncoder(FeatureSchema.from_file(schema))
+    ds = enc.encode_path(inp, ",")
+    C, B = len(ds.class_vocab), max(ds.num_bins)
+    x, y = np.ascontiguousarray(ds.x), np.ascontiguousarray(ds.y)
+    case = ("K1mi", "MI monolithic call (bench.py:840 cell)", C, B, None,
+            lambda: (torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda(),
+                     None))
+    return {"K1mi": k1["MI monolithic"]}, case
+
+
+def tree_runbooks(work: str, dev: str) -> dict:
+    """``resource/decision_tree`` (three levels) and
+    ``resource/retarget_tree`` through the command line; every file they
+    write."""
+    from avenir_tpu_torch import datagen
+
+    dv = ["--device", dev]
+    with in_dir(work):
+        shutil.copy(os.path.join(DTB_BOOK, "retarget.json"), work)
+        datagen.main(["retarget", "2000", "--seed", "31",
+                      "--out", "work/lvl0in/part-00000"])
+        src = "work/lvl0in"
+        for lvl in range(3):
+            run_job(["DecisionTreeBuilder",
+                     f"-Dconf.path={DTB_BOOK}/dtb.properties", src,
+                     f"work/lvl{lvl + 1}"] + dv)
+            src = f"work/lvl{lvl + 1}"
+        node = "work/campaign/split=root/data"
+        datagen.main(["retarget", "4000", "--seed", "31",
+                      "--out", f"{node}/partition.txt"])
+        run_job(["ClassPartitionGenerator",
+                 f"-Dconf.path={RT_BOOK}/root.properties", node,
+                 "work/rootout"] + dv)
+        with open("work/rootout/part-r-00000") as fh:
+            parent = fh.readline().strip()
+        run_job(["SplitGenerator", f"-Dconf.path={RT_BOOK}/splitgen.properties",
+                 f"-Dparent.info={parent}", "-", "-"] + dv)
+        run_job(["DataPartitioner", f"-Dconf.path={RT_BOOK}/dp.properties",
+                 "-", "-"] + dv)
+        return dir_bytes("work")
+
+
+def write_retarget(n: int, seed: int) -> bytes:
+    """``n`` rows of the retarget generator's distribution
+    (``datagen.gen_retarget``: customer id, one of nine retarget types,
+    cart amount 20-320, converted at the type's planted rate), drawn in
+    bulk."""
+    import numpy as np
+
+    from avenir_tpu_torch.datagen import RETARGET_CONVERSION
+
+    rng = np.random.default_rng(seed)
+    types = np.asarray(list(RETARGET_CONVERSION))
+    rate = np.asarray(list(RETARGET_CONVERSION.values()))
+    cust = 1_000_000 + rng.integers(0, 1_000_000, n)
+    t = rng.integers(0, 9, n)
+    conv = np.where(rng.integers(1, 101, n) < rate[t], "Y", "N")
+    amount = 20 + rng.integers(0, 301, n)
+    return "".join(f"{c},{ty},{a},{v}\n" for c, ty, a, v in
+                   zip(cust.tolist(), types[t].tolist(), amount.tolist(),
+                       conv.tolist())).encode()
+
+
+def level_pass(torch, card) -> None:
+    """bench.py:1327's level pass at full width: the (path, predicate,
+    class) count over 2,000,000 rows x 64 predicates x 8 paths x 2
+    classes on the card, its first 200,000 rows against the port's CPU
+    answer, and its total against the closed form (every row counts once
+    per satisfied predicate)."""
+    from avenir_tpu_torch.models.tree import _path_pred_class_count_local
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    path_id = torch.randint(0, LEVEL_PATHS, (LEVEL_N,), generator=g,
+                            device="cuda", dtype=torch.int32)
+    y = torch.randint(0, LEVEL_CLASSES, (LEVEL_N,), generator=g,
+                      device="cuda", dtype=torch.int32)
+    bmat = torch.rand((LEVEL_N, LEVEL_PREDS), generator=g,
+                      device="cuda") < 0.5
+    args = (LEVEL_PATHS, LEVEL_PREDS, LEVEL_CLASSES)
+    run = lambda: _path_pred_class_count_local(path_id, y, bmat, None, *args)
+    got = run()
+    if int(got.sum()) != int(bmat.sum()):
+        raise AssertionError("the level pass's total is not the closed "
+                             "form's")
+    m = LEVEL_CPU_ROWS
+    part = _path_pred_class_count_local(path_id[:m], y[:m], bmat[:m], None,
+                                        *args)
+    cpu = _path_pred_class_count_local(path_id[:m].cpu(), y[:m].cpu(),
+                                       bmat[:m].cpu(), None, *args)
+    if not torch.equal(part.cpu(), cpu):
+        raise AssertionError("the level pass's first 200,000 rows differ "
+                             "from the CPU's")
+    ms = time_ms(run, 5)
+    try:
+        device = f"{kernel_device_ms(run, 3, 'index'):.4f} ms"
+    except AssertionError:
+        device = "not measured (the profiler kept no index_add_ event)"
+    log(f"tree level pass (bench.py:1327, {LEVEL_N} x {LEVEL_PREDS} "
+        f"predicates x {LEVEL_PATHS} paths x {LEVEL_CLASSES} classes, "
+        f"count_table): call {ms:.4f} ms ({LEVEL_N / ms * 1e3:.0f} rows/s), "
+        f"index_add_ device {device}; total = closed form, first {m} rows "
+        f"= CPU [{card}]")
+    by_kind, wall_s = profile_device(torch, lambda: [run() for _ in range(3)],
+                                     {"count (index_add_)": "index"})
+    report_phase("tree level pass x3", by_kind, wall_s, "count (index_add_)",
+                 card)
+    del path_id, y, bmat, got
+    torch.cuda.empty_cache()
+
+
+def tree_streamed(torch, card) -> None:
+    """``DecisionTreeBuilder`` streamed over 1,000,000 retarget rows: the
+    runbook's configuration with ``cartAmount`` the only feature (a level
+    split on ``retargetType`` writes each row once for every satisfied
+    predicate of its 255 two-group partitions), the root level on the
+    card, then the first level streamed in 65,536-row chunks on the card
+    and on the CPU from the same root: the decision file and the level's
+    records byte-equal."""
+    w = os.path.join(WORK, "tree_stream")
+    os.makedirs(w)
+    t = time.perf_counter()
+    inp = write_part(os.path.join(w, "in"),
+                     write_retarget(DTB_STREAM_ROWS, 31))
+    with open(os.path.join(DTB_BOOK, "retarget.json")) as fh:
+        schema = json.load(fh)
+    schema["fields"][1]["feature"] = False
+    spath = os.path.join(w, "retarget_amount.json")
+    with open(spath, "w") as fh:
+        json.dump(schema, fh)
+    gen_s = time.perf_counter() - t
+    argv = ["DecisionTreeBuilder", f"-Dconf.path={DTB_BOOK}/dtb.properties",
+            f"-Dfeature.schema.file.path={spath}",
+            f"-Dpipeline.chunk.rows={DTB_STREAM_CHUNK}"]
+    root_dec = os.path.join(w, "root.json")
+    t = time.perf_counter()
+    run_job(argv + [f"-Ddecision.file.path={root_dec}", inp,
+                    os.path.join(w, "root"), "--device", "cuda"])
+    root_s = time.perf_counter() - t
+    got, secs, text = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        dec = os.path.join(w, f"{dev}.json")
+        shutil.copy(root_dec, dec)
+        out = os.path.join(w, f"level1_{dev}")
+
+        def level():
+            text[dev] = run_job(argv + [f"-Ddecision.file.path={dec}",
+                                        os.path.join(w, "root"), out,
+                                        "--device", dev])
+        t = time.perf_counter()
+        if dev == "cuda":       # the card's run is the profiled one
+            by_kind, wall_s = profile_device(
+                torch, level, {"count (index_add_)": "index"})
+        else:
+            level()
+        secs[dev] = time.perf_counter() - t
+        got[dev] = (open(dec, "rb").read(), read_bytes(out))
+    lines = counter(text["cuda"], "Stats", "output records")
+    if got["cuda"] != got["cpu"]:
+        raise AssertionError("the streamed level's card and CPU outputs "
+                             "differ")
+    log(f"DecisionTreeBuilder streamed over {DTB_STREAM_ROWS} rows (data "
+        f"{gen_s:.3f} s): root level on cuda {root_s:.3f} s; first level "
+        f"in {DTB_STREAM_CHUNK}-row chunks cuda {secs['cuda']:.3f} s "
+        f"({DTB_STREAM_ROWS / secs['cuda']:.0f} rows/s), cpu "
+        f"{secs['cpu']:.3f} s; {lines} records out; decision file and "
+        f"records byte-equal [{card}]")
+    report_phase("streamed tree level", by_kind, wall_s,
+                 "count (index_add_)", card)
+
+
+def serve_tree(torch, card, decpath: str) -> None:
+    """``python -m avenir_tpu_torch serve`` with the decision_tree
+    runbook's tree as a ``decisionTree`` model (two replicas on cuda:0,
+    batches to 64): 200 fresh retarget rows from 16 single-row clients,
+    then batch requests of 1-64 rows; every response equal to the CPU
+    route (the adapter on the CPU, in process)."""
+    import re
+    import signal
+
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.core.metrics import Counters
+    from avenir_tpu_torch.datagen import gen_retarget
+    from avenir_tpu_torch.serve.engine import DecisionTreeAdapter
+
+    w = os.path.join(WORK, "serve_tree")
+    os.makedirs(w)
+    schema = os.path.join(DTB_BOOK, "retarget.json")
+    test = [",".join(r) for r in gen_retarget(TREE_SERVE_ROWS, seed=5)]
+    cpu_route = DecisionTreeAdapter(JobConfig({
+        "feature.schema.file.path": schema, "decision.file.path": decpath}),
+        Counters(), device="cpu")
+    want = cpu_route.predict_lines(test)
+    if sum(x is not None for x in want) < TREE_SERVE_ROWS // 2:
+        raise AssertionError("the tree routes too few of the test rows")
+    conf = os.path.join(w, "serve.properties")
+    with open(conf, "w") as fh:
+        fh.write("serve.models=tree\nserve.model.tree.kind=decisionTree\n"
+                 f"serve.model.tree.feature.schema.file.path={schema}\n"
+                 f"serve.model.tree.decision.file.path={decpath}\n"
+                 "serve.pool.replicas=2\nserve.batch.max.size=64\n"
+                 "serve.batch.max.delay.ms=2\nserve.queue.max.depth=256\n")
+    log_path = os.path.join(w, "server.log")
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t_start = time.perf_counter()
+    with open(log_path, "w") as log_fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "avenir_tpu_torch", "serve",
+             f"-Dconf.path={conf}", "-Dserve.port=0"], cwd=w, env=env,
+            stdout=log_fh, stderr=subprocess.STDOUT)
+    try:
+        port = None
+        while port is None:
+            if proc.poll() is not None:
+                raise AssertionError(f"serve exited {proc.returncode}: "
+                                     + open(log_path).read()[-2000:])
+            if time.perf_counter() - t_start > 180:
+                raise AssertionError("serve did not come up in 180 s")
+            m = re.search(r"serving .* on ([\w.]+):(\d+)",
+                          open(log_path).read())
+            port = int(m.group(2)) if m else None
+            time.sleep(0.1)
+        up_s = time.perf_counter() - t_start
+        stats = request(port, {"cmd": "stats"})
+        devices = [r["device"] for v in
+                   stats["models"]["tree"]["variants"].values()
+                   for r in v["replicas"]]
+        if devices != ["cuda:0"] * 2:
+            raise AssertionError(f"tree replicas on {devices}")
+        t = time.perf_counter()
+        outs, lat = fan_out(lambda i: request(port, {
+            "model": "tree", "row": test[i]}), list(range(len(test))))
+        single_s = time.perf_counter() - t
+        bad = [i for i, o in enumerate(outs)
+               if o.get("output") != want[i]
+               or (want[i] is None) != ("error" in o)]
+        if bad:
+            raise AssertionError(f"{len(bad)} single-row tree responses "
+                                 f"differ from the CPU route: {outs[bad[0]]}")
+        lo, n_rows, t = 0, 0, time.perf_counter()
+        for size in SERVE_BATCH_SIZES:
+            resp = request(port, {"model": "tree", "rows": test[lo:lo + size]})
+            if resp.get("outputs") != want[lo:lo + size]:
+                raise AssertionError(f"a {size}-row tree response differs "
+                                     f"from the CPU route")
+            lo, n_rows = lo + size, n_rows + size
+        batch_s = time.perf_counter() - t
+        lat_ms = request(port, {"cmd": "stats"})["models"]["tree"][
+            "latency_ms"]
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        raise AssertionError(f"serve exited {rc} on SIGINT: "
+                             + open(log_path).read()[-2000:])
+    p50, p99 = quantiles_ms(lat)
+    log(f"serve_tree (CLI, TCP, 2 replicas on cuda:0, host routing over "
+        f"{len(cpu_route.dpl.paths)} leaf paths and "
+        f"{len(cpu_route._preds)} distinct predicates): up in "
+        f"{up_s:.3f} s; {len(test)} single-row requests from "
+        f"{SERVE_CLIENTS} clients {len(test) / single_s:.1f} rows/s, client "
+        f"p50 {p50:.3f} ms p99 {p99:.3f} ms; stats surface p50 "
+        f"{lat_ms.get('p50')} ms p99 {lat_ms.get('p99')} ms; {n_rows} rows "
+        f"in {len(SERVE_BATCH_SIZES)} batch requests "
+        f"{n_rows / batch_s:.1f} rows/s; every response equal to the CPU "
+        f"route [{card}]")
+
+
+def tree_paths(torch, card) -> None:
+    w = os.path.join(WORK, "tree")
+    rb, secs = on_both(lambda dev: tree_runbooks(
+        os.path.join(w, f"runbook_{dev}"), dev))
+    same_on_both("tree runbooks", rb)
+    log(f"decision_tree (3 levels) and retarget_tree through the CLI: cuda "
+        f"{secs['cuda']:.3f} s, cpu {secs['cpu']:.3f} s; {len(rb['cuda'])} "
+        f"files byte-equal (decpath.json, the levels, the split=/segment= "
+        f"tree) [{card}]")
+    level_pass(torch, card)
+    tree_streamed(torch, card)
+    serve_tree(torch, card, os.path.join(w, "runbook_cuda", "work",
+                                         "decpath.json"))
+
+
+def write_visits(n: int, seed: int) -> bytes:
+    """``n`` rows of the ``visit_history`` preset's distribution (user id,
+    a T/F label true to the user's conversion 90% of the time, then 2-20
+    session states for converters and 2-12 for the rest, each state an
+    elapsed-time and a duration letter skewed by conversion), drawn in
+    bulk."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    conv = rng.integers(0, 101, n) < 50
+    truth = rng.integers(0, 101, n) < 90
+    label = np.where(conv == truth, "T", "F")
+    n_sess = np.where(conv, rng.integers(2, 21, n), rng.integers(2, 13, n))
+    total = int(n_sess.sum())
+    cs = np.repeat(conv, n_sess)
+    s1, s2 = rng.integers(0, 101, total), rng.integers(0, 101, total)
+    el = np.where(cs, np.where(s1 <= 15, "H", np.where(s1 <= 40, "M", "L")),
+                  np.where(s1 <= 20, "L", np.where(s1 <= 45, "M", "H")))
+    du = np.where(cs, np.where(s2 <= 15, "L", np.where(s2 <= 40, "M", "H")),
+                  np.where(s2 <= 20, "H", np.where(s2 <= 45, "M", "L")))
+    states = np.char.add(el, du).tolist()
+    uid = rng.integers(10 ** 10, 10 ** 11, n).tolist()
+    out, lo = [], 0
+    for i, k in enumerate(n_sess.tolist()):
+        out.append(f"U{uid[i]},{label[i]}," + ",".join(states[lo:lo + k]))
+        lo += k
+    return ("\n".join(out) + "\n").encode()
+
+
+def pst_runbook(work: str, dev: str) -> bytes:
+    from avenir_tpu_torch import datagen
+
+    with in_dir(work):
+        datagen.main(["visit_history", "800", "--seed", "7",
+                      "--out", "work/in/part-00000"])
+        run_job(["ProbabilisticSuffixTreeGenerator",
+                 f"-Dconf.path={PST_BOOK}/pst.properties", "work/in",
+                 "work/out", "--device", dev])
+        return read_bytes("work/out")
+
+
+def pst_paths(torch, card) -> None:
+    """``resource/visit_pst`` on the card and on the CPU, then 200,000
+    visit rows (windows up to 4) on cuda:0, on a mesh of [cuda:0] * 4
+    (each position's halo from the next) and on the CPU: byte-equal."""
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.models.pst import ProbabilisticSuffixTreeGenerator
+    from avenir_tpu_torch.parallel.mesh import make_mesh
+
+    w = os.path.join(WORK, "pst")
+    rb, secs = on_both(lambda dev: pst_runbook(
+        os.path.join(w, f"runbook_{dev}"), dev))
+    same_on_both("visit_pst runbook", rb)
+    log(f"visit_pst runbook through the CLI: cuda {secs['cuda']:.3f} s, cpu "
+        f"{secs['cpu']:.3f} s; byte-equal [{card}]")
+    t = time.perf_counter()
+    inp = write_part(os.path.join(w, "in"), write_visits(PST_ROWS, 7))
+    gen_s = time.perf_counter() - t
+    props = {"skip.field.count": "2", "class.label.field.ord": "1",
+             "max.seq.length": "4"}
+    runs = (("cuda:0", "cuda", None),
+            ("mesh [cuda:0] * 4", "cuda",
+             make_mesh([torch.device("cuda", 0)] * 4)),
+            ("cpu", "cpu", None))
+    got, secs = {}, {}
+    for label, dev, mesh in runs:
+        out = os.path.join(w, label.split()[0].replace(":", ""))
+        job = ProbabilisticSuffixTreeGenerator(JobConfig(dict(props)),
+                                               device=dev)
+        t = time.perf_counter()
+        counters = job.run(inp, out, mesh=mesh)
+        secs[label] = time.perf_counter() - t
+        got[label] = read_bytes(out)
+        if counters.get("PST", "HostFallbackWindows"):
+            raise AssertionError(f"PST {label} fell back to the host")
+    if len(set(got.values())) != 1:
+        raise AssertionError(f"PST outputs differ: "
+                             f"{[k for k in got if got[k] != got['cpu']]}")
+    log(f"PST over {PST_ROWS} visit rows (data {gen_s:.3f} s), windows 2-4: "
+        + "; ".join(f"{k} {v:.3f} s" for k, v in secs.items())
+        + f"; {got['cpu'].count(NL)} lines, all three byte-equal [{card}]")
+    by_kind, wall_s = profile_device(torch, lambda: ProbabilisticSuffixTreeGenerator(
+        JobConfig(dict(props)), device="cuda").run(
+        inp, os.path.join(w, "profiled"),
+        mesh=make_mesh([torch.device("cuda", 0)] * 4)),
+        {"window count (index_add_)": "index"})
+    report_phase("PST on the 4-position mesh", by_kind, wall_s,
+                 "window count (index_add_)", card)
+
+
+def write_texts(n: int, seed: int) -> bytes:
+    """``n`` rows of the ``text_classified`` preset's distribution (2-4
+    words of the class's sentiment pool and 3-7 neutral words, shuffled;
+    the class P or N), drawn in bulk."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pos = ["excellent", "great", "fantastic", "loved", "wonderful", "superb"]
+    neg = ["terrible", "awful", "broken", "refund", "worst", "disappointed"]
+    neutral = ["product", "delivery", "box", "ordered", "arrived", "item",
+               "week", "store", "price", "color"]
+    positive = rng.random(n) < 0.5
+    k_sig, k_neu = rng.integers(2, 5, n), rng.integers(3, 8, n)
+    sig = rng.integers(0, 6, (n, 4))
+    neu = rng.integers(0, 10, (n, 7))
+    keys = rng.random((n, 11))
+    out = []
+    for i in range(n):
+        pool = pos if positive[i] else neg
+        words = ([pool[j] for j in sig[i, :k_sig[i]]]
+                 + [neutral[j] for j in neu[i, :k_neu[i]]])
+        order = np.argsort(keys[i, :len(words)])
+        out.append(" ".join(words[j] for j in order) + ","
+                   + ("P" if positive[i] else "N"))
+    return ("\n".join(out) + "\n").encode()
+
+
+def text_runbooks(work: str, dev: str) -> dict:
+    from avenir_tpu_torch import datagen
+
+    dv = ["--device", dev]
+    with in_dir(work):
+        datagen.main(["text_classified", "500", "--seed", "17",
+                      "--out", "work/wc.csv"])
+        with open("work/wc.csv", "rb") as fh:
+            texts = [line.split(b",")[0] for line in fh.read().splitlines()]
+        write_part("work/wcin", NL.join(texts) + NL)
+        run_job(["WordCounter", f"-Dconf.path={WC_BOOK}/wc.properties",
+                 "work/wcin", "work/words"] + dv)
+        datagen.main(["text_classified", "800", "--seed", "17",
+                      "--out", "work/all.csv"])
+        with open("work/all.csv", "rb") as fh:
+            rows = fh.read().splitlines(keepends=True)
+        write_part("work/train", b"".join(rows[:600]))
+        write_part("work/test", b"".join(rows[-200:]))
+        run_job(["BayesianDistribution",
+                 f"-Dconf.path={TC_BOOK}/nbtext.properties", "work/train",
+                 "work/model"] + dv)
+        run_job(["BayesianPredictor", f"-Dconf.path={TC_BOOK}/bptext.properties",
+                 "work/test", "work/pred"] + dv)
+        return {k: read_bytes(f"work/{k}") for k in ("words", "model", "pred")}
+
+
+def text_k1_cases(torch, train_dir: str) -> list:
+    """K1 at the text mode's shape (F = 1, one bin per token, int32): the
+    runbook's own training tokens, and 2,000,000 seeded token ids over a
+    40,000-token vocabulary at 2 classes, an 80,000-cell table that takes
+    the 2-block cluster route on an H100."""
+    import numpy as np
+
+    from avenir_tpu_torch.core.io import read_lines
+    from avenir_tpu_torch.models.text import standard_tokenize
+
+    vocab, classes, toks, cls = {}, {}, [], []
+    for line in read_lines(train_dir):
+        text, label = line.split(",")
+        c = classes.setdefault(label, len(classes))
+        for tok in standard_tokenize(text):
+            toks.append(vocab.setdefault(tok, len(vocab)))
+            cls.append(c)
+    x = np.asarray(toks, np.int32)[:, None]
+    y = np.asarray(cls, np.int32)
+
+    def wide():
+        g = torch.Generator(device="cuda").manual_seed(40)
+        return (torch.randint(0, TEXT_WIDE_V, (TEXT_WIDE_N, 1), generator=g,
+                              device="cuda", dtype=torch.int32),
+                torch.randint(0, 2, (TEXT_WIDE_N,), generator=g,
+                              device="cuda", dtype=torch.int32), None)
+
+    return [("K1text", "NB text runbook's tokens", len(classes), len(vocab),
+             None, lambda: (torch.from_numpy(x).cuda(),
+                            torch.from_numpy(y).cuda(), None)),
+            ("K1text", "text shape, 40,000-token vocabulary", 2, TEXT_WIDE_V,
+             None, wide)]
+
+
+def text_paths(torch, histogram, card) -> tuple:
+    """``resource/word_count`` and ``resource/text_classify`` on the card
+    and on the CPU, then 200,000 text rows: NB text training (one K1
+    launch, F = 1) on 160,000, scoring the other 40,000, and WordCounter
+    over all, card against CPU.  Returns the NB text training's K1
+    launches and K1's text-shape cases."""
+    w = os.path.join(WORK, "text")
+    histogram.reset_launch_counts()
+    rb, secs = on_both(lambda dev: text_runbooks(
+        os.path.join(w, f"runbook_{dev}"), dev))
+    if histogram.K1_LAUNCHES != 1:
+        raise AssertionError(f"the text_classify runbook's training "
+                             f"launched K1 {histogram.K1_LAUNCHES} times")
+    same_on_both("word_count / text_classify runbooks", rb)
+    log(f"word_count and text_classify through the CLI: cuda "
+        f"{secs['cuda']:.3f} s, cpu {secs['cpu']:.3f} s; "
+        f"{len(rb['cuda'])} outputs byte-equal; NB text training's K1 "
+        f"launches 1 [{card}]")
+    t = time.perf_counter()
+    rows = write_texts(TEXT_ROWS, 17).splitlines(keepends=True)
+    train = write_part(os.path.join(w, "train"), b"".join(rows[:TEXT_TRAIN]))
+    test = write_part(os.path.join(w, "test"), b"".join(rows[TEXT_TRAIN:]))
+    texts = write_part(os.path.join(w, "texts"), b"".join(
+        r.split(b",")[0] + NL for r in rows))
+    gen_s = time.perf_counter() - t
+
+    def steps(dev):
+        d = os.path.join(w, dev)
+        out, secs = {}, {}
+        for label, argv, o in (
+                ("NB text train", ["BayesianDistribution",
+                                   "-Dtabular.input=false", train], "model"),
+                ("NB text score", ["BayesianPredictor", "-Dtabular.input=false",
+                                   f"-Dbayesian.model.file.path={d}/model",
+                                   "-Dbp.predict.class=N,P", test], "pred"),
+                ("WordCounter", ["WordCounter", "-Dtext.field.ordinal=0",
+                                 texts], "words")):
+            histogram.reset_launch_counts()
+            t = time.perf_counter()
+            run_job(argv + [os.path.join(d, o), "--device", dev])
+            secs[label] = time.perf_counter() - t
+            out[o] = read_bytes(os.path.join(d, o))
+            if dev == "cuda" and label == "NB text train":
+                out["k1"] = histogram.K1_LAUNCHES
+        return out, secs
+
+    got, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        got[dev], secs[dev] = steps(dev)
+    k1 = got["cuda"].pop("k1")
+    if k1 != 1:
+        raise AssertionError(f"NB text training launched K1 {k1} times")
+    same_on_both("text at 200,000 rows", got)
+    log(f"text at {TEXT_ROWS} rows (data {gen_s:.3f} s): " + "; ".join(
+        f"{label} cuda {secs['cuda'][label]:.3f} s cpu "
+        f"{secs['cpu'][label]:.3f} s" for label in secs["cuda"])
+        + f"; byte-equal; K1 launches in training {k1} [{card}]")
+    by_kind, wall_s = profile_device(torch, lambda: run_job([
+        "BayesianDistribution", "-Dtabular.input=false", train,
+        os.path.join(w, "profiled"), "--device", "cuda"]),
+        {"histogram kernel": "histogram_kernel"})
+    report_phase(f"NB text training ({TEXT_TRAIN} rows)", by_kind, wall_s,
+                 "histogram kernel", card)
+    return {"K1text": k1}, text_k1_cases(
+        torch, os.path.join(w, "runbook_cuda", "work", "train"))
+
+
+def lr_loop(work: str, dev: str) -> tuple:
+    """``resource/logistic_regression/run.sh``'s loop in process: each
+    iteration one ``LogisticRegressionJob`` through the command line,
+    exit status 100 converged, 101 not yet; (iterations, history)."""
+    from avenir_tpu_torch.cli import main as cli_main
+
+    with in_dir(work):
+        shutil.copy(os.path.join(LR_BOOK, "lr.json"), work)
+        rows = subprocess.run([sys.executable, os.path.join(LR_BOOK, "gen.py"),
+                               "2000"], capture_output=True, check=True
+                              ).stdout
+        write_part("work/in", rows)
+        with open("work/coeff.txt", "w") as fh:
+            fh.write("0.0,0.0,0.0,0.0,0.0\n")
+        for it in range(1, 61):
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                rc = cli_main(["LogisticRegressionJob",
+                               f"-Dconf.path={LR_BOOK}/lr.properties",
+                               "work/in", "work/out", "--device", dev])
+            if rc == 100:
+                break
+            if rc != 101:
+                raise AssertionError(f"LR exited {rc}: {err.getvalue()}")
+        else:
+            raise AssertionError("the LR runbook did not converge")
+        with open("work/coeff.txt") as fh:
+            return it, [[float(v) for v in line.split(",")]
+                        for line in fh.read().splitlines()]
+
+
+def write_lr_rows(n: int) -> bytes:
+    """``resource/logistic_regression/gen.py``'s ``n`` rows, drawn from
+    its seed in one call and formatted in bulk: the same bytes as the
+    script prints, without its per-row ``print``."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    feats = rng.integers(-10, 11, (n, 4))
+    y = feats[:, 0] + 2 * feats[:, 1] - feats[:, 2] > 0
+    return "".join(f"R{i:06d},{a},{b},{c},{d},{'C1' if p else 'C0'}\n"
+                   for i, ((a, b, c, d), p) in enumerate(
+                       zip(feats.tolist(), y.tolist()))).encode()
+
+
+def regress_paths(torch, card) -> None:
+    """The logistic_regression runbook's loop on the card and on the CPU
+    (the same iteration, histories within rtol 1e-9), then gen.py's rows
+    at 1,000,000 (written in bulk) for 10 iterations on one resident
+    batch, card against CPU, with the seconds per iteration."""
+    import numpy as np
+
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.models.regress import LogisticRegressionJob
+
+    w = os.path.join(WORK, "regress")
+    rb, secs = on_both(lambda dev: lr_loop(os.path.join(w, f"rb_{dev}"), dev))
+    if rb["cuda"][0] != rb["cpu"][0] or len(rb["cuda"][1]) != len(
+            rb["cpu"][1]):
+        raise AssertionError(f"LR converged at iteration {rb['cuda'][0]} on "
+                             f"the card, {rb['cpu'][0]} on the CPU")
+    np.testing.assert_allclose(rb["cuda"][1], rb["cpu"][1], rtol=LR_RTOL)
+    log(f"logistic_regression runbook through the CLI: converged at "
+        f"iteration {rb['cuda'][0]} on both, {len(rb['cuda'][1])} history "
+        f"lines within rtol {LR_RTOL}; cuda {secs['cuda']:.3f} s, cpu "
+        f"{secs['cpu']:.3f} s [{card}]")
+    t = time.perf_counter()
+    rows = write_lr_rows(LR_ROWS)
+    with open(os.path.join(w, "rb_cuda", "work", "in", "part-00000"),
+              "rb") as fh:
+        if not rows.startswith(fh.read()):    # gen.py's own 2,000 rows
+            raise AssertionError("the bulk writer's rows are not gen.py's")
+    inp = write_part(os.path.join(w, "big"), rows)
+    gen_s = time.perf_counter() - t
+    hist, it_s, load_s = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        coeff = os.path.join(w, f"coeff_{dev}.txt")
+        with open(coeff, "w") as fh:
+            fh.write("0.0,0.0,0.0,0.0,0.0\n")
+        job = LogisticRegressionJob(JobConfig({
+            "feature.schema.file.path": os.path.join(LR_BOOK, "lr.json"),
+            "coeff.file.path": coeff, "positive.class.value": "C1",
+            "learning.rate": "0.3", "iteration.limit": str(LR_ITERS + 1)}),
+            device=dev)
+        t = time.perf_counter()
+        job.run(inp, os.path.join(w, f"out_{dev}"))   # parses the batch
+        load_s[dev] = time.perf_counter() - t
+        t = time.perf_counter()
+        for _ in range(LR_ITERS - 1):
+            job.run(inp, os.path.join(w, f"out_{dev}"))
+        it_s[dev] = (time.perf_counter() - t) / (LR_ITERS - 1)
+        with open(coeff) as fh:
+            hist[dev] = [[float(v) for v in line.split(",")]
+                         for line in fh.read().splitlines()]
+        if dev == "cuda":
+            by_kind, wall_s = profile_device(torch, lambda: job.run(
+                inp, os.path.join(w, "out_profiled")),
+                {"float64 products": "gemm", "split-K reduce": "splitK"})
+    np.testing.assert_allclose(hist["cuda"], hist["cpu"], rtol=LR_RTOL)
+    log(f"LR over {LR_ROWS} gen.py rows (data {gen_s:.3f} s), "
+        f"{LR_ITERS} iterations: first (parse + move) cuda "
+        f"{load_s['cuda']:.3f} s cpu {load_s['cpu']:.3f} s; then "
+        f"{it_s['cuda']:.4f} s an iteration on cuda, {it_s['cpu']:.4f} s on "
+        f"the CPU; histories within rtol {LR_RTOL} [{card}]")
+    report_phase(f"LR iteration ({LR_ROWS} rows, resident)", by_kind, wall_s,
+                 "float64 products", card)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3126,6 +3977,22 @@ def main() -> int:
         phase_done(path.__name__.replace("_paths", ""))
     serve_markov(torch, card, outs[markov_paths])
     phase_done("serve_markov")
+    # the count-table family: K1 on the MI and NB text paths (each path
+    # sets the counts to 0 before the runs it reads)
+    mi_launches, mi_case = mi_corr_paths(torch, histogram, card)
+    launches.update(mi_launches)
+    phase_done("mi_corr")
+    tree_paths(torch, card)
+    phase_done("tree")
+    pst_paths(torch, card)
+    phase_done("pst")
+    text_launches, text_cases = text_paths(torch, histogram, card)
+    launches.update(text_launches)
+    phase_done("text")
+    regress_paths(torch, card)
+    phase_done("regress")
+    for case in [mi_case] + text_cases:
+        entries.append(histogram_entry(case))
     log(f"main-path launches: {launches}")
     log(f"phase seconds: {phases}")
     for e in entries:

@@ -50,6 +50,8 @@ def test_importing_every_module_leaves_jax_out():
     assert len(names) >= 15                     # every module was imported
     assert {f"avenir_tpu_torch.{m}" for m in (
         "models.association", "models.markov", "models.chombo",
+        "models.mutual_info", "models.correlation", "models.split",
+        "models.tree", "models.pst", "models.text", "models.regress",
         "core.tabular", "core.pipeline", "core.ingestcache", "datagen",
         "serve.engine")} <= names
 

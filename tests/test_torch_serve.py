@@ -22,7 +22,9 @@ import torch
 from avenir_tpu.core.config import JobConfig as JaxConfig
 from avenir_tpu.core.io import write_output as jax_write_output
 from avenir_tpu.core.schema import FeatureSchema as JaxSchema
-from avenir_tpu.datagen import gen_state_sequences, gen_telecom_churn
+from avenir_tpu.datagen import (gen_retarget, gen_state_sequences,
+                                gen_telecom_churn)
+from avenir_tpu.models import tree as jtree
 from avenir_tpu.serve import PredictionServer as JaxServer
 from avenir_tpu.serve import engine as jengine
 
@@ -34,6 +36,8 @@ from avenir_tpu_torch.models.bayesian import (BayesianDistribution,
                                               BayesianPredictor)
 from avenir_tpu_torch.models.markov import (MarkovModelClassifier,
                                             MarkovStateTransitionModel)
+from avenir_tpu_torch.models.split import AttributePredicate, predicate_matrix
+from avenir_tpu_torch.models.tree import DecisionPathList, _column
 from avenir_tpu_torch.serve import PredictionServer, engine
 from avenir_tpu_torch.serve.engine import SERVE_GROUP
 from avenir_tpu_torch.serve.registry import ModelRegistry
@@ -303,7 +307,7 @@ def test_knn_training_set_is_resident(servers):
 # load-time refusals and device selection
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kind", ["decisionTree", "banditDecision"])
+@pytest.mark.parametrize("kind", ["banditDecision"])
 def test_unported_kind_is_refused_at_load(arts, kind):
     props = _props(arts, **{"serve.models": "m", "serve.model.m.kind": kind})
     with pytest.raises(NotImplementedError, match=f"{kind}.*not ported"):
@@ -632,3 +636,120 @@ def test_markov_adapter_length_buckets(markov):
         [4, 4, 8, 8, 16, 64]
     want = markov["batch"]["f64"][:5]
     assert ad.predict_lines(markov["test"][:5]) == want
+
+
+# ---------------------------------------------------------------------------
+# decision tree: a tree the reference built, served by both servers
+# ---------------------------------------------------------------------------
+
+TREE_SCHEMA = os.path.join(REPO, "resource", "decision_tree", "retarget.json")
+# a category outside the schema's, a cart amount that does not parse, and a
+# record too short to hold the split attributes
+TREE_BAD_ROWS = ["T1,9Z,120,N", "T2,1C,12x,Y", "T3"]
+
+
+@pytest.fixture(scope="module")
+def tree(tmp_path_factory):
+    """resource/decision_tree's configuration on 400 retarget rows (seed
+    31), grown three levels by the reference, and 120 fresh rows."""
+    tmp = tmp_path_factory.mktemp("torch_serve_tree")
+    rows = [",".join(r) for r in gen_retarget(400, seed=31)]
+    jax_write_output(str(tmp / "in"), rows)
+    builder = jtree.DecisionTreeBuilder(JaxConfig({
+        "feature.schema.file.path": TREE_SCHEMA,
+        "decision.file.path": str(tmp / "decpath.json"),
+        "split.algorithm": "entropy", "path.stopping.strategy": "maxDepth",
+        "max.depth.limit": "2", "sub.sampling.strategy": "none",
+        "seed": "11"}))
+    builder.run_loop(str(tmp / "in"), str(tmp / "levels"), max_levels=3)
+    test = [",".join(r) for r in gen_retarget(120, seed=5)]
+    return {"decpath": str(tmp / "decpath.json"), "test": test}
+
+
+def _tree_props(tree):
+    return {"serve.models": "tree", "serve.model.tree.kind": "decisionTree",
+            "serve.model.tree.feature.schema.file.path": TREE_SCHEMA,
+            "serve.model.tree.decision.file.path": tree["decpath"],
+            "serve.pool.replicas": "2", "serve.batch.max.size": "64",
+            "serve.batch.max.delay.ms": "2", "serve.port": "0"}
+
+
+@pytest.fixture(scope="module")
+def tree_servers(tree):
+    port_srv = PredictionServer(JobConfig(_tree_props(tree)), device="cpu")
+    ref_srv = JaxServer(JaxConfig(_tree_props(tree)))
+    try:
+        yield (port_srv, port_srv.start()), (ref_srv, ref_srv.start())
+    finally:
+        port_srv.stop()
+        ref_srv.stop()
+
+
+def _routed(tree, rows):
+    """Each row's first leaf path whose every predicate it satisfies, from
+    the decision path list itself: ``id,path,population,infoContent``."""
+    schema = FeatureSchema.from_file(TREE_SCHEMA)
+    dpl = DecisionPathList.from_file(tree["decpath"])
+    recs = [r.split(",") for r in rows]
+    out = []
+    for rec in recs:
+        line = None
+        for leaf in dpl.paths:
+            preds = [AttributePredicate.parse(
+                ps, schema.field_by_ordinal(int(ps.split()[0])))
+                for ps in leaf.predicate_strs if ps != "$root"]
+            cols = {p.attr: _column([rec], schema.field_by_ordinal(p.attr))
+                    for p in preds}
+            if all(predicate_matrix([p], cols)[0, 0] for p in preds):
+                line = ",".join([rec[0], leaf.path_str, str(leaf.population),
+                                 repr(leaf.info_content)])
+                break
+        out.append(line)
+    return out
+
+
+def test_tree_responses_match_reference_and_routing(tree_servers, tree):
+    (_, port), (_, ref) = tree_servers
+    test = tree["test"]
+    want = _routed(tree, test)
+    assert sum(w is not None for w in want) > 100
+    lo = 0
+    for size in (64, 1, 2, 3, 5, 8, 13, 24):
+        obj = {"model": "tree", "rows": test[lo:lo + size]}
+        mine = _ask(port, obj)
+        assert mine == _ask(ref, obj)
+        assert mine["outputs"] == want[lo:lo + size]
+        lo += size
+    for i in (0, 33, 119):
+        obj = {"model": "tree", "row": test[i]}
+        mine = _ask(port, obj)
+        assert mine == _ask(ref, obj) and mine["output"] == want[i]
+
+
+def test_tree_malformed_rows_leave_their_batch_unharmed(tree_servers, tree):
+    (_, port), (_, ref) = tree_servers
+    good = tree["test"][:4]
+    rows = [good[0]] + TREE_BAD_ROWS + good[1:]
+    obj = {"model": "tree", "rows": rows}
+    mine = _ask(port, obj)
+    assert mine == _ask(ref, obj)
+    want = _routed(tree, good)
+    outs = mine["outputs"]
+    assert [outs[0]] + outs[1 + len(TREE_BAD_ROWS):] == want
+    assert mine["errors"] == len(TREE_BAD_ROWS)
+    for row in TREE_BAD_ROWS:
+        one = _ask(port, {"model": "tree", "row": row})
+        assert one == _ask(ref, {"model": "tree", "row": row})
+        assert "error" in one
+
+
+def test_tree_adapter_is_a_host_adapter(tree):
+    ad = engine.adapter_class("decisionTree")(
+        JobConfig({"feature.schema.file.path": TREE_SCHEMA,
+                   "decision.file.path": tree["decpath"]}),
+        Counters(), device="cpu")
+    assert isinstance(ad, engine.DecisionTreeAdapter)
+    assert ad.device_bytes() == 0
+    assert ad.predict_lines(tree["test"][:7]) == _routed(tree,
+                                                        tree["test"][:7])
+    assert engine.UNPORTED_KINDS == ("banditDecision",)
