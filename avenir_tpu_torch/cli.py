@@ -1,8 +1,11 @@
 """Job driver: ``python -m avenir_tpu_torch <Job|FQCN> -Dconf.path=<props>
-<in> <out> [--device cpu|cuda] [--resume] [--trace <out.json>]``, and the
-prediction server: ``python -m avenir_tpu_torch serve
--Dconf.path=<serve.properties> [--device cpu|cuda] [--trace <out.json>]
-[--metrics-out <series.jsonl>]`` (serve.server).
+<in> <out> [--device cpu|cuda] [--resume] [--trace <out.json>]
+[--profile-dir=<dir>]``; the shared scan: ``python -m avenir_tpu_torch
+multi -Dconf.path=<manifest> <in> [<out>] [--device cpu|cuda] [--resume]
+[--trace <out.json>] [--metrics-out <series.jsonl>] [--profile-dir=<dir>]``
+(core.multiscan); and the prediction server: ``python -m avenir_tpu_torch
+serve -Dconf.path=<serve.properties> [--device cpu|cuda] [--trace
+<out.json>] [--metrics-out <series.jsonl>]`` (serve.server).
 
 The same invocation, ``.properties`` files, schema JSONs and in/out
 directory layout as the reference package's ``python -m avenir_tpu``; job
@@ -10,6 +13,12 @@ counters print to stderr.  Jobs run on ``cuda:0`` unless ``--device cpu``
 asks for the CPU, and fail when there is no card.  A job whose ``run``
 returns a status instead of counters (``LogisticRegressionJob``: 100
 converged, 101 not yet) exits with it, as the reference's driver does.
+
+``multi`` runs every job of a ``multi.jobs`` manifest off one streamed
+scan of the input, each writing its normal output file; jobs that cannot
+fuse run standalone after it.  ``--profile-dir=<dir>`` records the whole
+job (or ``multi`` run) with ``torch.profiler`` and writes its Chrome trace
+into ``<dir>``.
 
 ``--resume`` sets ``checkpoint.resume=true``: a streaming job restarts
 from its sidecar checkpoint when one exists (core.checkpoint).
@@ -23,9 +32,11 @@ is built, the resilience keys are applied: ``sanitize.locks``
 
 from __future__ import annotations
 
+import contextlib
 import importlib
+import os
 import sys
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 from .core.config import load_job_config, parse_cli_args
 from .core.metrics import Counters
@@ -67,6 +78,10 @@ JOBS: Dict[str, tuple] = {
         ("correlation", "HeterogeneityReductionCorrelation", ""),
     "org.avenir.explore.NumericalCorrelation":
         ("correlation", "NumericalCorrelation", "nco"),
+    "org.avenir.discriminant.FisherDiscriminant":
+        ("discriminant", "FisherDiscriminant", ""),
+    "org.chombo.mr.NumericalAttrStats":
+        ("discriminant", "NumericalAttrStats", ""),
     "org.avenir.explore.ClassPartitionGenerator":
         ("tree", "ClassPartitionGenerator", ""),
     "org.avenir.tree.SplitGenerator": ("tree", "SplitGenerator", ""),
@@ -91,6 +106,23 @@ def resolve(name: str) -> tuple:
             return spec
     raise SystemExit(f"unknown job: {name}\nknown jobs:\n  "
                      + "\n  ".join(sorted(JOBS)))
+
+
+def job_class(name: str):
+    """The job class registered under ``name`` (short or FQCN)."""
+    module, clsname, _ = resolve(name)
+    mod = importlib.import_module(f"{__package__}.models.{module}")
+    return getattr(mod, clsname)
+
+
+def job_resolver(device=None) -> Callable:
+    """The ``multi`` manifest's resolver: a job class name -> (factory,
+    prefix), the factory building the job on ``device``."""
+    def resolver(cls_name: str):
+        cls = job_class(cls_name)
+        return (lambda config: cls(config, device=device),
+                resolve(cls_name)[2])
+    return resolver
 
 
 def extract_device_flag(argv):
@@ -146,6 +178,50 @@ def extract_metrics_out_flag(argv):
     return _extract_value_flag(argv, "--metrics-out")
 
 
+def extract_profile_dir_flag(argv):
+    """Pull ``--profile-dir=<dir>`` out of an argument vector; returns
+    (remaining argv, dir or None).  The space-separated form is refused,
+    as the reference refuses it."""
+    out, value = [], None
+    for a in argv:
+        if a == "--profile-dir" or a.startswith("--profile-dir="):
+            value = a.partition("=")[2]
+            if not value:
+                raise SystemExit("--profile-dir requires --profile-dir=<dir> "
+                                 "(the space-separated form is not "
+                                 "supported)")
+        else:
+            out.append(a)
+    return out, value
+
+
+@contextlib.contextmanager
+def profiled(profile_dir: Optional[str]):
+    """Record the enclosed work with ``torch.profiler`` (the CPU, and the
+    card when there is one) and write its Chrome trace to
+    ``<profile_dir>/trace-<pid>.json``, also when the work raises.  Does
+    nothing without a directory."""
+    if not profile_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    prof = profile(activities=acts)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        path = os.path.join(profile_dir, f"trace-{os.getpid()}.json")
+        prof.export_chrome_trace(path)
+        print(f"profile: wrote {path}", file=sys.stderr)
+
+
 def extract_resume_flag(argv):
     """Pull ``--resume`` out of an argument vector; returns (remaining
     argv, bool)."""
@@ -166,12 +242,86 @@ def configure_resilience(config) -> None:
     flight.configure_from_config(config)
 
 
+def _export_trace(trace_path: Optional[str]) -> None:
+    if not trace_path:
+        return
+    from .core import obs
+    n = obs.get_tracer().export_chrome_trace(trace_path)
+    print(f"obs: wrote {n} trace events to {trace_path}", file=sys.stderr)
+
+
+def multi_main(argv) -> int:
+    """``python -m avenir_tpu_torch multi -Dconf.path=<manifest> <in>
+    [<out>]``: every job of the ``multi.jobs`` manifest off one streamed
+    scan (core.multiscan), each writing its normal output file, on
+    ``cuda:0`` unless ``--device cpu``.  Jobs that cannot fuse (no
+    FoldSpec, a mid-stream withdrawal) run standalone after the fused
+    pass, so the workflow's outputs are always complete."""
+    argv, device = extract_device_flag(argv)
+    argv, trace_path = extract_trace_flag(argv)
+    argv, metrics_out = extract_metrics_out_flag(argv)
+    argv, resume = extract_resume_flag(argv)
+    argv, profile_dir = extract_profile_dir_flag(argv)
+    defines, positional = parse_cli_args(argv)
+    if not positional:
+        print("expected <input path> [<output base dir>]", file=sys.stderr)
+        return 2
+    in_path = positional[0]
+    out_base = positional[1] if len(positional) > 1 else None
+
+    config = load_job_config(defines, "")
+    if resume:
+        config.set("checkpoint.resume", "true")
+    from .core import obs, telemetry
+    from .core.multiscan import run_multi
+    from .device import resolve_device
+    from .fleetobs.publisher import publisher_for_job
+    from .parallel.mesh import make_mesh
+    mesh = make_mesh([resolve_device(device)])
+    obs.configure_from_config(config, force_enable=bool(trace_path))
+    # before configure_resilience: the publisher routes flight.dump.dir
+    # into the spool feed when fleetobs.spool.dir is set
+    publisher = publisher_for_job(config, role="multi")
+    configure_resilience(config)
+    telemetry.configure_from_config(config)
+    exporter = telemetry.exporter_for_job(config, metrics_out)
+    if publisher is not None:
+        exporter = publisher.attach(exporter, config)
+    flusher = telemetry.flusher_for_job(config, trace_path)
+    try:
+        with profiled(profile_dir):
+            results = run_multi(config, in_path, out_base,
+                                job_resolver(mesh.devices.flat[0]),
+                                mesh=mesh,
+                                log=lambda m: print(m, file=sys.stderr))
+    except BaseException as exc:
+        # a fatal workflow exception still leaves the black box behind
+        from .core import flight
+        flight.fatal(exc)
+        raise
+    finally:
+        if flusher is not None:
+            flusher.stop()
+        if exporter is not None:
+            exporter.stop()
+        _export_trace(trace_path)
+    for jid, counters in results.items():
+        print(f"--- job {jid}", file=sys.stderr)
+        if isinstance(counters, Counters):
+            print(counters.format(), file=sys.stderr)
+    return 0
+
+
 def main(argv: Optional[list] = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
         print("usage: python -m avenir_tpu_torch <JobClass> "
               "-Dconf.path=<props> <in> <out> [--device cpu|cuda] "
-              "[--resume] [--trace <out.json>]\n"
+              "[--resume] [--trace <out.json>] [--profile-dir=<dir>]\n"
+              "       python -m avenir_tpu_torch multi "
+              "-Dconf.path=<manifest> <in> [<out base>] [--device cpu|cuda] "
+              "[--resume] [--trace <out.json>] [--metrics-out "
+              "<series.jsonl>] [--profile-dir=<dir>]\n"
               "       python -m avenir_tpu_torch serve "
               "-Dconf.path=<serve.properties> [--device cpu|cuda] "
               "[--trace <out.json>] [--metrics-out <series.jsonl>]\n"
@@ -182,10 +332,14 @@ def main(argv: Optional[list] = None) -> int:
         # the online prediction server (serve.server)
         from .serve.server import serve_main
         return serve_main(rest)
-    module, clsname, prefix = resolve(job_name)
+    if job_name == "multi":
+        # the shared scan (core.multiscan)
+        return multi_main(rest)
+    prefix = resolve(job_name)[2]
     rest, device = extract_device_flag(rest)
     rest, trace_path = extract_trace_flag(rest)
     rest, resume = extract_resume_flag(rest)
+    rest, profile_dir = extract_profile_dir_flag(rest)
     defines, positional = parse_cli_args(rest)
     if len(positional) < 2:
         print("expected <input path> <output path>", file=sys.stderr)
@@ -196,15 +350,12 @@ def main(argv: Optional[list] = None) -> int:
     from .core import obs
     obs.configure_from_config(config, force_enable=bool(trace_path))
     configure_resilience(config)
-    mod = importlib.import_module(f"{__package__}.models.{module}")
-    job = getattr(mod, clsname)(config, device=device)
+    job = job_class(job_name)(config, device=device)
     try:
-        result = job.run(positional[0], positional[1])
+        with profiled(profile_dir):
+            result = job.run(positional[0], positional[1])
     finally:
-        if trace_path:
-            n = obs.get_tracer().export_chrome_trace(trace_path)
-            print(f"obs: wrote {n} trace events to {trace_path}",
-                  file=sys.stderr)
+        _export_trace(trace_path)
     if isinstance(result, Counters):
         print(result.format(), file=sys.stderr)
         return 0

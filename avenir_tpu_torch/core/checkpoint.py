@@ -51,6 +51,8 @@ import pickle
 import tempfile
 from typing import Any, Dict, List, Optional
 
+from . import faultinject
+
 KEY_INTERVAL = "checkpoint.interval.chunks"
 KEY_PATH = "checkpoint.path"
 KEY_RESUME = "checkpoint.resume"
@@ -129,6 +131,19 @@ def _load_payload(path: str) -> Dict[str, Any]:
             f"checkpoint {path} does not hold a payload dict "
             f"({type(payload).__name__})")
     return payload
+
+
+def _maybe_corrupt_sidecar(path: str, save_index: int) -> None:
+    """The ``ckpt_corrupt`` fault point: truncate the just-written sidecar
+    in place to half its size (a crash mid-write, disk damage), by save
+    index, so the generation fallback of :meth:`StreamCheckpointer.load`
+    can be driven deterministically."""
+    fi = faultinject.get_injector()
+    if fi is None or fi.armed("ckpt_corrupt", index=save_index) is None:
+        return
+    size = os.path.getsize(path)
+    with open(path, "rb+") as fh:
+        fh.truncate(max(size // 2, 1))
 
 
 def input_fingerprint(path: str) -> Dict[str, Any]:
@@ -273,6 +288,7 @@ class StreamCheckpointer:
             except OSError:
                 pass
             raise
+        _maybe_corrupt_sidecar(self.path, self.saves)
         self.saves += 1
 
     # -- resume side -------------------------------------------------------

@@ -73,6 +73,13 @@ class JobConfig:
                   msg: Optional[str] = None) -> List[str]:
         return self.must(key, msg).split(delim)
 
+    def subkeys(self, prefix: str) -> Dict[str, str]:
+        """Every key under ``prefix.``, with the prefix stripped (the
+        ``multi.job.<id>.*`` overrides of a shared-scan manifest)."""
+        p = prefix if prefix.endswith(".") else prefix + "."
+        return {k[len(p):]: v for k, v in self.props.items()
+                if k.startswith(p)}
+
     def field_delim_regex(self) -> str:
         return self.get("field.delim.regex", ",")
 

@@ -27,8 +27,10 @@ The Markov trainer's pair cache (``PairStreamCache``) keeps its
 flattened (from, to, class) transition-pair streams the same way, under
 ``mkv-<job fingerprint>``.
 
-Not ported yet: the shared-scan tee (``MultiScanCacheTee``), which waits
-for the shared scan.
+The shared scan (core.multiscan) reaches the same artifacts through
+:class:`MultiScanCacheTee`: each encoder's chunks are served off a
+matching artifact, or teed into a new one that is published when the
+scan fed it every chunk.
 """
 
 from __future__ import annotations
@@ -352,6 +354,90 @@ class IngestCache:
 
     def builder(self, chunk_rows: int) -> MatrixCacheBuilder:
         return MatrixCacheBuilder(self, chunk_rows)
+
+
+class MultiScanCacheTee:
+    """The shared scan's cache adapter for each encoder, both ways:
+
+    - :meth:`warm` serves mmapped slices when a validated artifact exists
+      for ``enc`` at the engine's ``chunk_rows`` (the boundaries are
+      ``row_chunk_ends``' in both scans); the raw chunk's line count is
+      checked against the recorded slice, and any doubt (blank lines, a
+      count mismatch) falls back to parsing.
+    - :meth:`tee` records freshly encoded chunks toward a new artifact on
+      a miss.  A build survives only a gap-free chunk sequence from chunk
+      0 (a spec that withdrew, first encoded late, or saw an empty chunk
+      aborts it: the artifact must equal a clean full encode), and
+      :meth:`finish` publishes it when the scan fed it every chunk.
+    """
+
+    def __init__(self, cfg, in_path: str, chunk_rows: int, delim: str):
+        self.in_path = in_path
+        self.chunk_rows = int(chunk_rows)
+        self.delim = delim
+        self.base = cache_base(cfg, in_path)
+        # id(enc) -> [scan | None, builder | None, next chunk index]
+        self._state: dict = {}
+
+    def _entry(self, enc):
+        e = self._state.get(id(enc))
+        if e is None:
+            cache = IngestCache(self.base, self.in_path, enc, self.delim)
+            scan = cache.load(self.chunk_rows)
+            if scan is not None:
+                scan.seed_encoder(enc)
+                builder = None
+            else:
+                builder = cache.builder(self.chunk_rows)
+            e = self._state[id(enc)] = [scan, builder, 0]
+        return e
+
+    def warm(self, enc, chunk_idx: int, raw: bytes):
+        """``(x, values, y, n)`` of recorded chunk ``chunk_idx`` off the
+        artifact, or None to parse ``raw``."""
+        from .binning import _rows_hint
+
+        scan = self._entry(enc)[0]
+        if scan is None:
+            return None
+        sl = scan.chunk_slice(chunk_idx)
+        if sl is None:
+            return None
+        x, values, y, n = sl
+        if _rows_hint(raw) != n:        # None (blank lines) also bails
+            return None
+        return x, values, y, n
+
+    def tee(self, enc, chunk_idx: int, res) -> None:
+        e = self._entry(enc)
+        b = e[1]
+        if b is None:
+            return
+        x, values, y, n = res
+        if n == 0 or chunk_idx != e[2]:
+            b.abort()
+            return
+        e[2] = chunk_idx + 1
+        b.add(x, values, y, n)
+
+    def finish(self, n_chunks: int) -> None:
+        """Publish every builder the scan fed gap-free through its last
+        chunk; abort the rest (partial sequences stay unpublished)."""
+        for scan, builder, nxt in self._state.values():
+            if builder is None:
+                continue
+            if n_chunks > 0 and nxt == n_chunks:
+                builder.finish()
+            else:
+                builder.abort()
+
+
+def multiscan_cache_tee(cfg, in_path: str, chunk_rows: int,
+                        delim: str) -> Optional[MultiScanCacheTee]:
+    """The shared scan's cache hook, or None when the cache is off."""
+    if not cache_enabled(cfg):
+        return None
+    return MultiScanCacheTee(cfg, in_path, chunk_rows, delim)
 
 
 # ---------------------------------------------------------------------------

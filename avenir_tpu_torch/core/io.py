@@ -289,6 +289,24 @@ class OutputWriter:
             raise TypeError("text writer: use write")
         self._fh.write(data)
 
+    def _tear(self) -> None:
+        """The ``torn_write`` fault point: the crash of an in-place writer
+        mid-write.  Half the staged bytes land under the final name, with
+        no ``_MANIFEST`` update and no ``_SUCCESS``, and the writer dies
+        with ``InjectedFault``.  A ``_MANIFEST`` left by an earlier
+        publish now disagrees with the part, which is what the readers'
+        validation must catch."""
+        from .faultinject import InjectedFault
+        with open(self._tmp_path, "rb") as fh:
+            data = fh.read()
+        with open(self.file_path, "wb") as out:
+            out.write(data[:max(len(data) // 2, 1)])
+        try:
+            os.unlink(self._tmp_path)
+        except OSError:
+            pass
+        raise InjectedFault(f"injected torn write ({self.file_path})")
+
     def _update_manifest(self) -> None:
         mpath = os.path.join(self.out_path, MANIFEST_NAME)
         parts: Dict[str, dict] = {}
@@ -322,6 +340,10 @@ class OutputWriter:
             except OSError:
                 pass
             return
+        from .faultinject import get_injector
+        fi = get_injector()
+        if fi is not None and fi.armed("torn_write") is not None:
+            self._tear()
         os.replace(self._tmp_path, self.file_path)
         self._update_manifest()
         if self.mark_success:

@@ -23,8 +23,24 @@ relay and the consumer's watchdog reports it, and items wrapped in
 :class:`Checkpointed` make ``streaming_fold`` snapshot the carry and hand
 it to a checkpointer one chunk later (:class:`AsyncCheckpointSaver`), so
 the card does not wait on a checkpoint.  Spans (core.obs): ``ingest.h2d``
-per transfer, ``ingest.fold`` per fold, ``checkpoint.save`` per save, and
-the ``ingest.prefetch.queue.depth`` gauge.
+per transfer, ``ingest.fold`` per fold (the shared scan names its folds
+``multiscan.fold``), ``checkpoint.save`` per save, and the
+``ingest.prefetch.queue.depth`` gauge.
+
+The shared scan (core.multiscan) reads the input as raw byte chunks
+(:func:`iter_byte_chunks_meta`, the boundaries of ``row_chunk_ends``) and
+folds each job's chunk through its own :class:`ChunkFold`, whose carry may
+be one table or a dict of them; with a mesh of several positions
+(``ChunkFold(mesh=)``, ``ChunkTransfer(mesh=)``) a chunk's rows pad to the
+position count and every position folds its share, summed by the mesh's
+``psum``.
+
+Two pieces of the reference's module are not copied.  ``HostStager``
+guards host buffers against XLA's zero-copy aliasing of a ``device_put``;
+here :class:`ChunkTransfer` owns its pinned staging slots and reuses one
+only after the CUDA event of its last copy, the same guarantee.
+``clear_fold_cache`` empties the reference's memo of jitted fold pairs,
+and the port compiles no fold, so it has no such memo.
 """
 
 from __future__ import annotations
@@ -45,6 +61,7 @@ KEY_CHUNK_ROWS = "pipeline.chunk.rows"
 KEY_PREFETCH_DEPTH = "pipeline.prefetch.depth"
 KEY_DEVICE_BUDGET = "pipeline.device.budget.bytes"
 
+DEFAULT_CHUNK_ROWS = 1 << 16
 DEFAULT_PREFETCH_DEPTH = 2
 
 
@@ -157,6 +174,38 @@ def row_chunk_ends(buf: bytes, chunk_rows: int) -> List[int]:
     return ends
 
 
+def iter_byte_chunks_meta(path: str, chunk_rows: int,
+                          start_offset: int = 0
+                          ) -> Iterator[Tuple[bytes, int, int]]:
+    """``(chunk, chunk_index, end_offset)`` triples split at
+    ``row_chunk_ends`` boundaries of the whole input, read once (host
+    memory O(file), as the native ingest; device memory O(chunk)).
+    ``start_offset``, a checkpointed chunk-end offset, skips the chunks
+    already folded: the boundaries derive from the whole buffer, so a
+    resumed scan sees the chunking of an uninterrupted one.  Each chunk
+    passes through :func:`chunk_faults`."""
+    from ..native import _read_buffer
+
+    if chunk_rows <= 0:
+        raise ValueError(f"chunk_rows must be positive: {chunk_rows}")
+    tracer = get_tracer()
+    with tracer.span("ingest.read", path=path):
+        buf = _read_buffer(path)
+    if not buf:
+        return
+    pos = 0
+    for idx, end in enumerate(row_chunk_ends(buf, chunk_rows)):
+        if end > pos and end > start_offset:
+            yield chunk_faults(buf[pos:end], idx), idx, end
+        pos = end
+
+
+def iter_byte_chunks(path: str, chunk_rows: int) -> Iterator[bytes]:
+    """The raw byte chunks of :func:`iter_byte_chunks_meta`."""
+    for chunk, _, _ in iter_byte_chunks_meta(path, chunk_rows):
+        yield chunk
+
+
 def first_nonblank_line(chunk: bytes) -> bytes:
     """The first non-empty line of a byte chunk (b"" if none), found
     without splitting the whole chunk."""
@@ -228,7 +277,8 @@ _DONE = object()
 
 
 def drive_prefetched(chunks: Iterable, produce: Callable, consume: Callable,
-                     depth: int, tracer=None, parent=None) -> None:
+                     depth: int, tracer=None, parent=None, trace=None,
+                     thread_name: str = "avenir-ingest-prefetch") -> None:
     """Run ``consume(produce(chunk))`` over a chunk stream: serially when
     ``depth <= 0``, else with ``produce`` (and the chunk generator's own
     work) on a worker thread feeding a queue of at most ``depth`` items.
@@ -237,7 +287,7 @@ def drive_prefetched(chunks: Iterable, produce: Callable, consume: Callable,
     without relaying its error (an injected ``worker_death``) is
     reported instead of blocking forever; on the way out the worker is
     told to stop and drained until it ends.  The worker's spans parent
-    to ``parent``."""
+    to ``parent`` (and join trace ``trace``)."""
     tracer = tracer or get_tracer()
     if depth <= 0:
         for item in chunks:
@@ -249,7 +299,7 @@ def drive_prefetched(chunks: Iterable, produce: Callable, consume: Callable,
     worker_exc: list = [None]
 
     def worker():
-        tracer.adopt(parent)
+        tracer.adopt(parent, trace)
         try:
             for item in chunks:
                 if stop.is_set():
@@ -265,8 +315,7 @@ def drive_prefetched(chunks: Iterable, produce: Callable, consume: Callable,
             worker_exc[0] = exc      # the side cell first: it cannot block
             q.put(_PrefetchError(exc))
 
-    t = threading.Thread(target=worker, daemon=True,
-                         name="avenir-ingest-prefetch")
+    t = threading.Thread(target=worker, daemon=True, name=thread_name)
     t.start()
     try:
         while True:
@@ -299,6 +348,35 @@ def drive_prefetched(chunks: Iterable, produce: Callable, consume: Callable,
 # device side
 # ---------------------------------------------------------------------------
 
+def tree_map(fn: Callable, tree):
+    """``fn`` over every leaf of a carry: a tensor or array, or a dict,
+    tuple or list of carries (the reference's ``jax.tree_util.tree_map``
+    over the carries the port's folds build)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a carry in :func:`tree_map`'s order."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+def add_into(carry, part):
+    """``carry += part`` leaf by leaf, in place; returns ``carry``."""
+    for c, p in zip(tree_leaves(carry), tree_leaves(part)):
+        c += p
+    return carry
+
+
+def _sharded(mesh) -> bool:
+    return mesh is not None and mesh.size > 1
+
+
 class ChunkTransfer:
     """The host-to-device half of the fold: a chunk's host arrays become
     tensors on the device, followed by the chunk's validity mask (None:
@@ -314,14 +392,25 @@ class ChunkTransfer:
     ``HostStager.committed``).  On the CPU the arrays are wrapped as they
     are.  One transfer object serves one producing thread.
 
+    With a ``mesh`` of several positions the rows pad to a multiple of the
+    position count (``parallel.mesh.pad_rows``) and are cut into one block
+    per position (``shard_rows`` over ``('data', 'model')``): each array
+    becomes a list of per-position tensors, and the mask a list of
+    per-position bool tensors, False on the padding rows.
+
     Each call fires the ``h2d`` fault point first: a transfer failure is
     not retried (re-sending a half-sent buffer is not defined), so the
     job fails fast and leaves its checkpoint for ``--resume``."""
 
     SLOTS = 2
 
-    def __init__(self, device: torch.device, tracer=None):
-        self.device = device
+    def __init__(self, device: Optional[torch.device] = None, tracer=None,
+                 mesh=None):
+        if device is None and mesh is None:
+            raise ValueError("pass a device or a mesh")
+        self.mesh = mesh if _sharded(mesh) else None
+        self.device = (device if device is not None
+                       else mesh.devices.flat[0])
         self.tracer = tracer or get_tracer()
         self._staging: dict = {}
         self._turn: dict = {}
@@ -348,6 +437,8 @@ class ChunkTransfer:
             n = arrs[0].shape[0]
             if any(a.shape[0] != n for a in arrs):
                 raise ValueError("chunk arrays disagree on row count")
+            if self.mesh is not None:
+                return self._shard(arrs)
             if self.device.type != "cuda":
                 # a read-only array (an mmapped cache chunk) is copied: a
                 # tensor must not alias memory it may not write
@@ -363,70 +454,122 @@ class ChunkTransfer:
                 event.record()
             return tuple(out) + (None,)
 
+    def _shard(self, arrs) -> tuple:
+        from ..parallel.mesh import pad_rows, shard_rows
+
+        axes = ("data", "model")
+        out, mask = [], None
+        for a in arrs:
+            pa, mask = pad_rows(a, self.mesh.size)
+            out.append(shard_rows(pa if pa.flags.writeable else pa.copy(),
+                                  self.mesh, axes))
+        return tuple(out) + (shard_rows(mask, self.mesh, axes),)
+
 
 class ChunkFold:
     """One stream's fold state.  The first chunk's ``local_fn`` result
-    becomes the carry, a device tensor (or a dict of them); every later
-    chunk calls
-    ``local_fn(..., out=carry)``, which adds into the carry in place.
-    (The reference donates the carry buffer to a jitted
-    ``carry + psum(...)`` to get the same in-place accumulate.)
+    becomes the carry: a device tensor, or a dict (or tuple) of them.
+    Every later chunk calls ``local_fn(..., out=carry)``, which adds into
+    the carry in place.  (The reference donates the carry buffer to a
+    jitted ``carry + psum(...)`` to get the same in-place accumulate.)
     ``broadcast`` are device tensors passed to every call after the mask,
-    before the static arguments, as the reference's ``broadcast_args``."""
+    before the static arguments, as the reference's ``broadcast_args``.
+
+    With a ``mesh`` of several positions (chunks from
+    ``ChunkTransfer(mesh=)``) every position runs ``local_fn`` on its
+    rows with its mask, the mesh's ``psum`` sums the tables onto the
+    mesh's first device, and the sum is added into the carry there
+    (``ops.counting.sharded_reduce_resident``).
+
+    Each fold is a ``span_name`` span (``ingest.fold``; the shared scan
+    names its ``multiscan.fold``) with ``span_attrs``."""
 
     def __init__(self, local_fn: Callable, static_args: tuple = (),
                  device: Optional[torch.device] = None, tracer=None,
-                 parent=None, broadcast: Sequence[torch.Tensor] = ()):
+                 parent=None, broadcast: Sequence[torch.Tensor] = (),
+                 mesh=None, span_name: str = "ingest.fold",
+                 span_attrs: Optional[dict] = None):
         self.local_fn = local_fn
         self.static_args = tuple(static_args)
-        self.broadcast = tuple(broadcast)
+        self.mesh = mesh if _sharded(mesh) else None
+        if device is None and mesh is not None:
+            device = mesh.devices.flat[0]
         self.device = device
+        self.broadcast = tuple(broadcast)
+        if self.mesh is not None and self.broadcast:
+            raise ValueError("broadcast arguments are not ported to a mesh "
+                             "of several positions")
         self.tracer = tracer or get_tracer()
         self.parent = parent
-        self.carry: Optional[torch.Tensor] = None
-        self._host: Optional[torch.Tensor] = None
+        self.span_name = span_name
+        self.span_attrs = dict(span_attrs or {})
+        self.carry = None
+        self._host: Optional[list] = None
 
-    def seed(self, carry_host: np.ndarray) -> None:
-        """Start from a host count table (a checkpointed carry, or one the
-        reference package computed): later chunks accumulate on top of
-        it, so a resumed stream continues where the checkpointed one
-        stopped."""
-        from ..convert import count_table_to_device
-        self.carry = count_table_to_device(carry_host, self.device)
+    def seed(self, carry_host) -> None:
+        """Start from a host carry (a checkpointed one, or one the
+        reference package computed): integer tables become int32 tensors
+        on the fold's device, and later chunks accumulate on top of it, so
+        a resumed stream continues where the checkpointed one stopped."""
+        def place(a):
+            a = np.asarray(a)
+            if a.dtype.kind in "iu":
+                a = a.astype(np.int32)
+            return torch.tensor(a, device=self.device)
+        self.carry = tree_map(place, carry_host)
 
     def snapshot(self):
         """A copy of the carry on its way to the host, or None before the
-        first fold.  On CUDA the copy goes into a pinned buffer with
-        ``non_blocking=True`` and records an event: it is queued after
-        this fold and before the next one, which adds into the carry in
-        place, so it holds exactly this state, and the caller does not
-        wait for it.  :meth:`host_copy` waits for the event later.  One
-        pinned buffer serves every snapshot: the saver materializes a
-        snapshot before it takes the next."""
+        first fold.  On CUDA each table goes into a pinned buffer with
+        ``non_blocking=True`` and one event is recorded after them: the
+        copies are queued after this fold and before the next one, which
+        adds into the carry in place, so they hold exactly this state, and
+        the caller does not wait for them.  :meth:`host_copy` waits for
+        the event later.  One set of pinned buffers serves every snapshot:
+        the saver materializes a snapshot before it takes the next."""
         if self.carry is None:
             return None
-        if not self.carry.is_cuda:
-            return self.carry.clone(), None
-        if self._host is None or self._host.shape != self.carry.shape:
-            self._host = torch.empty(self.carry.shape, dtype=self.carry.dtype,
-                                     pin_memory=True)
-        self._host.copy_(self.carry, non_blocking=True)
+        leaves = tree_leaves(self.carry)
+        if not leaves[0].is_cuda:
+            return tree_map(torch.clone, self.carry), None
+        if (self._host is None
+                or [(h.shape, h.dtype) for h in self._host]
+                != [(t.shape, t.dtype) for t in leaves]):
+            self._host = [torch.empty(t.shape, dtype=t.dtype,
+                                      pin_memory=True) for t in leaves]
+        bufs = iter(self._host)
+
+        def copy(t):
+            h = next(bufs)
+            h.copy_(t, non_blocking=True)
+            return h
+        snap = tree_map(copy, self.carry)
         event = torch.cuda.Event()
         event.record()
-        return self._host, event
+        return snap, event
 
     @staticmethod
-    def host_copy(snap) -> np.ndarray:
-        """A snapshot as a numpy array of its own."""
+    def host_copy(snap):
+        """A snapshot as numpy arrays of its own, in the carry's shape."""
         t, event = snap
         if event is not None:
             event.synchronize()
-        return t.numpy().copy()
+        return tree_map(lambda h: h.numpy().copy(), t)
 
     def fold(self, dev: tuple) -> None:
         *arrays, mask = dev
-        with self.tracer.span("ingest.fold", parent=self.parent):
-            if self.carry is None:
+        with self.tracer.span(self.span_name, parent=self.parent,
+                              **self.span_attrs):
+            if self.mesh is not None:
+                from ..ops.counting import sharded_reduce_resident
+                part = sharded_reduce_resident(
+                    self.local_fn, *arrays, mask=mask, mesh=self.mesh,
+                    static_args=self.static_args)
+                if self.carry is None:
+                    self.carry = part
+                else:
+                    add_into(self.carry, part)
+            elif self.carry is None:
                 self.carry = self.local_fn(*arrays, mask, *self.broadcast,
                                            *self.static_args)
             else:
@@ -434,18 +577,18 @@ class ChunkFold:
                               *self.static_args, out=self.carry)
 
     def block(self) -> None:
-        first = (next(iter(self.carry.values()))
-                 if isinstance(self.carry, dict) else self.carry)
-        if first is not None and first.is_cuda:
+        if self.carry is None:
+            return
+        first = tree_leaves(self.carry)[0]
+        if first.is_cuda:
             torch.cuda.synchronize(first.device)
 
     def result(self):
-        """The carry as a host numpy array, or a dict of them for a
-        ``local_fn`` that returns a dict of tables (None if nothing was
-        folded)."""
-        if isinstance(self.carry, dict):
-            return {k: v.cpu().numpy() for k, v in self.carry.items()}
-        return None if self.carry is None else self.carry.cpu().numpy()
+        """The carry as host numpy arrays in its shape (a table, or a dict
+        of them), or None if nothing was folded."""
+        if self.carry is None:
+            return None
+        return tree_map(lambda t: t.cpu().numpy(), self.carry)
 
 
 class Checkpointed:

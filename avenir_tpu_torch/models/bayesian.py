@@ -41,8 +41,12 @@ is exact, so TF32 cannot round it.  The float64 factors use XLA's float64
 ``exp`` and the float32 log-space sums XLA's float32 ``log``, its
 contracted multiply-adds (ops.xla_math) and its order of summation
 (``_sum_last``), so the feature probabilities that
-``output.feature.prob.only`` prints are the reference's bits.  Not
-ported yet: the shared-scan FoldSpec.
+``output.feature.prob.only`` prints are the reference's bits.
+
+``BayesianDistribution.fold_spec`` exports the trainer's part of a shared
+scan (core.multiscan): ``_NBFoldSpec`` shares the schema encode, and the
+copy, with every co-registered job on the same schema file, and writes the
+model a standalone streamed run writes (None in text mode).
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ from ..core.binning import DatasetEncoder, EncodedDataset
 from ..core.config import JobConfig
 from ..core.io import read_lines, split_line, write_output
 from ..core.metrics import ConfusionMatrix, CostBasedArbitrator, Counters
+from ..core.multiscan import FoldSpec as MultiScanFoldSpec
 from ..core.obs import get_tracer, traced_run
 from ..core.schema import FeatureSchema
 from ..convert import predictor_tables_to_device
@@ -646,6 +651,13 @@ class BayesianDistribution:
         return self._emit_model_lines(ds_meta, counts, moments, delim,
                                       counters)
 
+    def fold_spec(self, out_path: str):
+        """This trainer's shared-scan ``core.multiscan.FoldSpec``; None in
+        text mode (token streams cannot ride the tabular scan)."""
+        if not self.tabular:
+            return None
+        return _NBFoldSpec(self, out_path)
+
     def train_lines(self, ds: EncodedDataset, delim: str,
                     counters: Counters) -> List[str]:
         """The one-shot pass: count the whole encoded dataset on the
@@ -899,6 +911,53 @@ class NaiveBayesModel:
         for ordinal, v in feature_values:
             p *= self.post[(class_val, ordinal)].prob(v)
         return p
+
+
+class _NBFoldSpec(MultiScanFoldSpec):
+    """The NB trainer's part of the shared scan: schema-encodes each chunk
+    through the encoder it shares with every co-registered job on the same
+    schema file (so the encode and the copy happen once a chunk), folds
+    ``_nb_local`` on the device (K1 on the card), and writes the model of
+    a standalone streamed run.  The fold arrays stay int32: narrowing them
+    to int8 would give this job a private copy instead of the shared one.
+    The fold certificate (core.algebra) holds its split invariance."""
+
+    def __init__(self, job: "BayesianDistribution", out_path: str):
+        self.job = job
+        self.out_path = out_path
+        self.name = type(job).__name__
+        self.local_fn = _nb_local
+        self.static_args: tuple = ()
+        self.enc = DatasetEncoder(job.schema)
+        self.delim = job.config.field_delim_out()
+        self.st: Optional[_NBStreamState] = None
+
+    def bind(self, engine) -> None:
+        import os
+        sp = self.job.config.get("feature.schema.file.path")
+        if sp:
+            self.enc = engine.shared_encoder(
+                ("schema-encoder", os.path.abspath(sp)), self.enc)
+
+    def encode(self, ctx):
+        # the native encode off the raw bytes where it applies (negative
+        # bins arrive unshifted and fail accept's guard; the Python
+        # fallback raises on its per-chunk shift)
+        x, values, y, n = ctx.encoded(self.enc)
+        if n == 0:
+            return None
+        if self.st is None:
+            self.st = _NBStreamState(self.enc)
+            self.st.size_caps(x)
+            self.static_args = (self.st.n_class_cap, self.st.bins_cap)
+        return self.st.accept(x, values, y, n, narrow=False)
+
+    def finalize(self, carry) -> Counters:
+        counters = Counters()
+        lines = self.job._streamed_model_lines(self.enc, self.st, carry,
+                                               counters, self.delim)
+        write_output(self.out_path, lines)
+        return counters
 
 
 # ---------------------------------------------------------------------------

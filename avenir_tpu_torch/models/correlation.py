@@ -14,8 +14,11 @@ same config keys and output bytes:
   ordinal pairs with host moments, or the means and deviations of a stats
   file (``NumericalAttrStatsManager``); it does no device work.
 
-Not ported yet: the shared-scan ``fold_spec`` (``_CatCorrFoldSpec``),
-which waits for ``core/multiscan.py``, and ``parse_output`` (the DAG's
+Both categorical correlations export their part of a shared scan
+(core.multiscan) through ``fold_spec``: ``_CatCorrFoldSpec`` takes the
+pairs' columns with the native column parser, folds the contingency
+tables on the device and applies the job's statistic at finalize; it is
+Cramer's only streamed path.  Not ported yet: ``parse_output`` (the DAG's
 artifact import), which waits for ``core/dag.py``.
 """
 
@@ -29,6 +32,7 @@ import torch
 from ..core.config import JobConfig
 from ..core.io import read_lines, split_line, write_output
 from ..core.metrics import Counters
+from ..core.multiscan import FoldSpec as MultiScanFoldSpec
 from ..core.obs import traced_run
 from ..core.schema import FeatureSchema
 from ..device import resolve_device
@@ -80,32 +84,50 @@ def uncertainty_coeff(table: np.ndarray) -> float:
     return sum_one / sum_two
 
 
-def _cat_corr_local(src, dst, mask, sizes):
+def _cat_corr_local(src, dst, mask, sizes, out=None):
     """Every pair's contingency matrix ``C[pair, src, dst]``; ``src`` and
-    ``dst`` are the ``[n, pairs]`` cardinality indices."""
+    ``dst`` are the ``[n, pairs]`` cardinality indices.  With ``out`` (a
+    streamed fold's carry) the counts are added into it in place."""
     p_idx = torch.arange(src.shape[1], device=src.device)[None, :]
     m = None if mask is None else mask[:, None]
-    return count_table(sizes, (p_idx, src, dst), mask=m)
+    counts = count_table(sizes, (p_idx, src, dst), mask=m)
+    if out is None:
+        return counts
+    out += counts
+    return out
 
 
-def _encode_pair_columns(records, pairs, card):
-    """(src_idx, dst_idx) int32 [n, n_pairs] cardinality indices of the
-    configured pairs over parsed records: one ``np.unique`` and lookup
-    table per distinct ordinal.  An attribute value outside the declared
-    cardinality raises KeyError, as a per-record lookup would."""
-    n = len(records)
+def _encode_pairs_from_cols(cols, n, pairs, card):
+    """(src_idx, dst_idx) int32 [n, n_pairs] cardinality indices from
+    per-ordinal value columns (str or bytes arrays): one ``np.unique`` and
+    lookup table per distinct ordinal.  An attribute value outside the
+    declared cardinality raises KeyError, as a per-record lookup would."""
     idx = {}
-    for o in sorted({o for p in pairs for o in p}):
-        uniq, inv = np.unique(np.asarray([r[o] for r in records], dtype=str),
-                              return_inverse=True)
-        lut = np.asarray([card[o][str(u)] for u in uniq.tolist()],
-                         dtype=np.int32)
+    for o, col in cols.items():
+        uniq, inv = np.unique(col, return_inverse=True)
+        lut = np.asarray(
+            [card[o][u.decode() if isinstance(u, bytes) else str(u)]
+             for u in uniq.tolist()], dtype=np.int32)
         idx[o] = lut[inv.reshape(-1)]
     if not pairs:
         return (np.zeros((n, 0), np.int32), np.zeros((n, 0), np.int32))
     src_idx = np.stack([idx[s] for s, _ in pairs], axis=1)
     dst_idx = np.stack([idx[d] for _, d in pairs], axis=1)
     return src_idx, dst_idx
+
+
+def _encode_pair_columns(records, pairs, card):
+    """``_encode_pairs_from_cols`` over parsed records (a field matrix or
+    per-line field lists)."""
+    ords = sorted({o for p in pairs for o in p})
+    if isinstance(records, np.ndarray) and records.ndim == 2:
+        cols = {o: records[:, o] for o in ords}
+        n = records.shape[0]
+    else:
+        cols = {o: np.asarray([r[o] for r in records], dtype=str)
+                for o in ords}
+        n = len(records)
+    return _encode_pairs_from_cols(cols, n, pairs, card)
 
 
 class CategoricalCorrelation:
@@ -167,6 +189,10 @@ class CategoricalCorrelation:
         counters.set("Correlation", "Pairs", len(pairs))
         return counters
 
+    def fold_spec(self, out_path: str):
+        """This job's shared-scan ``core.multiscan.FoldSpec``."""
+        return _CatCorrFoldSpec(self, out_path)
+
 
 class CramerCorrelation(CategoricalCorrelation):
     pass
@@ -181,6 +207,55 @@ class HeterogeneityReductionCorrelation(CategoricalCorrelation):
         if alg == "gini":
             return concentration_coeff(table)
         return uncertainty_coeff(table)
+
+
+class _CatCorrFoldSpec(MultiScanFoldSpec):
+    """The contingency-matrix correlations' part of the shared scan (the
+    statistic stays the job's): each chunk's configured attribute pairs
+    encode to cardinality indices and fold one ``count_table``; finalize
+    applies the job's statistic to each pair's matrix.  A value outside
+    the declared cardinality withdraws the spec, and the standalone
+    re-run raises the KeyError a standalone job would.  The fold
+    certificate (core.algebra) holds its split invariance."""
+
+    def __init__(self, job: CategoricalCorrelation, out_path: str):
+        self.job = job
+        self.out_path = out_path
+        self.name = type(job).__name__
+        self.local_fn = _cat_corr_local
+        self.delim = job.config.field_delim_out()
+        self.pairs, self.fields, self.card, sizes = job._pair_setup()
+        self.static_args = (sizes,)
+
+    def encode(self, ctx):
+        from ..core.binning import ChunkedEncodeUnsupported
+
+        ords = tuple(sorted({o for p in self.pairs for o in p}))
+        cols = ctx.columns(ords)
+        try:
+            if cols is not None:
+                n = len(next(iter(cols.values()))) if cols else 0
+                if n == 0:
+                    return None
+                return _encode_pairs_from_cols(cols, n, self.pairs,
+                                               self.card)
+            chunk = ctx.fields()
+            n = (chunk.shape[0] if isinstance(chunk, np.ndarray)
+                 else len(chunk))
+            if n == 0:
+                return None
+            return _encode_pair_columns(chunk, self.pairs, self.card)
+        except KeyError as exc:
+            raise ChunkedEncodeUnsupported(
+                f"undeclared attribute value {exc}")
+
+    def finalize(self, carry) -> Counters:
+        counters = Counters()
+        write_output(self.out_path, self.job._emit_lines(
+            np.asarray(carry), self.pairs, self.fields, self.card,
+            self.delim))
+        counters.set("Correlation", "Pairs", len(self.pairs))
+        return counters
 
 
 class NumericalCorrelation:

@@ -34,9 +34,9 @@ config keys, input layouts and output bytes:
   ``jnp.argmax`` and the reference's strict ``>``), then the backtrack.
 
 Every job takes a ``device`` (``cuda:0`` unless the caller asks for the
-CPU).  Not ported yet: the trainer's shared-scan ``fold_spec``
-(``_MarkovFoldSpec``), which waits for the shared scan
-(``core/multiscan.py``), and ``mesh=`` on the streamed trainer.
+CPU).  The trainer's ``fold_spec`` exports its part of a shared scan
+(core.multiscan, ``_MarkovFoldSpec``).  Not ported yet: ``mesh=`` on the
+streamed trainer.
 """
 
 from __future__ import annotations
@@ -50,6 +50,7 @@ import torch
 from ..core.config import JobConfig
 from ..core.io import read_lines, split_line, write_output
 from ..core.metrics import Counters
+from ..core.multiscan import FoldSpec as MultiScanFoldSpec
 from ..core.obs import get_tracer, traced_run
 from ..core.tabular import deserialize_matrix, normalize_rows, serialize_matrix
 from ..device import resolve_device
@@ -355,6 +356,10 @@ class MarkovStateTransitionModel:
             builder.finish(class_labels)
         return self._streamed_result(counts, class_labels, class_ord, S)
 
+    def fold_spec(self, out_path: str):
+        """This trainer's shared-scan ``core.multiscan.FoldSpec``."""
+        return _MarkovFoldSpec(self, out_path)
+
     @staticmethod
     def _streamed_result(counts, class_labels, class_ord, S):
         n_class = len(class_labels)
@@ -364,6 +369,79 @@ class MarkovStateTransitionModel:
         elif class_ord >= 0:
             counts = counts[:n_class]
         return np.asarray(counts, dtype=np.int64), class_labels
+
+
+class _MarkovFoldSpec(MultiScanFoldSpec):
+    """The Markov trainer's part of the shared scan: each chunk's trailing
+    state sequences flatten to 1-D (from, to, class) pair streams folded
+    by ``_markov_pair_local``; class labels are discovered in input order
+    as on the standalone paths, with the same class cap after the first
+    chunk and the same withdrawal past it.  The fold certificate
+    (core.algebra) holds its split invariance."""
+
+    # the reference pads these variable-length streams to power-of-two
+    # extents; the port's engine does not pad and ignores the flag
+    fixed_capacity = False
+
+    def __init__(self, job: "MarkovStateTransitionModel", out_path: str):
+        cfg = job.config
+        self.job = job
+        self.out_path = out_path
+        self.name = type(job).__name__
+        self.local_fn = _markov_pair_local
+        self.static_args: tuple = ()
+        self.states = cfg.must("model.states").split(",")
+        self.vocab = {s: i for i, s in enumerate(self.states)}
+        self.S = len(self.states)
+        skip = cfg.get_int("skip.field.count", 0)
+        self.class_ord = cfg.get_int("class.label.field.ord", -1)
+        self.eff_skip = skip + (1 if self.class_ord >= 0 else 0)
+        self.scale = cfg.get_int("trans.prob.scale", 1000)
+        self.output_states = cfg.get_boolean("output.states", True)
+        self.class_labels: List[str] = []
+        self._seen: Dict[str, int] = {}
+        self._cap: Optional[int] = None
+
+    def encode(self, ctx):
+        from ..core.binning import ChunkedEncodeUnsupported
+
+        records = [r for r in ctx.fields() if len(r) >= self.eff_skip + 2]
+        if not records:
+            return None
+        cls_idx = np.zeros(len(records), dtype=np.int32)
+        if self.class_ord >= 0:
+            for i, r in enumerate(records):
+                lbl = str(r[self.class_ord])
+                if lbl not in self._seen:
+                    self._seen[lbl] = len(self._seen)
+                    self.class_labels.append(lbl)
+                cls_idx[i] = self._seen[lbl]
+            if self._cap is not None and len(self.class_labels) > self._cap:
+                raise ChunkedEncodeUnsupported("late class label")
+        seq, _ = encode_sequences(records, self.eff_skip, self.vocab)
+        if seq.shape[1] < 2:
+            return None
+        if self._cap is None:
+            # headroom covers stragglers; a label first seen beyond it
+            # withdraws the spec (the standalone re-run)
+            n_class_cap = 0
+            if self.class_ord >= 0:
+                self._cap = n_class_cap = max(len(self.class_labels), 1) + 2
+            self.static_args = (n_class_cap, self.S)
+        frm, to = _transition_pairs(seq)
+        cls = np.repeat(cls_idx, frm.shape[1])
+        return frm.ravel(), to.ravel(), cls
+
+    def finalize(self, carry) -> Counters:
+        counters = Counters()
+        counts = np.asarray(carry)
+        if self.class_ord >= 0:
+            counts = counts[:len(self.class_labels)]
+        write_output(self.out_path, self.job._model_lines(
+            counts, self.class_labels, self.states, self.scale,
+            self.output_states, self.class_ord))
+        counters.set("Markov", "Transitions", int(counts.sum()))
+        return counters
 
 
 # ---------------------------------------------------------------------------

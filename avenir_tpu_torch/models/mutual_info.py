@@ -21,9 +21,11 @@ path runs on one device and refuses a mesh of several positions.
 ``check_pair_table_budget`` refuses a schema whose pair table would
 exceed ``pipeline.device.budget.bytes`` before any input is read.
 
-Not ported yet: the shared-scan ``fold_spec`` (``_MIFoldSpec``), which
-waits for ``core/multiscan.py``, and ``parse_scores`` (the DAG's
-artifact import), which waits for ``core/dag.py``.
+``fold_spec`` exports the job's part of a shared scan (core.multiscan):
+``_MIFoldSpec`` shares the schema encode and the copy with co-registered
+jobs on the same schema file, and folds both tables, a dict carry.  Not
+ported yet: ``parse_scores`` (the DAG's artifact import), which waits for
+``core/dag.py``.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from ..core.binning import DatasetEncoder, EncodedDataset
 from ..core.config import JobConfig
 from ..core.io import write_output
 from ..core.metrics import Counters
+from ..core.multiscan import FoldSpec as MultiScanFoldSpec
 from ..core.obs import get_tracer, traced_run
 from ..core.schema import FeatureSchema
 from ..device import resolve_device
@@ -413,6 +416,10 @@ class MutualInformation:
             vocabs=enc.vocabs, class_vocab=enc.class_vocab)
         return self._emit(ds_meta, fc, pc, st.pair_i, st.pair_j, delim, cfg)
 
+    def fold_spec(self, out_path: str):
+        """This job's shared-scan ``core.multiscan.FoldSpec``."""
+        return _MIFoldSpec(self, out_path)
+
     # -- host post-processing ----------------------------------------------
     def _emit(self, ds: EncodedDataset, fc, pc, pair_i, pair_j, delim,
               cfg) -> List[str]:
@@ -587,3 +594,49 @@ class MutualInformation:
             for f, v in fn(score, rf):
                 out.append(f"{f}{delim}{v}")
         return out
+
+
+class _MIFoldSpec(MultiScanFoldSpec):
+    """MutualInformation's part of the shared scan: shares the schema
+    encode (and the copy) with co-registered jobs on the same schema file,
+    folds both distribution tables on the device (K1 and the pair count,
+    a dict carry) and writes the job's normal output file.  The fold
+    certificate (core.algebra) holds its split invariance."""
+
+    def __init__(self, job: "MutualInformation", out_path: str):
+        self.job = job
+        self.out_path = out_path
+        self.name = type(job).__name__
+        self.local_fn = _mi_local
+        self.static_args: tuple = ()
+        self.enc = DatasetEncoder(job.schema)
+        self.delim = job.config.field_delim_out()
+        self.st: Optional[_MIStreamState] = None
+
+    def bind(self, engine) -> None:
+        import os
+        sp = self.job.config.get("feature.schema.file.path")
+        if sp:
+            self.enc = engine.shared_encoder(
+                ("schema-encoder", os.path.abspath(sp)), self.enc)
+
+    def encode(self, ctx):
+        x, _, y, n = ctx.encoded(self.enc)
+        if self.st is None:
+            self.st = _MIStreamState(self.enc)
+        out = self.st.accept(x, y, n)
+        if out is not None and not self.st.caps:
+            self.st.size_caps()
+            check_pair_table_budget(self.job.config, self.st.F,
+                                    self.st.caps["B"], self.st.caps["C"])
+            self.static_args = (self.st.caps["C"], self.st.caps["B"],
+                                self.st.pair_i, self.st.pair_j)
+        return out
+
+    def finalize(self, carry) -> Counters:
+        counters = Counters()
+        counters.set("Basic", "Records", self.st.n_rows)
+        lines = self.job._streamed_lines(self.enc, self.st, carry,
+                                         self.delim, self.job.config)
+        write_output(self.out_path, lines)
+        return counters

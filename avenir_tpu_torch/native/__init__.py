@@ -18,6 +18,10 @@ the fast path cannot take (a multi-character delimiter, ragged rows, an
 unparseable number) still returns None from the encode calls, and the
 callers fall back as the reference's do.
 
+:func:`parse_csv_columns_buffer` binds the source's column parser
+(``csv_parse``): the shared scan takes a job's few columns with it
+(core.multiscan's ``ChunkContext.columns``).
+
 ``ENCODE_CALLS`` counts the calls into the C encoder (one per buffer; a
 vocabulary-overflow retry adds one), so a run can show that its main
 path went through the C parser.
@@ -31,7 +35,7 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -131,6 +135,12 @@ def get_lib():
         lib.csv_scan.argtypes = [
             ctypes.c_char_p, ctypes.c_longlong, ctypes.c_char,
             ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.csv_parse.restype = ctypes.c_int
+        lib.csv_parse.argtypes = [
+            ctypes.c_char_p, ctypes.c_longlong, ctypes.c_char,
+            ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_void_p), ctypes.c_longlong]
         lib.csv_encode.restype = ctypes.c_int
         lib.csv_encode.argtypes = [
             ctypes.c_char_p, ctypes.c_longlong, ctypes.c_char,
@@ -170,6 +180,56 @@ def _read_buffer(path: str) -> bytes:
     from ..core.resilience import with_retries
     return b"\n".join(with_retries(_read_part, fp, op="ingest.read")
                       for fp in _input_files(path))
+
+
+def parse_csv_columns(path: str, col_types, delim: str = ","
+                      ) -> Optional[Tuple[int, Dict[int, np.ndarray]]]:
+    """A delimited file (or part-file directory) parsed into typed numpy
+    columns: ``col_types[i]`` is SKIP, INT64, FLOAT64 or BYTES for file
+    column ``i``, and ``col_types`` covers every column of the file.
+    Returns ``(n_rows, {ordinal: array})``, or None when the fast path
+    does not apply (a multi-character delimiter, ragged rows, an
+    unparseable number); callers then parse in Python."""
+    if len(delim) != 1:
+        return None
+    get_lib()
+    return parse_csv_columns_buffer(_read_buffer(path), col_types, delim)
+
+
+def parse_csv_columns_buffer(buf: bytes, col_types, delim: str = ","
+                             ) -> Optional[Tuple[int, Dict[int, np.ndarray]]]:
+    """:func:`parse_csv_columns` over an in-memory buffer: the per-chunk
+    form the shared scan uses to take only the columns a job reads, with
+    no field matrix (BYTES columns come back as fixed-width ``S``
+    arrays, FLOAT64 through C ``strtod``, the values ``float()`` gives)."""
+    lib = get_lib()
+    if len(delim) != 1:
+        return None
+    n_cols = len(col_types)
+    bdelim = ctypes.c_char(delim.encode())
+    widths = (ctypes.c_int * n_cols)(*([0] * n_cols))
+    n_rows = lib.csv_scan(buf, len(buf), bdelim, n_cols, widths)
+    if n_rows < 0:
+        return None
+    cols: Dict[int, np.ndarray] = {}
+    outs = (ctypes.c_void_p * n_cols)(*([None] * n_cols))
+    for j, t in enumerate(col_types):
+        if t == INT64:
+            a = np.empty(n_rows, dtype=np.int64)
+        elif t == FLOAT64:
+            a = np.empty(n_rows, dtype=np.float64)
+        elif t == BYTES:
+            a = np.empty(n_rows, dtype=f"S{max(int(widths[j]), 1)}")
+        else:
+            continue
+        cols[j] = a
+        outs[j] = a.ctypes.data
+    rc = lib.csv_parse(buf, len(buf), bdelim, n_cols,
+                       (ctypes.c_int * n_cols)(*col_types), widths, outs,
+                       n_rows)
+    if rc != 0:
+        return None
+    return int(n_rows), cols
 
 
 def encode_schema(path: str, col_specs, n_file_cols: int, n_feat: int,

@@ -16,8 +16,9 @@ the fused engine's gate; the merge of K3's candidate segments, K3m, at the
 main path's segment lists, at the serving batches' (lists out, and keys
 out in place into list 0), at K3's most segments for one query (257 lists,
 k = 16 and 64) and at one row of one list (its launch floor), each with
-the ``merge_plan`` it took; K3's keys-out form with an index base and the
-merge's keys-out form at a ring hop's shape), then drives every ported
+the ``merge_plan`` it took; K3's keys-out form with an index base, beside
+its cross term's ``torch.matmul``, and the merge's keys-out form at a ring
+hop's and a model shard's shapes), then drives every ported
 path on the card and again on the CPU:
 
 1. telecom-churn Naive Bayes at the repo's benchmark size (50,000 seeded
@@ -95,7 +96,19 @@ path on the card and again on the CPU:
    the all-binned schema): MI monolithic (one K1 launch), streamed in
    65,536-row chunks writing the ingest cache (one K1 launch a chunk) and
    warm off it, and Cramer;
-12. ``tree``: ``resource/decision_tree`` (three levels) and
+12. ``multiscan``: ``resource/multiscan/run.sh``'s four jobs through
+   ``python -m avenir_tpu_torch multi``, ``resource/fisher_discriminant``
+   and ``resource/correlation_suite``'s NumericalAttrStats leg, on the card
+   and on the CPU; then bench.py:840's cell (the same 400,000 rows in
+   65,536-row chunks at depth 2): NB, MI and Cramer standalone and fused
+   in turns (fused / standalone seconds, H2D copies a chunk, K1's launches
+   fused = NB's + MI's, K2 none, the fused pass's device idle share), the
+   four-job manifest (+ NumericalAttrStats) cold, warm off the tee'd
+   ingest cache and on the CPU, and killed by a ``worker_death@3`` and
+   resumed, every output equal to its standalone run; the fold
+   certificate (``core.algebra.run_dynamic``) on [cuda:0] and
+   [cuda:0] * 4; K1 at the fused pass's chunk;
+13. ``tree``: ``resource/decision_tree`` (three levels) and
    ``resource/retarget_tree`` through the command line (``decpath.json``,
    every level's records, the ``split=.../segment=...`` tree), bench.py:1327's
    level pass at full width (2,000,000 rows x 64 predicates x 8 paths x 2
@@ -104,24 +117,25 @@ path on the card and again on the CPU:
    rows, and ``serve_tree``: the runbook's tree as a ``decisionTree`` model
    behind ``python -m avenir_tpu_torch serve``, 16 single-row clients and
    batches of 1-64, each response equal to the CPU route;
-13. ``pst``: ``resource/visit_pst``, then 200,000 visit rows (windows 2-4)
+14. ``pst``: ``resource/visit_pst``, then 200,000 visit rows (windows 2-4)
    on cuda:0, on a mesh of [cuda:0] * 4 (the halo) and on the CPU;
-14. ``text``: ``resource/word_count`` and ``resource/text_classify``, then
+15. ``text``: ``resource/word_count`` and ``resource/text_classify``, then
    200,000 text rows: NB text training (one K1 launch at F = 1), scoring
    and ``WordCounter``; K1 is held to its plain version at the text shape
    (the runbook's 22 tokens, and 2,000,000 tokens over a 40,000-token
    vocabulary, the cluster route);
-15. ``regress``: ``resource/logistic_regression``'s loop (the same
+16. ``regress``: ``resource/logistic_regression``'s loop (the same
    iteration as the CPU, histories within rtol 1e-9), then gen.py's rows at
    1,000,000 for 10 iterations on one resident batch, with the seconds per
-   iteration.  Phases 7-15 launch no kernel of the port but K1 (the NB
-   runbooks' training, MI, NB text training); each prints its host-clock
-   times and a ``torch.profiler`` device-busy and idle share.
+   iteration.  Phases 7-16 launch no kernel of the port but K1 (the NB
+   runbooks' training, MI and the shared scan, NB text training); each
+   prints its host-clock times and a ``torch.profiler`` device-busy and
+   idle share.
 
 Kernel counts (and the native encoder's call count) are set to 0 just
 before each path and read just after.
 Outputs must be byte-identical between the card and the CPU (phases 7-9
-and 11-14 compare every output; the regression's float64 histories agree
+and 11-15 compare every output; the regression's float64 histories agree
 within rtol 1e-9, the reference's own tolerance), except kNN
 pair lines whose distance lands on an int-scale rounding boundary: those
 may differ by one unit, and a float64 oracle must confirm them.
@@ -848,6 +862,9 @@ def run_tile_case(torch, topk, card, tag, nq, nt, F, blocks, ring, seed,
     ms = time_ms(kern, 20)
     plain_ms = time_ms(plain, 5)
     device_ms = kernel_device_ms(kern, 5, "topk_kernel")
+    # the tile's cross term alone, a partial floor (no PyTorch call
+    # computes distance + exact top-k)
+    matmul_ms = time_ms(chunked_matmul(torch, qn, tn), 20)
     bound_ms, bound_by = bound(
         4 * (nq + nt) * F + 8 * splits * nq * KNN_K, 2 * F * nq * nt)
     seeded = ", seeded k-th bound" if ring else ""
@@ -855,7 +872,8 @@ def run_tile_case(torch, topk, card, tag, nq, nt, F, blocks, ring, seed,
              f"S={splits}{seeded}")
     log(f"K3 segment_keys [{label}]: max abs err {err}, rows that differ "
         f"{rows}/{nq}; kernel {ms:.4f} ms (device {device_ms:.4f} ms), "
-        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
+        f"plain {plain_ms:.4f} ms, torch.matmul of the cross term alone "
+        f"{matmul_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
         f"[{card}]")
     k3_entry = {
         "name": f"K3 segment_keys [{label}, keys out]",
@@ -863,7 +881,8 @@ def run_tile_case(torch, topk, card, tag, nq, nt, F, blocks, ring, seed,
         "replaces": TOPK_KERNEL[1], "kid": kid,
         "launches": 0, "max_abs_err": err, "ms": ms, "device_ms": device_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None, "rows_differ": rows, "splits": splits}
+        "library_ms": None, "matmul_ms": matmul_ms, "rows_differ": rows,
+        "splits": splits}
     del pkeys, t_all, tc_all, tn, tc
 
     if ring:
@@ -3147,7 +3166,8 @@ def mi_corr_paths(torch, histogram, card) -> tuple:
     bench.py's shared-scan cell: MI monolithic, streamed in 65,536-row
     chunks writing the ingest cache, and warm off it; Cramer monolithic;
     card against CPU, K1's launches per MI run.  Returns the main path's
-    K1 launches and the MI shape's histogram case."""
+    K1 launches, the MI shape's histogram case and the shared-scan cell's
+    input and schema paths."""
     import numpy as np
 
     from avenir_tpu_torch.core.binning import DatasetEncoder
@@ -3233,7 +3253,273 @@ def mi_corr_paths(torch, histogram, card) -> tuple:
     case = ("K1mi", "MI monolithic call (bench.py:840 cell)", C, B, None,
             lambda: (torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda(),
                      None))
-    return {"K1mi": k1["MI monolithic"]}, case
+    return {"K1mi": k1["MI monolithic"]}, case, (inp, schema)
+
+
+# ---------------------------------------------------------------------------
+# the shared scan: core/multiscan, the fold certificate, the discriminants
+# ---------------------------------------------------------------------------
+
+MULTISCAN_BOOK = os.path.join(ROOT, "resource", "multiscan")
+FISHER_BOOK = os.path.join(ROOT, "resource", "fisher_discriminant")
+# bench.py:840's jobs over the cell, and the multiscan runbook's fourth
+SHARED_JOBS = (("nb", "BayesianDistribution", {}),
+               ("mi", "MutualInformation", {}),
+               ("corr", "CramerCorrelation", {"source.attributes": "1",
+                                              "dest.attributes": "7"}),
+               ("stats", "NumericalAttrStats", {"attr.list": "2,3",
+                                                "cond.attr.ord": "7"}))
+SHARED_REPS = 2
+
+
+def multiscan_runbooks(work: str, dev: str) -> dict:
+    """``resource/multiscan/run.sh`` (its four jobs through ``python -m
+    avenir_tpu_torch multi``, recorded with ``--profile-dir``),
+    ``resource/fisher_discriminant/run.sh`` and
+    ``resource/correlation_suite``'s NumericalAttrStats leg; every
+    output's bytes."""
+    from avenir_tpu_torch import datagen
+
+    dv = ["--device", dev]
+    with in_dir(work):
+        for f in ("workflow.properties", "teleComChurnBinned.json"):
+            shutil.copy(os.path.join(MULTISCAN_BOOK, f), work)
+        datagen.main(["telecom_churn", "20000", "--seed", "31",
+                      "--out", "work/in/part-00000"])
+        err = run_job(["multi", "-Dconf.path=workflow.properties",
+                       "work/in", "work/out", "--profile-dir=work/prof"]
+                      + dv)
+        if "standalone" in err:
+            raise AssertionError(f"a runbook job left the shared scan: "
+                                 f"{err}")
+        # --profile-dir's torch.profiler trace; on the card it must hold
+        # device events (kernels or copies)
+        (trace,) = os.listdir("work/prof")
+        with open(os.path.join("work/prof", trace)) as fh:
+            cats = {e.get("cat") for e in json.load(fh)["traceEvents"]}
+        if dev == "cuda" and not cats & {"kernel", "gpu_memcpy"}:
+            raise AssertionError(f"--profile-dir's trace holds no device "
+                                 f"event: {sorted(map(str, cats))}")
+        datagen.main(["telecom_churn", "3000", "--seed", "29",
+                      "--out", "work/churn/part-00000"])
+        run_job(["FisherDiscriminant",
+                 f"-Dconf.path={FISHER_BOOK}/fisher.properties",
+                 "work/churn", "work/fisher"] + dv)
+        run_job(["NumericalAttrStats",
+                 f"-Dconf.path={SUITE_BOOK}/stats.properties",
+                 "work/churn", "work/stats"] + dv)
+        out = {j: read_bytes(f"work/out/{j}")
+               for j in ("nb", "mi", "corr", "stats")}
+        out.update({k: read_bytes(f"work/{k}") for k in ("fisher", "stats")})
+        return out
+
+
+def shared_defines(schema: str, jids) -> list:
+    """The cell's manifest (``multi.*`` keys) as command-line defines."""
+    out = [f"-Dmulti.jobs={','.join(jids)}",
+           f"-Dpipeline.chunk.rows={SHARED_CHUNK}",
+           "-Dpipeline.prefetch.depth=2"]
+    for jid, cls, props in SHARED_JOBS:
+        if jid not in jids:
+            continue
+        out.append(f"-Dmulti.job.{jid}.class={cls}")
+        if jid != "stats":
+            out.append(f"-Dmulti.job.{jid}.feature.schema.file.path="
+                       f"{schema}")
+        out += [f"-Dmulti.job.{jid}.{k}={v}" for k, v in props.items()]
+    return out
+
+
+def multiscan_paths(torch, histogram, card, inp: str, schema: str) -> tuple:
+    """The shared scan on the card: the multiscan, Fisher and stats
+    runbooks on the card and on the CPU; bench.py:840's cell (NB + MI +
+    Cramer over 400,000 rows in 65,536-row chunks at depth 2) standalone
+    and fused, K1's launches fused = NB's + MI's standalone, the copies a
+    chunk and the fused pass's device idle share; the four-job manifest
+    cold and warm off the tee'd cache, on the CPU, and killed by a worker
+    death and resumed; the fold certificate (``algebra.run_dynamic``) on
+    [cuda:0] and [cuda:0] * 4.  Every output byte-equal to its standalone
+    run and to the CPU's.  Returns the fused pass's K1 launches and K1's
+    case at its chunk."""
+    import numpy as np
+
+    from avenir_tpu_torch.cli import job_resolver
+    from avenir_tpu_torch.core import algebra, multiscan, obs, pipeline
+    from avenir_tpu_torch.core.binning import DatasetEncoder
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.core.schema import FeatureSchema
+    from avenir_tpu_torch.models.bayesian import _NBStreamState
+    from avenir_tpu_torch.parallel.mesh import make_mesh
+
+    w = os.path.join(WORK, "multiscan")
+    cuda0 = torch.device("cuda", 0)
+    histogram.reset_launch_counts()
+    rb, secs = on_both(lambda dev: multiscan_runbooks(
+        os.path.join(w, f"runbook_{dev}"), dev))
+    same_on_both("multiscan / fisher / stats runbooks", rb)
+    log(f"multiscan runbook (4 jobs fused), fisher_discriminant and "
+        f"correlation_suite's NumericalAttrStats through the CLI: cuda "
+        f"{secs['cuda']:.3f} s, cpu {secs['cpu']:.3f} s; {len(rb['cuda'])} "
+        f"outputs byte-equal [{card}]")
+
+    # the cell: standalone against fused, in turns, the best of each
+    three = ("nb", "mi", "corr")
+    alone, t_alone, k_alone = {}, {}, {}
+    fused3, t_fused, k_fused = None, [], None
+    copies = chunks = 0
+    tr = obs.get_tracer()
+    for rep in range(SHARED_REPS):
+        for jid, cls, props in SHARED_JOBS:
+            out = os.path.join(w, f"alone_{jid}")
+            argv = [cls] + ([f"-Dfeature.schema.file.path={schema}"]
+                            if jid != "stats" else []) + [
+                f"-D{k}={v}" for k, v in props.items()] + [
+                f"-Dpipeline.chunk.rows={SHARED_CHUNK}", inp, out,
+                "--device", "cuda"]
+            histogram.reset_launch_counts()
+            t = time.perf_counter()
+            run_job(argv)
+            t_alone.setdefault(jid, []).append(time.perf_counter() - t)
+            k_alone[jid] = (histogram.K1_LAUNCHES, histogram.K2_LAUNCHES)
+            got = read_bytes(out)
+            if alone.setdefault(jid, got) != got:
+                raise AssertionError(f"standalone {jid} changed between runs")
+        cfg = JobConfig(dict(
+            a[2:].split("=", 1) for a in shared_defines(schema, three)))
+        histogram.reset_launch_counts()
+        obs.configure(enabled=True)
+        tr.clear()
+        t = time.perf_counter()
+        multiscan.run_multi(cfg, inp, os.path.join(w, "fused3"),
+                            job_resolver(cuda0), mesh=make_mesh([cuda0]))
+        torch.cuda.synchronize()
+        t_fused.append(time.perf_counter() - t)
+        copies = len(tr.spans("ingest.h2d"))
+        chunks = sum(1 for g in tr.records() if isinstance(g, obs.Gauge)
+                     and g.name == "multiscan.fanout.width")
+        obs.configure(enabled=False)
+        tr.clear()
+        k_fused = (histogram.K1_LAUNCHES, histogram.K2_LAUNCHES)
+        fused3 = {j: read_bytes(os.path.join(w, "fused3", j)) for j in three}
+    for j in three:
+        if fused3[j] != alone[j]:
+            raise AssertionError(f"fused {j}'s bytes differ from its "
+                                 f"standalone run's")
+    want_k1 = k_alone["nb"][0] + k_alone["mi"][0]
+    n_chunks = -(-SHARED_ROWS // SHARED_CHUNK)
+    if (k_alone["nb"][0], k_alone["mi"][0]) != (n_chunks, n_chunks):
+        raise AssertionError(f"standalone K1 launches {k_alone}, not "
+                             f"{n_chunks} for NB and MI")
+    if k_fused != (want_k1, 0):
+        raise AssertionError(f"the fused pass launched K1/K2 {k_fused}, not "
+                             f"({want_k1}, 0)")
+    if (chunks, copies) != (n_chunks, 2 * n_chunks):
+        raise AssertionError(f"{copies} copies over {chunks} chunks, not "
+                             f"two a chunk (NB and MI share one)")
+    best = {j: min(t_alone[j]) for j in t_alone}
+    alone_s = sum(best[j] for j in three)
+    fused_s = min(t_fused)
+    log(f"shared-scan cell ({SHARED_ROWS} rows, {SHARED_CHUNK}-row chunks, "
+        f"depth 2, best of {SHARED_REPS}): standalone NB {best['nb']:.3f} s "
+        f"+ MI {best['mi']:.3f} s + Cramer {best['corr']:.3f} s = "
+        f"{alone_s:.3f} s; fused {fused_s:.3f} s; fused / standalone "
+        f"{fused_s / alone_s:.4f}; H2D copies a chunk {copies / chunks:.2f} "
+        f"({copies} over {chunks} chunks); K1 launches fused {k_fused[0]} = "
+        f"NB {k_alone['nb'][0]} + MI {k_alone['mi'][0]}, K2 {k_fused[1]} "
+        f"[{card}]")
+    by_kind, wall_s = profile_device(torch, lambda: multiscan.run_multi(
+        cfg, inp, os.path.join(w, "fused3_profiled"), job_resolver(cuda0),
+        mesh=make_mesh([cuda0])),
+        {"histogram kernel": "histogram_kernel", "pair count": "index"})
+    report_phase("fused NB + MI + Cramer pass", by_kind, wall_s,
+                 "histogram kernel", card)
+
+    # the four-job manifest: cold (tees the cache), warm, the CPU, a kill
+    four = ("nb", "mi", "corr", "stats")
+    cache = [f"-Dingest.cache.dir={os.path.join(w, 'cache')}",
+             "-Dingest.cache.enable=true"]
+    outs, times, k = {}, {}, {}
+    for label, dev, extra in (("cold", "cuda", cache), ("warm", "cuda", cache),
+                              ("cpu", "cpu", [])):
+        out = os.path.join(w, f"four_{label}")
+        histogram.reset_launch_counts()
+        t = time.perf_counter()
+        err = run_job(["multi"] + shared_defines(schema, four) + extra
+                      + [inp, out, "--device", dev])
+        times[label] = time.perf_counter() - t
+        k[label] = (histogram.K1_LAUNCHES, histogram.K2_LAUNCHES)
+        if "standalone" in err:
+            raise AssertionError(f"four-job {label} pass: {err}")
+        outs[label] = {j: read_bytes(os.path.join(out, j)) for j in four}
+        if outs[label] != {j: alone[j] for j in four}:
+            bad = [j for j in four if outs[label][j] != alone[j]]
+            raise AssertionError(f"four-job {label} pass: {bad} differ "
+                                 f"from the standalone runs")
+    if k["cold"] != (want_k1, 0) or k["warm"] != (want_k1, 0) \
+            or k["cpu"] != (0, 0):
+        raise AssertionError(f"four-job K1/K2 launches {k}")
+    if not os.listdir(os.path.join(w, "cache")):
+        raise AssertionError("the cold pass published no cache artifact")
+
+    out = os.path.join(w, "four_killed")
+    kill = ["multi"] + shared_defines(schema, four) + [
+        "-Dcheckpoint.interval.chunks=1", inp, out, "--device", "cuda"]
+    try:
+        run_job(kill + ["-Dfault.inject.plan=worker_death@3"])
+    except RuntimeError as e:
+        died = str(e)
+    else:
+        raise AssertionError("worker_death@3 did not kill the fused pass")
+    with open(os.path.join(out, "_multiscan.ckpt"), "rb") as fh:
+        ck = pickle.load(fh)
+    if not isinstance(ck["carry"].get("mi"), dict):
+        raise AssertionError("the sidecar lacks MI's dict carry")
+    histogram.reset_launch_counts()
+    t = time.perf_counter()
+    run_job(kill + ["--resume"])
+    t_resume = time.perf_counter() - t
+    resumed = {j: read_bytes(os.path.join(out, j)) for j in four}
+    if resumed != outs["cold"]:
+        raise AssertionError("the resumed pass's bytes differ from the "
+                             "clean run's")
+    left = n_chunks - (ck["chunk_index"] + 1)
+    if histogram.K1_LAUNCHES != 2 * left:
+        raise AssertionError(f"the resume launched K1 "
+                             f"{histogram.K1_LAUNCHES} times, not 2 x {left}")
+    if os.path.exists(os.path.join(out, "_multiscan.ckpt")):
+        raise AssertionError("the resumed pass left its sidecar")
+    log(f"four-job manifest (+ NumericalAttrStats, attr.list=2,3, "
+        f"cond.attr.ord=7), every output equal to its standalone run: cold "
+        f"{times['cold']:.3f} s (tees the cache), warm {times['warm']:.3f} "
+        f"s, K1 {k['cold'][0]} / {k['warm'][0]}, K2 0; cpu "
+        f"{times['cpu']:.3f} s; killed ({died}) after the sidecar of chunk "
+        f"{ck['chunk_index']}, resumed in {t_resume:.3f} s with "
+        f"{histogram.K1_LAUNCHES} K1 launches [{card}]")
+
+    for mesh in (make_mesh([cuda0]), make_mesh([cuda0] * 4)):
+        t = time.perf_counter()
+        reps = algebra.run_dynamic(mesh=mesh)
+        bad = [r.format() for r in reps if r.failed or r.withdrawn]
+        if bad or len(reps) < 6 * len(algebra.DEFAULT_SEEDS):
+            raise AssertionError(f"fold certificate on {mesh!r}: {bad}")
+        log(f"fold certificate (algebra.run_dynamic) on {mesh!r}: "
+            f"{len(reps)} reports clean in {time.perf_counter() - t:.3f} s")
+
+    # K1 at the fused pass's chunk: NB's fold of the first chunk (int32,
+    # the caps the spec sizes from it)
+    with open(os.path.join(inp, "part-00000"), "rb") as fh:
+        buf = fh.read()
+    enc = DatasetEncoder(FeatureSchema.from_file(schema))
+    x, _, y, n = enc.encode_buffer_chunk(
+        buf[:pipeline.row_chunk_ends(buf, SHARED_CHUNK)[0]], ",")
+    st = _NBStreamState(enc)
+    st.size_caps(x)
+    x, y = np.ascontiguousarray(x), np.ascontiguousarray(y)
+    case = ("K1fused", "fused shared-scan chunk (bench.py:840 cell)",
+            st.n_class_cap, st.bins_cap, None,
+            lambda: (torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda(),
+                     None))
+    return {"K1fused": k_fused[0]}, case
 
 
 def tree_runbooks(work: str, dev: str) -> dict:
@@ -3979,9 +4265,12 @@ def main() -> int:
     phase_done("serve_markov")
     # the count-table family: K1 on the MI and NB text paths (each path
     # sets the counts to 0 before the runs it reads)
-    mi_launches, mi_case = mi_corr_paths(torch, histogram, card)
+    mi_launches, mi_case, shared = mi_corr_paths(torch, histogram, card)
     launches.update(mi_launches)
     phase_done("mi_corr")
+    ms_launches, ms_case = multiscan_paths(torch, histogram, card, *shared)
+    launches.update(ms_launches)
+    phase_done("multiscan")
     tree_paths(torch, card)
     phase_done("tree")
     pst_paths(torch, card)
@@ -3991,7 +4280,7 @@ def main() -> int:
     phase_done("text")
     regress_paths(torch, card)
     phase_done("regress")
-    for case in [mi_case] + text_cases:
+    for case in [mi_case, ms_case] + text_cases:
         entries.append(histogram_entry(case))
     log(f"main-path launches: {launches}")
     log(f"phase seconds: {phases}")

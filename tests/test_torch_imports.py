@@ -53,7 +53,8 @@ def test_importing_every_module_leaves_jax_out():
         "models.mutual_info", "models.correlation", "models.split",
         "models.tree", "models.pst", "models.text", "models.regress",
         "core.tabular", "core.pipeline", "core.ingestcache", "datagen",
-        "serve.engine")} <= names
+        "serve.engine", "core.multiscan", "core.algebra",
+        "models.discriminant")} <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(),

@@ -463,3 +463,181 @@ def test_cli_trace_writes_chrome_trace(data, tmp_path):
     assert {"phase:train", "phase:emit", "ingest.parse"} <= names
     assert "ingest.prefetch.queue.depth" in {e["name"] for e in events
                                              if e.get("ph") == "C"}
+
+
+# ---------------------------------------------------------------------------
+# the ckpt_corrupt and torn_write fault points, through both packages
+# ---------------------------------------------------------------------------
+
+def _both_checkpointers(tmp_path, in_path, resume=False):
+    from avenir_tpu.core.checkpoint import StreamCheckpointer as JaxCk
+    kw = dict(interval=2, kind="t", in_path=in_path, params={"p": 1},
+              resume=resume, keep=2)
+    return (StreamCheckpointer(str(tmp_path / "port.ckpt"), **kw),
+            JaxCk(str(tmp_path / "jax.ckpt"), **kw))
+
+
+def test_ckpt_corrupt_truncates_by_save_index_as_the_reference(tmp_path):
+    """``ckpt_corrupt@1`` (the reference's
+    tests/test_durability.py:273-281): saves at offsets 10 and 30, the
+    second truncated to half its size, and the resume falls back to the
+    older generation at offset 10, in both packages."""
+    src = tmp_path / "in.csv"
+    src.write_text("a,b\n" * 8)
+    port, ref = _both_checkpointers(tmp_path, str(src))
+    for ck, fi in ((port, faultinject), (ref, jfi)):
+        fi.set_injector(fi.FaultInjector(fi.parse_plan("ckpt_corrupt@1")))
+        ck.save(ck.token(1, 10, {}), None)
+        whole = os.path.getsize(ck.path)
+        ck.save(ck.token(3, 30, {}), None)
+        fi.set_injector(None)
+        assert os.path.getsize(ck.path) == max(whole // 2, 1)
+        assert os.path.getsize(ck.path + ".1") == whole
+    port, ref = _both_checkpointers(tmp_path, str(src), resume=True)
+    assert port.load()["offset"] == ref.load()["offset"] == 10
+
+
+def test_torn_write_tears_the_part_as_the_reference(tmp_path):
+    """``torn_write@0`` (the reference's tests/test_durability.py:167-180):
+    the republish dies with ``InjectedFault`` leaving half the staged bytes
+    under the final name, the reader refuses the directory, and a clean
+    republish heals it, in both packages."""
+    from avenir_tpu.core import io as jio
+    from avenir_tpu_torch.core import io as tio
+
+    torn = {}
+    for name, fi, io_mod in (("port", faultinject, tio), ("jax", jfi, jio)):
+        out = str(tmp_path / name)
+        io_mod.write_output(out, [f"v1,{i}" for i in range(100)])
+        fi.set_injector(fi.FaultInjector(fi.parse_plan("torn_write@0")))
+        with pytest.raises(fi.InjectedFault, match="torn write"):
+            io_mod.write_output(out, [f"v2,{i}" for i in range(100)])
+        fi.set_injector(None)
+        with pytest.raises(io_mod.TornArtifactError):
+            list(io_mod.read_lines(out))
+        assert not [f for f in os.listdir(out) if f.startswith(".")]
+        with open(os.path.join(out, "part-r-00000"), "rb") as fh:
+            torn[name] = fh.read()
+        io_mod.write_output(out, [f"v2,{i}" for i in range(100)])
+        assert len(list(io_mod.read_lines(out))) == 100
+    assert torn["port"] == torn["jax"]
+    assert torn["port"].startswith(b"v2,0\n")
+
+
+def test_torn_ingest_cache_publish_is_best_effort(data, tmp_path):
+    """The contract of the reference's tests/test_ingestcache.py:335 after
+    the repair: a torn publish returns False without failing the run,
+    leaves no ``_SUCCESS``, never serves, and the next build heals."""
+    from avenir_tpu_torch.core import ingestcache
+    from avenir_tpu_torch.core.binning import DatasetEncoder
+    from avenir_tpu_torch.core.io import SUCCESS_NAME
+    from avenir_tpu_torch.core.schema import FeatureSchema
+
+    enc = DatasetEncoder(FeatureSchema.from_file(data["schema"]))
+    cache = ingestcache.IngestCache(str(tmp_path / "cache"), data["in"],
+                                    enc, ",")
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 5, (50, 6)).astype(np.int32)
+    vals = rng.random((50, 6))
+    y = rng.integers(0, 2, 50).astype(np.int32)
+    b = cache.builder(50)
+    b.add(x, vals, y, 50)
+    faultinject.set_injector(FaultInjector(parse_plan("torn_write@0")))
+    assert b.finish() is False
+    faultinject.set_injector(None)
+    assert not os.path.isfile(os.path.join(cache.dir, SUCCESS_NAME))
+    assert cache.load(50) is None
+    b2 = cache.builder(50)
+    b2.add(x, vals, y, 50)
+    assert b2.finish() is True
+    np.testing.assert_array_equal(np.asarray(cache.load(50).x), x)
+
+
+def test_faulttolerance_runbook_through_the_port(tmp_path):
+    """``resource/faulttolerance/run.sh`` (all but its server leg, which
+    tests/test_torch_serve.py holds) through ``avenir_tpu_torch.cli.main``
+    with ``--device cpu``: the ``h2d`` kill and the resume through two
+    retried ``read`` faults, the quarantine, the generation fallback past
+    a garbled newest sidecar, and the ``torn_write`` crash that readers
+    refuse until a republish heals it.  Every model is the reference's
+    uninterrupted model."""
+    import contextlib
+    import io
+    import shutil
+
+    from avenir_tpu.cli import main as jax_main
+    from avenir_tpu_torch.core.io import (TornArtifactError, read_lines,
+                                          set_require_success)
+
+    book = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "resource", "faulttolerance")
+    for f in ("nb.properties", "teleComChurn.json"):
+        shutil.copy(os.path.join(book, f), tmp_path)
+    cwd = os.getcwd()
+    os.chdir(tmp_path)
+
+    def port(*argv):
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            return cli_main(["BayesianDistribution",
+                             "-Dconf.path=nb.properties", *argv,
+                             "--device", "cpu"])
+
+    try:
+        assert datagen.main(["telecom_churn", "60000", "--seed", "41",
+                             "--out", "work/in/part-00000"]) == 0
+        lines = open("work/in/part-00000").read().splitlines()
+        out = []
+        for i, l in enumerate(lines):
+            out.append(l)
+            if i % 10000 == 5000:
+                out.append("truncated,row")
+                out.append(l.rsplit(",", 2)[0] + ",notANumber,Y")
+        open("work/in/part-00000", "w").write("\n".join(out) + "\n")
+        with contextlib.redirect_stderr(io.StringIO()):
+            assert jax_main(["BayesianDistribution",
+                             "-Dconf.path=nb.properties", "work/in",
+                             "work/jref"]) == 0
+        ref = _model("work/jref")
+
+        assert port("work/in", "work/ref") == 0
+        assert _model("work/ref") == ref
+        with pytest.raises(InjectedFault):
+            port("-Dfault.inject.plan=h2d@9", "work/in", "work/model")
+        assert os.path.exists("work/model.ckpt")
+        assert port("-Dfault.inject.plan=read@0-1", "--resume", "work/in",
+                    "work/model") == 0
+        assert _model("work/model") == ref
+        assert not os.path.exists("work/model.ckpt")
+        def rows(path):
+            return [l for l in open(path) if not l.startswith("#")]
+        # the clean run's sidecar is the reference's; the resumed run's
+        # holds every one of its rows (chunks re-read after the
+        # checkpoint add theirs again)
+        assert rows("work/ref.quarantine") == rows("work/jref.quarantine")
+        assert len(rows("work/ref.quarantine")) == 12
+        assert set(rows("work/model.quarantine")) == set(
+            rows("work/ref.quarantine"))
+
+        with pytest.raises(InjectedFault):
+            port("-Dfault.inject.plan=h2d@9", "work/in", "work/model2")
+        assert os.path.exists("work/model2.ckpt.1")
+        blob = open("work/model2.ckpt", "rb").read()
+        open("work/model2.ckpt", "wb").write(blob[:max(len(blob) // 3, 1)])
+        assert port("--resume", "work/in", "work/model2") == 0
+        assert _model("work/model2") == ref
+
+        with pytest.raises(InjectedFault, match="torn write"):
+            port("-Dfault.inject.plan=torn_write@0", "work/in", "work/ref")
+        with pytest.raises(TornArtifactError):
+            list(read_lines("work/ref"))
+        prev = set_require_success(True)
+        try:
+            with pytest.raises(TornArtifactError, match="_SUCCESS"):
+                list(read_lines("work/in"))
+        finally:
+            set_require_success(prev)
+        assert port("work/in", "work/ref") == 0
+        assert _model("work/ref") == ref
+    finally:
+        os.chdir(cwd)
