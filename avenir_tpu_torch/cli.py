@@ -3,7 +3,9 @@
 [--profile-dir=<dir>]``; the shared scan: ``python -m avenir_tpu_torch
 multi -Dconf.path=<manifest> <in> [<out>] [--device cpu|cuda] [--resume]
 [--trace <out.json>] [--metrics-out <series.jsonl>] [--profile-dir=<dir>]``
-(core.multiscan); and the prediction server: ``python -m avenir_tpu_torch
+(core.multiscan); the workflow DAG: ``python -m avenir_tpu_torch dag
+-Dconf.path=<workflow.properties> <in> [<out>]`` with the same flags
+(core.dag); and the prediction server: ``python -m avenir_tpu_torch
 serve -Dconf.path=<serve.properties> [--device cpu|cuda] [--trace
 <out.json>] [--metrics-out <series.jsonl>]`` (serve.server).
 
@@ -91,6 +93,23 @@ JOBS: Dict[str, tuple] = {
     "org.avenir.text.WordCounter": ("text", "WordCounter", ""),
     "org.avenir.regress.LogisticRegressionJob":
         ("regress", "LogisticRegressionJob", ""),
+    "org.avenir.explore.BaggingSampler": ("sampler", "BaggingSampler", ""),
+    "org.avenir.explore.UnderSamplingBalancer":
+        ("sampler", "UnderSamplingBalancer", ""),
+    "org.avenir.sequence.CandidateGenerationWithSelfJoin":
+        ("sequence", "CandidateGenerationWithSelfJoin", "cgs"),
+    "org.avenir.sequence.SequencePositionalCluster":
+        ("sequence", "SequencePositionalCluster", ""),
+    "org.avenir.reinforce.GreedyRandomBandit":
+        ("bandit", "GreedyRandomBandit", ""),
+    "org.avenir.reinforce.AuerDeterministic":
+        ("bandit", "AuerDeterministic", ""),
+    "org.avenir.reinforce.SoftMaxBandit": ("bandit", "SoftMaxBandit", ""),
+    "org.avenir.reinforce.RandomFirstGreedyBandit":
+        ("bandit", "RandomFirstGreedyBandit", ""),
+    # the batch replay of a reward-event log (no reference Java class)
+    "org.avenir.reinforce.BanditFeedbackAggregator":
+        ("bandit", "BanditFeedbackAggregator", ""),
     # the chombo legs that the runbooks run between avenir jobs
     "org.chombo.mr.TemporalFilter": ("chombo", "TemporalFilter", "tef"),
     "org.chombo.mr.Projection": ("chombo", "Projection", ""),
@@ -116,12 +135,19 @@ def job_class(name: str):
 
 
 def job_resolver(device=None) -> Callable:
-    """The ``multi`` manifest's resolver: a job class name -> (factory,
-    prefix), the factory building the job on ``device``."""
+    """The ``multi`` and ``dag`` manifests' resolver: a job class name ->
+    (factory, prefix), the factory building the job on ``device``.  The
+    factory carries the class as ``job_class`` (core.dag probes it for a
+    ``fold_spec`` without building the job) and the resolver its
+    ``device`` (the DAG's built-in stages are built on it)."""
     def resolver(cls_name: str):
         cls = job_class(cls_name)
-        return (lambda config: cls(config, device=device),
-                resolve(cls_name)[2])
+
+        def factory(config):
+            return cls(config, device=device)
+        factory.job_class = cls
+        return factory, resolve(cls_name)[2]
+    resolver.device = device
     return resolver
 
 
@@ -312,6 +338,67 @@ def multi_main(argv) -> int:
     return 0
 
 
+def dag_main(argv) -> int:
+    """``python -m avenir_tpu_torch dag -Dconf.path=<workflow.properties>
+    <in> [<out base>]``: the ``workflow.*`` stage DAG (core.dag) on
+    ``cuda:0`` unless ``--device cpu``: stages in topological order,
+    cost-decided shared scans for same-input groups, in-memory artifact
+    handoff, and stage checkpoint/resume (``--resume``)."""
+    argv, device = extract_device_flag(argv)
+    argv, trace_path = extract_trace_flag(argv)
+    argv, metrics_out = extract_metrics_out_flag(argv)
+    argv, resume = extract_resume_flag(argv)
+    argv, profile_dir = extract_profile_dir_flag(argv)
+    defines, positional = parse_cli_args(argv)
+    if not positional:
+        print("expected <input path> [<output base dir>]", file=sys.stderr)
+        return 2
+    in_path = positional[0]
+    out_base = positional[1] if len(positional) > 1 else None
+
+    config = load_job_config(defines, "")
+    if resume:
+        config.set("checkpoint.resume", "true")
+    from .core import obs, telemetry
+    from .core.dag import run_workflow
+    from .device import resolve_device
+    from .fleetobs.publisher import publisher_for_job
+    from .parallel.mesh import make_mesh
+    mesh = make_mesh([resolve_device(device)])
+    obs.configure_from_config(config, force_enable=bool(trace_path))
+    # before configure_resilience: the publisher routes flight.dump.dir
+    # into the spool feed when fleetobs.spool.dir is set
+    publisher = publisher_for_job(config, role="dag")
+    configure_resilience(config)
+    telemetry.configure_from_config(config)
+    exporter = telemetry.exporter_for_job(config, metrics_out)
+    if publisher is not None:
+        exporter = publisher.attach(exporter, config)
+    flusher = telemetry.flusher_for_job(config, trace_path)
+    try:
+        with profiled(profile_dir):
+            results = run_workflow(config, in_path, out_base,
+                                   job_resolver(mesh.devices.flat[0]),
+                                   mesh=mesh,
+                                   log=lambda m: print(m, file=sys.stderr))
+    except BaseException as exc:
+        # a fatal workflow exception still leaves the black box behind
+        from .core import flight
+        flight.fatal(exc)
+        raise
+    finally:
+        if flusher is not None:
+            flusher.stop()
+        if exporter is not None:
+            exporter.stop()
+        _export_trace(trace_path)
+    for sid, counters in results.items():
+        print(f"--- stage {sid}", file=sys.stderr)
+        if isinstance(counters, Counters):
+            print(counters.format(), file=sys.stderr)
+    return 0
+
+
 def main(argv: Optional[list] = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
@@ -322,6 +409,10 @@ def main(argv: Optional[list] = None) -> int:
               "-Dconf.path=<manifest> <in> [<out base>] [--device cpu|cuda] "
               "[--resume] [--trace <out.json>] [--metrics-out "
               "<series.jsonl>] [--profile-dir=<dir>]\n"
+              "       python -m avenir_tpu_torch dag "
+              "-Dconf.path=<workflow.properties> <in> [<out base>] "
+              "[--device cpu|cuda] [--resume] [--trace <out.json>] "
+              "[--metrics-out <series.jsonl>] [--profile-dir=<dir>]\n"
               "       python -m avenir_tpu_torch serve "
               "-Dconf.path=<serve.properties> [--device cpu|cuda] "
               "[--trace <out.json>] [--metrics-out <series.jsonl>]\n"
@@ -335,6 +426,9 @@ def main(argv: Optional[list] = None) -> int:
     if job_name == "multi":
         # the shared scan (core.multiscan)
         return multi_main(rest)
+    if job_name == "dag":
+        # the workflow DAG (core.dag)
+        return dag_main(rest)
     prefix = resolve(job_name)[2]
     rest, device = extract_device_flag(rest)
     rest, trace_path = extract_trace_flag(rest)

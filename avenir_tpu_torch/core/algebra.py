@@ -498,8 +498,7 @@ def verification_rows(n: int = 240, seed: int = 5) -> List[str]:
 def verification_jobs(work_dir: str) -> Dict[str, tuple]:
     """jid -> (job class, per-job props) for every exporter of a
     FoldSpec in the port's job registry, over one shared workload written
-    under ``work_dir``.  (The reference's ``bandit_fb`` joins when
-    ``BanditFeedbackAggregator`` is ported.)"""
+    under ``work_dir``."""
     from .io import atomic_write_text
 
     nb_schema = os.path.join(work_dir, "nb_schema.json")
@@ -523,6 +522,15 @@ def verification_jobs(work_dir: str) -> Dict[str, tuple]:
                  "skip.field.count": "5"}),
         "stats": ("NumericalAttrStats",
                   {"attr.list": "2,3", "cond.attr.ord": "4"}),
+        # the bandit posterior fold: the workload's columns as reward
+        # events, color as tenant, label as arm, the integer score as
+        # reward
+        "bandit_fb": ("BanditFeedbackAggregator",
+                      {"stream.tenants": "red,green,blue",
+                       "stream.arms": "N,Y",
+                       "stream.tenant.ordinal": "1",
+                       "stream.arm.ordinal": "4",
+                       "stream.reward.ordinal": "3"}),
     }
 
 

@@ -38,9 +38,12 @@ Config surface:
 - ``checkpoint.keep``            -- generations kept (default 2)
 - ``checkpoint.fallback``        -- ``cold`` | ``fail``
 
+:class:`WorkflowCheckpointer` is the workflow DAG's (core.dag)
+stage-completion sidecar.
+
 The reference pickles its own encoder, so sidecars are not read across
-the two packages.  The stream-offset and workflow checkpointers wait for
-the slices that use them.
+the two packages.  The stream-offset checkpointer waits for the stream
+tier.
 """
 
 from __future__ import annotations
@@ -355,6 +358,175 @@ class StreamCheckpointer:
 
     def complete(self) -> None:
         """Remove every generation after a successful run."""
+        for path in generation_paths(self.path, self.keep):
+            try:
+                os.unlink(path)
+            except FileNotFoundError:
+                pass
+
+
+# ---------------------------------------------------------------------------
+# stage-granularity checkpointing (the core.dag workflow sidecar)
+# ---------------------------------------------------------------------------
+
+WF_CKPT_VERSION = 1
+
+
+class WorkflowCheckpointer:
+    """Stage-completion sidecar for a core.dag workflow run.
+
+    After every completed stage the workflow records the stage's params
+    key (a hash of its class, resolved config and paths), a fingerprint
+    of every input artifact it consumed (the declared input and each
+    ``@<stage>`` dependency) and of its output, then rewrites the sidecar
+    atomically.  A ``--resume`` run skips a stage only when all three
+    still validate; otherwise the stage re-runs, from its own mid-scan
+    :class:`StreamCheckpointer` sidecar when one survived the kill.  A
+    successful workflow deletes the sidecar.
+    """
+
+    def __init__(self, path: str, in_path: str, resume: bool = False,
+                 keep: int = DEFAULT_KEEP, fallback: str = FALLBACK_COLD):
+        self.path = path
+        self.in_path = in_path
+        self.resume = bool(resume)
+        self.keep = max(1, int(keep))
+        self.fallback = fallback
+        #: set when a corrupt sidecar degraded this resume to a fresh run
+        #: (core.dag logs it)
+        self.degraded_reason: Optional[str] = None
+        self._stages: Dict[str, Dict[str, Any]] = {}
+        if resume:
+            self._load_generations()
+
+    @classmethod
+    def from_config(cls, config, path: str, in_path: str,
+                    resume: bool) -> "WorkflowCheckpointer":
+        return cls(path, in_path, resume=resume,
+                   keep=config.get_int(KEY_KEEP, DEFAULT_KEEP),
+                   fallback=_fallback_from_config(config))
+
+    def _load_generations(self) -> None:
+        """Walk the generations newest to oldest; a corrupt one falls
+        back to an older one.  With none valid the run degrades to a
+        fresh workflow (every stage re-runs) under
+        ``checkpoint.fallback=cold``, or raises under ``fail``."""
+        counters = _durability_counters()
+        corrupt: List[str] = []
+        for path in generation_paths(self.path, self.keep):
+            if not os.path.exists(path):
+                continue
+            try:
+                payload = _load_payload(path)
+                stages = payload.get("stages")
+                if not isinstance(stages, dict):
+                    raise CheckpointCorrupt(
+                        f"workflow checkpoint {path} has no stages table")
+            except CheckpointCorrupt as e:
+                counters.incr("Durability", "Workflow sidecar corrupt")
+                corrupt.append(str(e))
+                continue
+            if payload.get("version") != WF_CKPT_VERSION:
+                raise CheckpointMismatch(
+                    f"workflow checkpoint {path}: version "
+                    f"{payload.get('version')} != {WF_CKPT_VERSION}")
+            if payload.get("fingerprint") != input_fingerprint(
+                    self.in_path):
+                raise CheckpointMismatch(
+                    f"workflow checkpoint {path} was written against a "
+                    f"different input than {self.in_path!r} — re-run "
+                    f"without --resume")
+            if corrupt:
+                counters.incr("Durability", "Generation fallbacks")
+            self._stages = stages
+            return
+        if not corrupt:
+            return                      # no sidecar: a fresh run
+        if self.fallback == FALLBACK_FAIL:
+            raise CheckpointCorrupt(
+                f"every workflow checkpoint generation of {self.path} is "
+                f"corrupt ({'; '.join(corrupt)}) and {KEY_FALLBACK}="
+                f"{FALLBACK_FAIL}")
+        counters.incr("Durability", "Cold starts")
+        self.degraded_reason = (
+            f"workflow checkpoint {self.path} corrupt in every "
+            f"generation — degrading to a fresh run (all stages re-run)")
+
+    @staticmethod
+    def params_key(obj: Any) -> str:
+        import json
+        return hashlib.sha1(
+            json.dumps(obj, sort_keys=True, default=str).encode()
+        ).hexdigest()
+
+    def _fingerprint_ok(self, path: str, recorded) -> bool:
+        from .io import TornArtifactError
+        try:
+            return input_fingerprint(path) == recorded
+        except OSError:
+            return False
+        except TornArtifactError:
+            # a torn artifact never validates a skip: the stage re-runs
+            # and publishes it again
+            return False
+
+    def stage_done(self, sid: str, params_key: str,
+                   in_paths: Dict[str, str],
+                   out_paths: Dict[str, str]) -> bool:
+        """True when ``sid`` completed under the same params and every
+        recorded input and output still matches its fingerprint on disk.
+        A memory-only output recorded an empty fingerprint and validates;
+        a memory-only input never does (it died with the killed run)."""
+        rec = self._stages.get(sid)
+        if rec is None or rec["params"] != params_key:
+            return False
+        for label, p in in_paths.items():
+            want = rec["inputs"].get(label)
+            if want is None or want == {}:
+                return False
+            if not self._fingerprint_ok(p, want):
+                return False
+        for label, p in out_paths.items():
+            want = rec["outputs"].get(label)
+            if want is None:
+                return False
+            if want != {} and not self._fingerprint_ok(p, want):
+                return False
+        return True
+
+    def record(self, sid: str, params_key: str, in_paths: Dict[str, str],
+               out_paths: Dict[str, str]) -> None:
+        """Record ``sid`` complete and rewrite the sidecar atomically."""
+        outputs = {label: (input_fingerprint(p) if os.path.exists(p) else {})
+                   for label, p in out_paths.items()}
+        self._stages[sid] = {
+            "params": params_key,
+            "inputs": {label: (input_fingerprint(p)
+                               if os.path.exists(p) else {})
+                       for label, p in in_paths.items()},
+            "outputs": outputs,
+        }
+        payload = {"version": WF_CKPT_VERSION,
+                   "fingerprint": input_fingerprint(self.in_path),
+                   "stages": self._stages}
+        d = os.path.dirname(os.path.abspath(self.path))
+        os.makedirs(d, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(prefix=".wfckpt-", dir=d)
+        try:
+            with os.fdopen(fd, "wb") as fh:
+                pickle.dump(payload, fh, protocol=pickle.HIGHEST_PROTOCOL)
+            _rotate_generations(self.path, self.keep)
+            os.replace(tmp, self.path)
+        except BaseException:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            raise
+        _maybe_corrupt_sidecar(self.path, len(self._stages) - 1)
+
+    def complete(self) -> None:
+        """Remove every generation after a successful workflow."""
         for path in generation_paths(self.path, self.keep):
             try:
                 os.unlink(path)

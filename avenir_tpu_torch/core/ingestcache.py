@@ -581,3 +581,19 @@ class PairStreamCache:
 
     def builder(self, chunk_rows: int) -> PairCacheBuilder:
         return PairCacheBuilder(self, chunk_rows)
+
+
+def probe_scan_boost(cfg, in_path: str) -> bool:
+    """True when a published ingest-cache artifact exists for
+    ``in_path``: the DAG cost model (core.dag) then prices scans of this
+    input at the cached rate instead of the parse rate."""
+    if not cache_enabled(cfg):
+        return False
+    base = cache_base(cfg, in_path)
+    try:
+        from .io import SUCCESS_NAME
+
+        return any(os.path.isfile(os.path.join(base, d, SUCCESS_NAME))
+                   for d in os.listdir(base))
+    except OSError:
+        return False

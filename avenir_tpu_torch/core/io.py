@@ -15,7 +15,11 @@ reference does: with ``io.require.success=true``
 refused, and a part whose size or sha1 disagrees with the ``_MANIFEST``
 raises :class:`TornArtifactError`.  Recovery and validation events count
 in the ``Durability`` group of the process-global telemetry registry.
-The in-memory artifact store is not ported.
+
+While an :class:`ArtifactStore` is installed (the workflow DAG's
+in-memory handoff, core.dag), ``write_output`` to a registered path also
+keeps the lines in memory and ``read_lines`` of that path serves them
+from there.
 """
 
 from __future__ import annotations
@@ -87,15 +91,115 @@ def _input_files(path: str) -> List[str]:
     return [path]
 
 
-def read_lines(path: str) -> Iterator[str]:
-    """Yield every non-empty record line from a file or job-output
-    directory."""
+class ArtifactStore:
+    """In-memory overlay for job-output artifacts (the core.dag handoff).
+
+    While a store is installed (:func:`set_artifact_store`),
+    ``write_output`` to a REGISTERED path also records the lines in
+    memory, and ``read_lines`` on that path serves them from memory: the
+    downstream stage consumes the producer's artifact and the text file
+    is a sink, not the transport.  Unregistered paths (quarantine
+    sidecars, checkpoints, jobs outside the workflow) never enter it.
+
+    ``verify=True`` checks, on the first memory read of each artifact
+    whose file was also written, that the in-memory lines equal the file
+    round-trip.  A path registered with ``sink_file=False`` skips the
+    file write; its artifact exists only in memory.
+    """
+
+    def __init__(self, verify: bool = True):
+        self.verify = verify
+        self._registered: Dict[str, bool] = {}     # abspath -> sink_file
+        self._lines: Dict[str, List[str]] = {}
+        self._verified: set = set()
+        self.memory_reads = 0
+
+    def register(self, out_path: str, sink_file: bool = True) -> None:
+        self._registered[os.path.abspath(out_path)] = sink_file
+
+    def _owner(self, path: str) -> Optional[str]:
+        """The registered path governing ``path`` (itself or its
+        directory), or None."""
+        ap = os.path.abspath(path)
+        if ap in self._registered:
+            return ap
+        parent = os.path.dirname(ap)
+        if parent in self._registered:
+            return parent
+        return None
+
+    def wants(self, out_path: str) -> bool:
+        return self._owner(out_path) is not None
+
+    def sink_file(self, out_path: str) -> bool:
+        owner = self._owner(out_path)
+        return True if owner is None else self._registered[owner]
+
+    def put(self, out_path: str, file_path: str, lines: List[str]) -> None:
+        for key in {os.path.abspath(out_path), os.path.abspath(file_path)}:
+            self._lines[key] = lines
+
+    def peek(self, path: str) -> Optional[List[str]]:
+        """The stored lines for ``path`` without counting a memory read
+        or running the parity check (the cost model's size estimate)."""
+        return self._lines.get(os.path.abspath(path))
+
+    def get(self, path: str) -> Optional[List[str]]:
+        ap = os.path.abspath(path)
+        lines = self._lines.get(ap)
+        if lines is None:
+            return None
+        self.memory_reads += 1
+        if self.verify and ap not in self._verified:
+            if os.path.exists(ap):
+                # may raise TornArtifactError; a failed check leaves the
+                # artifact unverified, so a later read checks again
+                on_disk = list(_read_lines_files(ap))
+                if on_disk != lines:
+                    raise AssertionError(
+                        f"artifact store: in-memory lines for {ap} differ "
+                        f"from the file round-trip ({len(lines)} vs "
+                        f"{len(on_disk)} lines) — handoff parity broken")
+            self._verified.add(ap)
+        return lines
+
+
+_ARTIFACTS: Optional[ArtifactStore] = None
+
+
+def set_artifact_store(store: Optional[ArtifactStore]
+                       ) -> Optional[ArtifactStore]:
+    """Install (or clear, with None) the process-global artifact overlay;
+    returns the previous store so callers can restore it."""
+    global _ARTIFACTS
+    prev = _ARTIFACTS
+    _ARTIFACTS = store
+    return prev
+
+
+def get_artifact_store() -> Optional[ArtifactStore]:
+    return _ARTIFACTS
+
+
+def _read_lines_files(path: str) -> Iterator[str]:
     for fp in _input_files(path):
         with open(fp, "r") as fh:
             for line in fh:
                 line = line.rstrip("\n")
                 if line:
                     yield line
+
+
+def read_lines(path: str) -> Iterator[str]:
+    """Yield every non-empty record line from a file or job-output
+    directory; from the in-memory artifact when an installed
+    :class:`ArtifactStore` holds ``path``."""
+    store = _ARTIFACTS
+    if store is not None:
+        lines = store.get(path)
+        if lines is not None:
+            return iter(lines)
+    return _read_lines_files(path)
 
 
 def is_plain_delim(delim_regex: str) -> bool:
@@ -139,11 +243,23 @@ def read_field_matrix(path: str, delim_regex: str = ","):
     return np.asarray(flat, dtype=str).reshape(len(lines), n_delim + 1)
 
 
-def write_output(out_path: str, lines: Iterable[str]) -> str:
-    """Write job output as ``<out_path>/part-r-00000`` (atomically, with
-    the ``_MANIFEST`` and ``_SUCCESS`` of ``OutputWriter``); returns the
-    part file's path."""
-    with OutputWriter(out_path) as w:
+def write_output(out_path: str, lines: Iterable[str],
+                 shard: Optional[int] = None, as_dir: bool = True) -> str:
+    """Write job output as ``<out_path>/part-r-<shard>`` (atomically, with
+    the ``_MANIFEST`` and ``_SUCCESS`` of ``OutputWriter``), or as the
+    bare file ``out_path`` with ``as_dir=False``; returns the file's
+    path.  With an :class:`ArtifactStore` installed and ``out_path``
+    registered, the lines are also kept in memory, and a path registered
+    with ``sink_file=False`` is not written at all."""
+    store = _ARTIFACTS
+    if store is not None and store.wants(out_path):
+        lines = list(lines)
+        file_path = (os.path.join(out_path, f"part-r-{(shard or 0):05d}")
+                     if as_dir else out_path)
+        store.put(out_path, file_path, lines)
+        if not store.sink_file(out_path):
+            return file_path
+    with OutputWriter(out_path, shard=shard, as_dir=as_dir) as w:
         for line in lines:
             w.write(line)
     return w.file_path
@@ -258,22 +374,58 @@ def atomic_write_text(path: str, text: str) -> None:
         raise
 
 
+def atomic_write_bytes(path: str, data: bytes) -> None:
+    """Binary twin of :func:`atomic_write_text`."""
+    d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(prefix="." + os.path.basename(path) + ".",
+                               dir=d)
+    try:
+        with os.fdopen(fd, "wb") as fh:
+            fh.write(data)
+            fh.flush()
+            os.fsync(fh.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+
+
 class OutputWriter:
     """One part file of an artifact directory, written crash-safely: the
     part is staged to a temporary file in the same directory and published
     with ``fsync`` and ``os.replace``, then merged into the directory's
     ``_MANIFEST``, and (with ``mark_success``) the ``_SUCCESS`` marker is
-    written.  ``binary=True`` takes bytes through :meth:`write_bytes`.
+    written.  ``shard`` picks the part number; ``as_dir=False`` writes
+    ``out_path`` itself as a bare file (atomic replace, no manifest or
+    marker).  ``binary=True`` takes bytes through :meth:`write_bytes`.
     Closing after an exception discards the stage."""
 
-    def __init__(self, out_path: str, name: str = "part-r-00000",
-                 binary: bool = False, mark_success: bool = True):
+    def __init__(self, out_path: str, name: Optional[str] = None,
+                 binary: bool = False, mark_success: bool = True,
+                 shard: Optional[int] = None, as_dir: bool = True):
         self.out_path = out_path
+        self.as_dir = as_dir
         self.mark_success = mark_success
-        os.makedirs(out_path, exist_ok=True)
-        self.file_path = os.path.join(out_path, name)
-        fd, self._tmp_path = tempfile.mkstemp(prefix="." + name + ".",
-                                              dir=out_path)
+        if as_dir:
+            if name is not None and shard is not None:
+                raise ValueError("name and shard are mutually exclusive")
+            os.makedirs(out_path, exist_ok=True)
+            self.file_path = os.path.join(
+                out_path, name or f"part-r-{(shard or 0):05d}")
+        else:
+            if shard is not None:
+                raise ValueError("shard is only meaningful with as_dir=True")
+            parent = os.path.dirname(out_path)
+            if parent:
+                os.makedirs(parent, exist_ok=True)
+            self.file_path = out_path
+        d = os.path.dirname(self.file_path) or "."
+        fd, self._tmp_path = tempfile.mkstemp(
+            prefix="." + os.path.basename(self.file_path) + ".", dir=d)
         self._fh = os.fdopen(fd, "wb" if binary else "w")
         self._binary = binary
         self._closed = False
@@ -345,9 +497,11 @@ class OutputWriter:
         if fi is not None and fi.armed("torn_write") is not None:
             self._tear()
         os.replace(self._tmp_path, self.file_path)
-        self._update_manifest()
-        if self.mark_success:
-            open(os.path.join(self.out_path, SUCCESS_NAME), "w").close()
+        _VALIDATED.pop(os.path.abspath(self.out_path), None)
+        if self.as_dir:
+            self._update_manifest()
+            if self.mark_success:
+                open(os.path.join(self.out_path, SUCCESS_NAME), "w").close()
 
     def __enter__(self) -> "OutputWriter":
         return self

@@ -99,8 +99,11 @@ class FeatureSchema:
 
     @classmethod
     def from_file(cls, path: str) -> "FeatureSchema":
-        with open(path, "r") as fh:
-            return cls.from_json(fh.read())
+        # through core.io.read_lines, so that a schema written by a
+        # workflow stage (core.dag's FeatureSelect) comes from the
+        # in-memory artifact overlay when one is installed
+        from .io import read_lines
+        return cls.from_json("\n".join(read_lines(path)))
 
     def feature_fields(self) -> List[FeatureField]:
         return [f for f in self.fields if f.is_feature()]

@@ -2,8 +2,8 @@
 generators (``avenir_tpu/datagen/generators.py``: ``gen_telecom_churn``,
 ``gen_elearn``, ``gen_usage``, ``gen_transactions``,
 ``gen_state_sequences``, ``gen_hmm_sequences``, ``gen_retarget``,
-``gen_hosp_readmit``, ``gen_visit_history``, ``gen_text_classified``) and
-of the presets that
+``gen_hosp_readmit``, ``gen_visit_history``, ``gen_text_classified``,
+``gen_event_seq``, ``gen_price_rounds``) and of the presets that
 the runbooks call (``avenir_tpu/datagen/cli.py``).
 
 The same seed gives the same rows as the reference package's generators
@@ -419,6 +419,52 @@ def gen_text_classified(n: int, seed: int = 42) -> List[List[str]]:
     return rows
 
 
+EVENT_SEQ_STATES = ["SL", "SS", "SM", "ML", "MS", "MM", "LL", "LS", "LM"]
+
+
+def gen_event_seq(n: int, seed: int = 42) -> List[List[str]]:
+    """Customer event sequences with planted locality bursts: about 30% of
+    events are followed by a burst of 1-3 events from the same size group
+    (same first letter).  The ``event_seq`` preset."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(n):
+        cid = f"C{int(rng.integers(10**9, 10**10))}"
+        events = []
+        for _ in range(5 + int(rng.integers(20))):
+            idx = int(rng.integers(len(EVENT_SEQ_STATES)))
+            events.append(EVENT_SEQ_STATES[idx])
+            if rng.integers(10) < 3:
+                for _ in range(1 + int(rng.integers(3))):
+                    idx = (idx // 3) * 3 + int(rng.integers(2))
+                    events.append(EVENT_SEQ_STATES[idx])
+        rows.append([cid] + events)
+    return rows
+
+
+def gen_price_rounds(n_products: int, n_prices: int = 5, seed: int = 42):
+    """The bandit price-optimization fixture: each product has candidate
+    prices with hidden mean profits.  Returns (price labels per product,
+    the hidden mean reward matrix [product, price], a reward sampler)."""
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(20, 100, n_products)
+    prices = np.stack([base * (0.8 + 0.1 * k) for k in range(n_prices)],
+                      axis=1)
+    # the hidden best price index differs per product
+    best = rng.integers(0, n_prices, n_products)
+    mean_profit = np.empty((n_products, n_prices))
+    for p in range(n_products):
+        for k in range(n_prices):
+            mean_profit[p, k] = (10.0 - 2.0 * abs(k - best[p])
+                                 + rng.uniform(-0.5, 0.5))
+
+    def sample_reward(product: int, price_idx: int, rng2=None) -> float:
+        r = (rng2 or rng)
+        return float(mean_profit[product, price_idx] + r.normal(0, 1.0))
+
+    return prices, mean_profit, sample_reward
+
+
 def visit_history(n: int, seed: int = 42) -> List[List[str]]:
     """The ``visit_history`` preset: half the users convert, rows labelled."""
     return gen_visit_history(n, conv_rate=50, label=True, seed=seed)
@@ -439,6 +485,7 @@ PRESETS: Dict[str, tuple] = {
     "hosp_readmit": (gen_hosp_readmit, 1),
     "visit_history": (visit_history, 1),
     "text_classified": (gen_text_classified, 1),
+    "event_seq": (gen_event_seq, 1),
 }
 
 

@@ -36,3 +36,22 @@ def resolve_device(device: Union[None, str, torch.device] = None
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
     return dev
+
+
+def one_device_mesh(mesh, device: torch.device, what: str) -> torch.device:
+    """The device a one-device job runs on under ``mesh``: its own for no
+    mesh or a one-position mesh on that device.  A mesh of several
+    positions raises ``NotImplementedError`` (its multi-device form is
+    not ported); a one-position mesh on another device raises
+    ``ValueError``; a larger mesh never falls back to one device."""
+    if mesh is None:
+        return device
+    if mesh.size != 1:
+        raise NotImplementedError(
+            f"{what} runs on one device; a mesh of {mesh.size} positions "
+            f"is not ported yet")
+    dev = mesh.devices.flat[0]
+    if dev != device:
+        raise ValueError(f"{what} was built on {device}, but the mesh's "
+                         f"one position is {dev}")
+    return dev

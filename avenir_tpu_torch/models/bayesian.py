@@ -68,7 +68,7 @@ from ..core.multiscan import FoldSpec as MultiScanFoldSpec
 from ..core.obs import get_tracer, traced_run
 from ..core.schema import FeatureSchema
 from ..convert import predictor_tables_to_device
-from ..device import resolve_device
+from ..device import one_device_mesh, resolve_device
 from ..ops.counting import (feature_class_counts,
                             feature_class_counts_rawbin, sharded_reduce)
 from ..ops.xla_math import exp_f64, fma_f32, log_f32
@@ -369,7 +369,11 @@ class BayesianDistribution:
         self.device = resolve_device(device)
 
     @traced_run
-    def run(self, in_path: str, out_path: str) -> Counters:
+    def run(self, in_path: str, out_path: str, mesh=None) -> Counters:
+        """Train on ``in_path`` and write the model.  ``mesh`` may be
+        None or one position on this job's device (the streamed fold has
+        no multi-device form yet)."""
+        one_device_mesh(mesh, self.device, "BayesianDistribution")
         counters = Counters()
         delim_in = self.config.field_delim_regex()
         delim = self.config.field_delim_out()
@@ -1237,8 +1241,10 @@ class BayesianPredictor:
         return probs, feat_prior, feat_post
 
     @traced_run
-    def run(self, in_path: str, out_path: str) -> Counters:
-        """Score ``in_path`` and write one prediction line per record."""
+    def run(self, in_path: str, out_path: str, mesh=None) -> Counters:
+        """Score ``in_path`` and write one prediction line per record.
+        ``mesh`` may be None or one position on this job's device."""
+        one_device_mesh(mesh, self.device, "BayesianPredictor")
         counters = Counters()
         delim_regex = self.config.field_delim_regex()
         delim = self.config.field_delim_out()

@@ -17,8 +17,7 @@ the device work stays with the jobs around them.
 - ``org.chombo.mr.RunningAggregator`` — the bandit round loop's reward
   re-aggregation (price_optimize_tutorial.txt:41-62; quantity.attr /
   incremental.file.prefix keys in the tutorial's Configuration section),
-  whose math is ``aggregate_rewards`` (the reference keeps it in
-  ``models/bandit.py``, which the port has not taken yet).
+  whose math is ``models.bandit.aggregate_rewards``.
 
 Each job takes a ``device`` like the port's other jobs and resolves it
 (so no entry point quietly runs on the CPU), though none of them does
@@ -28,13 +27,14 @@ device work.
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Tuple
+from typing import List
 
 from ..core.config import JobConfig
 from ..core.obs import traced_run
 from ..core.io import _input_files, read_lines, split_line, write_output
 from ..core.metrics import Counters
 from ..device import resolve_device
+from .bandit import aggregate_rewards
 
 
 class TemporalFilter:
@@ -265,24 +265,3 @@ class RunningAggregator:
         counters.set("Basic", "State records out", len(out))
         write_output(out_path, out)
         return counters
-
-
-def aggregate_rewards(selection_reward_lines: List[str],
-                      prev_state_lines: List[str],
-                      delim: str = ",") -> List[str]:
-    """Inter-round reward aggregation (``avenir_tpu/models/bandit.py``):
-    merge this round's scored selections ``group,item,reward`` into the
-    running ``group,item,count,rewardAvg`` state consumed by the next
-    round, with Java long division."""
-    state: Dict[Tuple[str, str], List[int]] = {}
-    for line in prev_state_lines:
-        g, item, count, avg = line.split(delim)[:4]
-        state[(g, item)] = [int(count), int(avg)]
-    for line in selection_reward_lines:
-        g, item, reward = line.split(delim)[:3]
-        cur = state.setdefault((g, item), [0, 0])
-        total = cur[0] * cur[1] + int(reward)
-        cur[0] += 1
-        cur[1] = total // cur[0]
-    return [f"{g}{delim}{item}{delim}{c}{delim}{r}"
-            for (g, item), (c, r) in state.items()]

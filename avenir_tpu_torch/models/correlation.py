@@ -193,6 +193,26 @@ class CategoricalCorrelation:
         """This job's shared-scan ``core.multiscan.FoldSpec``."""
         return _CatCorrFoldSpec(self, out_path)
 
+    @staticmethod
+    def parse_output(lines, delim: str = ","
+                     ) -> List[Tuple[str, str, float]]:
+        """``(src_name, dst_name, statistic)`` triples out of this job
+        family's output lines: the artifact import of a workflow stage
+        (core.dag).  A malformed line raises ValueError naming it, so a
+        truncated artifact never yields a shorter result."""
+        out = []
+        for line in lines:
+            parts = line.split(delim)
+            try:
+                if len(parts) != 3:
+                    raise ValueError
+                out.append((parts[0], parts[1], float(parts[2])))
+            except ValueError:
+                raise ValueError(
+                    f"malformed correlation output line (want "
+                    f"src{delim}dst{delim}statistic): {line!r}") from None
+        return out
+
 
 class CramerCorrelation(CategoricalCorrelation):
     pass

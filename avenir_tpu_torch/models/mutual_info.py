@@ -420,6 +420,52 @@ class MutualInformation:
         """This job's shared-scan ``core.multiscan.FoldSpec``."""
         return _MIFoldSpec(self, out_path)
 
+    @staticmethod
+    def parse_scores(lines, algorithm: Optional[str] = None,
+                     delim: str = ",") -> List[Tuple[int, float]]:
+        """The ranked ``(ordinal, score)`` list out of this job's output
+        lines: the artifact import of the workflow's feature-select stage
+        (core.dag).  ``algorithm`` picks one
+        ``mutualInformationScoreAlgorithm:`` section (default: the
+        first); an unknown one raises KeyError naming what the artifact
+        holds.  A line in a score section that is not ``ordinal,score``
+        raises ValueError naming it."""
+        sections: Dict[str, List[Tuple[int, float]]] = {}
+        current: Optional[str] = None
+        for line in lines:
+            if line.startswith("mutualInformationScoreAlgorithm:"):
+                current = line.split(":", 1)[1].strip()
+                sections[current] = []
+                continue
+            if current is None:
+                continue
+            if ":" in line and delim not in line:
+                current = None          # a following non-score header
+                continue
+            parts = line.split(delim)
+            if len(parts) == 2:
+                try:
+                    parsed = (int(parts[0]), float(parts[1]))
+                except ValueError:
+                    # score sections end the artifact, so anything else
+                    # here is a partial write or a hand edit
+                    raise ValueError(
+                        f"malformed score line in MI artifact section "
+                        f"{current!r}: {line!r}") from None
+                sections[current].append(parsed)
+        if not sections:
+            raise ValueError(
+                "no mutualInformationScoreAlgorithm section in the MI "
+                "artifact (was the job run with "
+                "mutual.info.score.algorithms set?)")
+        if algorithm is None:
+            return next(iter(sections.values()))
+        if algorithm not in sections:
+            raise KeyError(
+                f"MI artifact has no score section {algorithm!r}; "
+                f"present: {sorted(sections)}")
+        return sections[algorithm]
+
     # -- host post-processing ----------------------------------------------
     def _emit(self, ds: EncodedDataset, fc, pc, pair_i, pair_j, delim,
               cfg) -> List[str]:

@@ -127,10 +127,28 @@ path on the card and again on the CPU:
 16. ``regress``: ``resource/logistic_regression``'s loop (the same
    iteration as the CPU, histories within rtol 1e-9), then gen.py's rows at
    1,000,000 for 10 iterations on one resident batch, with the seconds per
-   iteration.  Phases 7-16 launch no kernel of the port but K1 (the NB
-   runbooks' training, MI and the shared scan, NB text training); each
-   prints its host-clock times and a ``torch.profiler`` device-busy and
-   idle share.
+   iteration;
+17. ``dag_paths``: ``resource/workflow/run.sh``'s steps through ``python
+   -m avenir_tpu_torch dag`` at its own size (250,000 churn rows, 8
+   stages) on the card and on the CPU (every output equal, publish ==
+   retrain, the cost model's FUSE line, the memory handoffs, K1 3 x 13);
+   bench.py:938's cell (400,000 rows, 65,536-row chunks, depth 2, six
+   stages) as a DAG against the standalone chain with file handoff (byte
+   parity, then the best of 2 each), K1 14 in the fused group and 21 in
+   the cell, two H2D copies a fused chunk, the idle share; the runbook's
+   workflow killed by ``worker_death@5`` in the fused group and resumed
+   (``bin`` skipped, the scan resumed mid-file, the clean bytes); K1 at
+   the retrain stage's chunk;
+18. ``host_jobs``: the class_balance, event_burst, event_seq_gsp,
+   bandit_variants and price_optimize runbooks through the port
+   (``avenir_tpu_torch.runbook``: rewritten scratch copies in
+   subprocesses, four at once) on the card and on the CPU, every file
+   equal; ``BanditFeedbackAggregator`` over 1M events on the card and on
+   the CPU (equal bytes, rows/s, idle share); ``bandit_fb``'s fold
+   certificate on [cuda:0] and [cuda:0] * 4.  Phases 7-18 launch no kernel
+   of the port but K1 (the NB runbooks' training, MI, the shared scan, NB
+   text training, the DAG's NB and MI folds); each prints its host-clock
+   times and a ``torch.profiler`` device-busy and idle share.
 
 Kernel counts (and the native encoder's call count) are set to 0 just
 before each path and read just after.
@@ -4150,6 +4168,410 @@ def regress_paths(torch, card) -> None:
                  "float64 products", card)
 
 
+# ---------------------------------------------------------------------------
+# dag_paths: the workflow DAG (core/dag.py) on the shared scan
+# ---------------------------------------------------------------------------
+
+WORKFLOW_BOOK = os.path.join(ROOT, "resource", "workflow")
+WORKFLOW_STAGES = ("bin", "nb", "mi", "corr", "select", "retrain",
+                   "validate", "publish")
+# bench.py:938's cell: 50,000 churn rows (seed 7) repeated 8 times, the
+# all-binned schema, 65,536-row chunks, depth 2, six stages
+DAG_BASE_ROWS, DAG_SEED, DAG_REPS = 50_000, 7, 2
+DAG_STAGES = ("bin", "nb", "mi", "corr", "select", "retrain")
+
+
+def stage_bytes(base: str, sids) -> dict:
+    """Each stage's output: the part file, or the bare file (select)."""
+    out = {}
+    for sid in sids:
+        p = os.path.join(base, sid)
+        out[sid] = (open(p, "rb").read() if os.path.isfile(p)
+                    else read_bytes(p))
+    return out
+
+
+def handoffs(text: str) -> int:
+    """The ``Memory handoffs`` count of a ``dag`` run's log."""
+    import re
+    (n,) = re.findall(r"(\d+) in-memory artifact reads", text)
+    return int(n)
+
+
+def workflow_runbook(work: str, dev: str, extra=()) -> tuple:
+    """``resource/workflow/run.sh``'s steps through ``python -m
+    avenir_tpu_torch dag`` at its own size (250,000 churn rows, seed 29,
+    split 200,000 / 50,000); every stage's bytes and the run's log."""
+    from avenir_tpu_torch import datagen
+
+    with in_dir(work):
+        for f in ("workflow.properties", "teleComChurnBinned.json"):
+            shutil.copy(os.path.join(WORKFLOW_BOOK, f), work)
+        if not os.path.exists("work/train/part-00000"):
+            datagen.main(["telecom_churn", "250000", "--seed", "29",
+                          "--out", "work/all.csv"])
+            with open("work/all.csv", "rb") as fh:
+                lines = fh.read().splitlines(keepends=True)
+            write_part("work/train", b"".join(lines[:200_000]))
+            write_part("work/test", b"".join(lines[-50_000:]))
+        err = run_job(["dag", "-Dconf.path=workflow.properties",
+                       "work/train", "work/out", "--device", dev]
+                      + list(extra))
+        return stage_bytes("work/out", WORKFLOW_STAGES), err
+
+
+def dag_cell_manifest(schema: str) -> dict:
+    """bench.py:938's six-stage manifest."""
+    j = {"workflow.stages": ",".join(DAG_STAGES),
+         "pipeline.chunk.rows": str(SHARED_CHUNK),
+         "pipeline.prefetch.depth": "2",
+         "workflow.stage.bin.class": "org.chombo.mr.Projection",
+         "workflow.stage.bin.projection.operation": "project",
+         "workflow.stage.bin.projection.field": "0,1,2,3,4,5,6,7",
+         "workflow.stage.select.class": "FeatureSelect",
+         "workflow.stage.select.input": "mi",
+         "workflow.stage.select.select.schema.file.path": schema,
+         "workflow.stage.select.select.top.features": "4",
+         "workflow.stage.retrain.class": "BayesianDistribution",
+         "workflow.stage.retrain.input": "bin",
+         "workflow.stage.retrain.feature.schema.file.path": "@select"}
+    for sid, cls, props in SHARED_JOBS[:3]:
+        j[f"workflow.stage.{sid}.class"] = cls
+        j[f"workflow.stage.{sid}.input"] = "bin"
+        j[f"workflow.stage.{sid}.feature.schema.file.path"] = schema
+        j.update({f"workflow.stage.{sid}.{k}": v for k, v in props.items()})
+    return j
+
+
+def dag_chain(torch, inp: str, schema: str, base: str) -> None:
+    """The cell as the reference's runbooks chain it: one job at a time
+    on the card, every intermediate through its text file."""
+    from avenir_tpu_torch.cli import job_class, resolve
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.core.dag import FeatureSelect
+
+    pipe = {"pipeline.chunk.rows": str(SHARED_CHUNK),
+            "pipeline.prefetch.depth": "2"}
+    j = os.path.join
+
+    def run(cls, props, src, out):
+        job_class(cls)(JobConfig(dict(props, **pipe), resolve(cls)[2]),
+                       device="cuda").run(src, j(base, out))
+
+    run("org.chombo.mr.Projection", {"projection.operation": "project",
+                                     "projection.field": "0,1,2,3,4,5,6,7"},
+        inp, "bin")
+    for sid, cls, props in SHARED_JOBS[:3]:
+        run(cls, dict(props, **{"feature.schema.file.path": schema}),
+            j(base, "bin"), sid)
+    FeatureSelect(JobConfig({"select.schema.file.path": schema,
+                             "select.top.features": "4"})).run(
+        j(base, "mi"), j(base, "select"))
+    run("BayesianDistribution",
+        {"feature.schema.file.path": j(base, "select")}, j(base, "bin"),
+        "retrain")
+    torch.cuda.synchronize()
+
+
+def dag_paths(torch, histogram, card) -> tuple:
+    """The workflow DAG on the card: ``resource/workflow/run.sh`` through
+    ``python -m avenir_tpu_torch dag`` on cuda:0 and on the CPU (eight
+    outputs equal, publish == retrain, the cost model's line, the
+    handoffs, K1 13 + 13 + 13); bench.py:938's cell on cuda:0, the DAG
+    against the standalone chain with file handoff (byte parity first,
+    then the best of 2 each, host clock), K1's launches in the fused group
+    and the cell (7 + 7, then 7), the fused group's H2D copies a chunk,
+    the device idle share and the handoffs; the runbook's workflow killed
+    by ``worker_death@5`` inside the fused group and resumed with
+    ``--resume``.  Returns the cell's K1 launches and K1's case at the
+    retrain stage's chunk."""
+    import numpy as np
+
+    from avenir_tpu_torch.cli import job_resolver
+    from avenir_tpu_torch.core import obs, pipeline
+    from avenir_tpu_torch.core.binning import DatasetEncoder
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.core.dag import run_workflow
+    from avenir_tpu_torch.core.schema import FeatureSchema
+    from avenir_tpu_torch.datagen import gen_telecom_churn
+    from avenir_tpu_torch.models.bayesian import _NBStreamState
+    from avenir_tpu_torch.parallel.mesh import make_mesh
+
+    w = os.path.join(WORK, "dag")
+    cuda0 = torch.device("cuda", 0)
+    rb, secs, logs, k1 = {}, {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        histogram.reset_launch_counts()
+        t = time.perf_counter()
+        rb[dev], logs[dev] = workflow_runbook(
+            os.path.join(w, f"runbook_{dev}"), dev)
+        secs[dev] = time.perf_counter() - t
+        k1[dev] = histogram.K1_LAUNCHES
+    same_on_both("workflow runbook", rb)
+    if rb["cuda"]["publish"] != rb["cuda"]["retrain"]:
+        raise AssertionError("workflow runbook: publish != retrain")
+    decision = [l for l in logs["cuda"].splitlines() if "cost model" in l]
+    if (len(decision) != 1 or "[nb,mi,corr]" not in decision[0]
+            or "FUSE into one shared scan" not in decision[0]):
+        raise AssertionError(f"workflow runbook's cost model: {decision}")
+    n_rb = -(-200_000 // 16_384)
+    if (k1["cuda"], k1["cpu"]) != (3 * n_rb, 0):
+        raise AssertionError(f"workflow runbook's K1 launches {k1}, not "
+                             f"{3 * n_rb} on the card and 0 on the CPU")
+    if handoffs(logs["cuda"]) != handoffs(logs["cpu"]):
+        raise AssertionError("workflow runbook: handoff counts differ")
+    log(f"workflow runbook (250,000 rows, 8 stages) through python -m "
+        f"avenir_tpu_torch dag: cuda {secs['cuda']:.3f} s, cpu "
+        f"{secs['cpu']:.3f} s (datagen included in the first); 8 outputs "
+        f"byte-equal, publish == retrain; {decision[0]}; memory handoffs "
+        f"{handoffs(logs['cuda'])}; K1 launches {k1['cuda']} = 3 x {n_rb} "
+        f"[{card}]")
+
+    # bench.py:938's cell
+    base = "".join(",".join(r) + "\n" for r in gen_telecom_churn(
+        DAG_BASE_ROWS, seed=DAG_SEED))
+    inp = write_part(os.path.join(w, "cell_in"),
+                     (base * (SHARED_ROWS // DAG_BASE_ROWS)).encode())
+    schema = os.path.join(w, "cell.json")
+    with open(schema, "w") as fh:
+        json.dump(SHARED_SCAN_SCHEMA, fh)
+    cfg = dag_cell_manifest(schema)
+    n_chunks = -(-SHARED_ROWS // SHARED_CHUNK)
+    tr = obs.get_tracer()
+    mark = {}
+
+    def run_dag(out, record=False):
+        def say(msg):
+            if "cost model" in msg:
+                mark["decision"] = msg
+            elif "workflow complete" in msg:
+                mark["handoffs"] = handoffs(msg)
+            elif record and "running stage 'select'" in msg:
+                # the fused group is done: its launches and copies
+                mark["k1_group"] = histogram.K1_LAUNCHES
+                mark["copies"] = len(tr.spans("ingest.h2d"))
+                mark["chunks"] = sum(
+                    1 for g in tr.records() if isinstance(g, obs.Gauge)
+                    and g.name == "multiscan.fanout.width")
+        run_workflow(JobConfig(dict(cfg)), inp, out, job_resolver(cuda0),
+                     mesh=make_mesh([cuda0]), log=say)
+        torch.cuda.synchronize()
+
+    dag_chain(torch, inp, schema, os.path.join(w, "chain"))
+    histogram.reset_launch_counts()
+    obs.configure(enabled=True)
+    tr.clear()
+    run_dag(os.path.join(w, "cell_dag"), record=True)
+    obs.configure(enabled=False)
+    tr.clear()
+    k1_cell = histogram.K1_LAUNCHES
+    chain = stage_bytes(os.path.join(w, "chain"), DAG_STAGES)
+    dag = stage_bytes(os.path.join(w, "cell_dag"), DAG_STAGES)
+    bad = [sid for sid in DAG_STAGES if dag[sid] != chain[sid]]
+    if bad:
+        raise AssertionError(f"DAG cell: {bad} differ from the chain")
+    if "FUSE into one shared scan" not in mark["decision"]:
+        raise AssertionError(f"DAG cell's cost model: {mark['decision']}")
+    if (mark["k1_group"], k1_cell) != (2 * n_chunks, 3 * n_chunks):
+        raise AssertionError(f"DAG cell's K1 launches: fused group "
+                             f"{mark['k1_group']}, cell {k1_cell}; want "
+                             f"{2 * n_chunks}, {3 * n_chunks}")
+    if (mark["chunks"], mark["copies"]) != (n_chunks, 2 * n_chunks):
+        raise AssertionError(f"DAG cell: {mark['copies']} copies over "
+                             f"{mark['chunks']} fused chunks")
+    t_dag, t_chain = [], []
+    for rep in range(DAG_REPS):
+        t = time.perf_counter()
+        dag_chain(torch, inp, schema, os.path.join(w, "chain"))
+        t_chain.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        run_dag(os.path.join(w, "cell_dag"))
+        t_dag.append(time.perf_counter() - t)
+    if stage_bytes(os.path.join(w, "cell_dag"), DAG_STAGES) != chain:
+        raise AssertionError("DAG cell: a timed run changed its bytes")
+    log(f"DAG cell (bench.py:938: {SHARED_ROWS} rows, {SHARED_CHUNK}-row "
+        f"chunks, depth 2, stages {','.join(DAG_STAGES)}, best of "
+        f"{DAG_REPS}): DAG {min(t_dag):.3f} s (runs "
+        f"{', '.join(f'{x:.3f}' for x in t_dag)}), chain with file handoff "
+        f"{min(t_chain):.3f} s (runs {', '.join(f'{x:.3f}' for x in t_chain)}"
+        f"); DAG / chain {min(t_dag) / min(t_chain):.4f}; 6 outputs "
+        f"byte-equal; {mark['decision']}; K1 launches fused group "
+        f"{mark['k1_group']}, cell {k1_cell}; H2D copies a fused chunk "
+        f"{mark['copies'] / mark['chunks']:.2f} ({mark['copies']} over "
+        f"{mark['chunks']}); memory handoffs {mark['handoffs']} [{card}]")
+    by_kind, wall_s = profile_device(
+        torch, lambda: run_dag(os.path.join(w, "cell_profiled")),
+        {"histogram kernel": "histogram_kernel", "pair count": "index"})
+    report_phase("DAG cell", by_kind, wall_s, "histogram kernel", card)
+
+    # kill inside the fused group, then --resume
+    book = os.path.join(w, "runbook_cuda")
+    killed = ["-Dfault.inject.plan=worker_death@5"]
+    with in_dir(book):
+        shutil.rmtree("work/out", ignore_errors=True)
+    try:
+        workflow_runbook(book, "cuda", killed)
+    except RuntimeError as e:
+        died = str(e)
+    else:
+        raise AssertionError("worker_death@5 did not kill the workflow")
+    out = os.path.join(book, "work", "out")
+    for f in ("_workflow.ckpt", "_dag_scan_corr+mi+nb.ckpt"):
+        if not os.path.exists(os.path.join(out, f)):
+            raise AssertionError(f"the killed workflow left no {f}")
+    histogram.reset_launch_counts()
+    t = time.perf_counter()
+    resumed, err = workflow_runbook(book, "cuda", ["--resume"])
+    t_resume = time.perf_counter() - t
+    if "skipping completed stage 'bin'" not in err:
+        raise AssertionError(f"the resume did not skip bin: {err}")
+    if "resuming from" not in err or "byte offset" not in err:
+        raise AssertionError(f"the fused scan did not resume mid-scan: "
+                             f"{err}")
+    if resumed != rb["cuda"]:
+        bad = [s for s in WORKFLOW_STAGES if resumed[s] != rb["cuda"][s]]
+        raise AssertionError(f"the resumed workflow's {bad} differ")
+    if [f for f in os.listdir(out) if f.endswith(".ckpt")]:
+        raise AssertionError("the resumed workflow left a sidecar")
+    log(f"workflow runbook killed ({died}) inside the fused group, resumed "
+        f"in {t_resume:.3f} s with {histogram.K1_LAUNCHES} K1 launches: bin "
+        f"skipped, the shared scan resumed mid-file, 8 outputs equal to the "
+        f"uninterrupted run [{card}]")
+
+    # K1 at the retrain stage's chunk: NB over the 4 selected features
+    sel = FeatureSchema.from_file(os.path.join(w, "cell_dag", "select"))
+    enc = DatasetEncoder(sel)
+    with open(os.path.join(w, "cell_dag", "bin", "part-r-00000"), "rb") as fh:
+        buf = fh.read()
+    x, _, y, _ = enc.encode_buffer_chunk(
+        buf[:pipeline.row_chunk_ends(buf, SHARED_CHUNK)[0]], ",")
+    st = _NBStreamState(enc)
+    st.size_caps(x)
+    x, y = np.ascontiguousarray(x), np.ascontiguousarray(y)
+    case = ("K1dag", "the DAG's retrain chunk (bench.py:938 cell, NB over "
+            "the 4 selected features)", st.n_class_cap, st.bins_cap, None,
+            lambda: (torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda(),
+                     None))
+    return {"K1dag": k1_cell}, case
+
+
+# ---------------------------------------------------------------------------
+# host_jobs: the batch jobs of queue 1 item 3 and the feedback fold
+# ---------------------------------------------------------------------------
+
+HOST_RUNBOOKS = ("class_balance", "event_burst", "event_seq_gsp",
+                 "bandit_variants", "price_optimize")
+HOST_PARALLEL = 4
+FEEDBACK_EVENTS, FEEDBACK_TENANTS, FEEDBACK_ARMS = 1_000_000, 64, 8
+
+
+def write_feedback_log(path: str) -> str:
+    """1M ``tenant,arm,reward`` events (integer rewards 0-999), seeded."""
+    import numpy as np
+
+    rng = np.random.default_rng(12)
+    t = rng.integers(0, FEEDBACK_TENANTS, FEEDBACK_EVENTS)
+    a = rng.integers(0, FEEDBACK_ARMS, FEEDBACK_EVENTS)
+    r = rng.integers(0, 1000, FEEDBACK_EVENTS)
+    tn = np.char.add("t", np.arange(FEEDBACK_TENANTS).astype(str))
+    an = np.char.add("a", np.arange(FEEDBACK_ARMS).astype(str))
+    rows = np.char.add(np.char.add(np.char.add(tn[t], ","),
+                                   np.char.add(an[a], ",")), r.astype(str))
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as fh:
+        fh.write("\n".join(rows.tolist()) + "\n")
+    return path
+
+
+def host_jobs(torch, card) -> None:
+    """The five runbooks of the batch jobs through the port (each a
+    rewritten scratch copy in a subprocess, ``avenir_tpu_torch.runbook``)
+    on the card's machine, cuda and CPU, every file of their ``work/``
+    equal; ``BanditFeedbackAggregator`` over 1M events on cuda:0 and on
+    the CPU (equal bytes, rows/s, the device idle share); ``bandit_fb``'s
+    fold certificate on [cuda:0] and [cuda:0] * 4."""
+    from avenir_tpu_torch.core import algebra
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.models.bandit import BanditFeedbackAggregator
+    from avenir_tpu_torch.parallel.mesh import make_mesh
+    from avenir_tpu_torch.runbook import price_optimize_edit, run_runbook
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    w = os.path.join(WORK, "host_jobs")
+
+    def runbook(name, dev):
+        edit = price_optimize_edit if name == "price_optimize" else None
+        dst = os.path.join(w, f"{name}_{dev}")
+        t = time.perf_counter()
+        run_runbook(os.path.join(ROOT, "resource", name), dst, device=dev,
+                    edit=edit, timeout=600)
+        return time.perf_counter() - t, dir_bytes(os.path.join(dst, "work"))
+
+    # the subprocesses spend most of their time starting an interpreter and
+    # importing torch, so HOST_PARALLEL of them run at once
+    legs = [(name, dev) for name in HOST_RUNBOOKS for dev in ("cuda", "cpu")]
+    t = time.perf_counter()
+    with ThreadPoolExecutor(HOST_PARALLEL) as pool:
+        done = dict(zip(legs, pool.map(lambda leg: runbook(*leg), legs)))
+    log(f"the {len(HOST_RUNBOOKS)} runbooks on the card and on the CPU, "
+        f"{HOST_PARALLEL} subprocesses at once: {time.perf_counter() - t:.3f}"
+        f" s [{card}]")
+    for name in HOST_RUNBOOKS:
+        outs = {dev: done[(name, dev)][1] for dev in ("cuda", "cpu")}
+        same_on_both(f"{name} runbook", outs)
+        log(f"{name} runbook through the port: cuda "
+            f"{done[(name, 'cuda')][0]:.3f} s, cpu "
+            f"{done[(name, 'cpu')][0]:.3f} s; {len(outs['cuda'])} files "
+            f"byte-equal [{card}]")
+
+    events = write_feedback_log(os.path.join(w, "feedback", "events.csv"))
+    cfg = {"stream.tenants": ",".join(f"t{i}" for i in range(
+               FEEDBACK_TENANTS)),
+           "stream.arms": ",".join(f"a{i}" for i in range(FEEDBACK_ARMS))}
+    outs, secs = {}, {}
+    for dev in ("cuda", "cpu", "cuda"):
+        out = os.path.join(w, "feedback", f"out_{dev}")
+        t = time.perf_counter()
+        c = BanditFeedbackAggregator(JobConfig(dict(cfg)), device=dev).run(
+            events, out)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        secs[dev] = time.perf_counter() - t     # the warm cuda run's kept
+        outs[dev] = read_bytes(out)
+        if c.get("Stream", "Events folded") != FEEDBACK_EVENTS:
+            raise AssertionError(f"feedback fold on {dev}: {c.format()}")
+    same_on_both("feedback aggregator", outs)
+    by_kind, wall_s = profile_device(
+        torch, lambda: BanditFeedbackAggregator(
+            JobConfig(dict(cfg)), device="cuda").run(
+                events, os.path.join(w, "feedback", "out_profiled")),
+        {"index_add": "index"})
+    log(f"BanditFeedbackAggregator over {FEEDBACK_EVENTS} events "
+        f"({FEEDBACK_TENANTS} tenants x {FEEDBACK_ARMS} arms, 65,536-row "
+        f"chunks): cuda {secs['cuda']:.3f} s "
+        f"({FEEDBACK_EVENTS / secs['cuda']:.0f} rows/s), cpu "
+        f"{secs['cpu']:.3f} s ({FEEDBACK_EVENTS / secs['cpu']:.0f} rows/s); "
+        f"posterior lines byte-equal [{card}]")
+    report_phase("feedback fold", by_kind, wall_s, "index_add", card)
+
+    cuda0 = torch.device("cuda", 0)
+    wd = os.path.join(w, "certificate")
+    os.makedirs(wd, exist_ok=True)
+    for mesh in (make_mesh([cuda0]), make_mesh([cuda0] * 4)):
+        t = time.perf_counter()
+        reps = algebra.verify_fold_spec(
+            algebra.spec_factory("bandit_fb", wd, cuda0),
+            algebra.verification_rows(), mesh, seeds=algebra.DEFAULT_SEEDS,
+            spec_name="bandit_fb")
+        bad = [r.format() for r in reps if r.failed or r.withdrawn]
+        if bad or len(reps) != len(algebra.DEFAULT_SEEDS):
+            raise AssertionError(f"bandit_fb's certificate on {mesh!r}: "
+                                 f"{bad}")
+        log(f"bandit_fb's fold certificate on {mesh!r}: {len(reps)} reports "
+            f"clean in {time.perf_counter() - t:.3f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4280,7 +4702,14 @@ def main() -> int:
     phase_done("text")
     regress_paths(torch, card)
     phase_done("regress")
-    for case in [mi_case, ms_case] + text_cases:
+    # the workflow DAG: K1 in the fused group and the retrain stage (the
+    # path sets the counts to 0 before the runs it reads)
+    dag_launches, dag_case = dag_paths(torch, histogram, card)
+    launches.update(dag_launches)
+    phase_done("dag_paths")
+    host_jobs(torch, card)
+    phase_done("host_jobs")
+    for case in [mi_case, ms_case] + text_cases + [dag_case]:
         entries.append(histogram_entry(case))
     log(f"main-path launches: {launches}")
     log(f"phase seconds: {phases}")

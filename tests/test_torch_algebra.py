@@ -24,7 +24,7 @@ from avenir_tpu_torch.parallel.mesh import make_mesh
 
 CPU = torch.device("cpu")
 MESHES = {1: make_mesh([CPU]), 8: make_mesh([CPU] * 8)}
-JIDS = ["nb", "mi", "corr", "het", "mst", "stats"]
+JIDS = ["nb", "mi", "corr", "het", "mst", "stats", "bandit_fb"]
 ROWS = algebra.verification_rows()
 CHECKS = ["split-invariance", "carry-merge", "chunk-permutation"]
 
@@ -73,9 +73,8 @@ def test_whole_stream_output_is_the_reference_spec_s(work_dir, tmp_path,
 
 
 def test_every_foldspec_exporter_has_verification_workload(tmp_path):
-    """The coverage closure over the port's registry: the six exporters
-    it has, each with a workload.  (The reference's seventh,
-    BanditFeedbackAggregator, is not ported yet.)"""
+    """The coverage closure over the port's registry: all seven FoldSpec
+    exporters of the reference, each with the reference's workload."""
     jobs = algebra.verification_jobs(str(tmp_path))
     covered = {cls for cls, _ in jobs.values()}
     exporters = set(algebra.registered_exporters())
@@ -83,10 +82,30 @@ def test_every_foldspec_exporter_has_verification_workload(tmp_path):
     assert exporters == {
         "BayesianDistribution", "MutualInformation", "CramerCorrelation",
         "HeterogeneityReductionCorrelation", "MarkovStateTransitionModel",
-        "NumericalAttrStats"}
-    ref = {k: v[0] for k, v in jalg.verification_jobs(str(tmp_path)).items()}
-    assert {k: v[0] for k, v in jobs.items()} == {
-        k: v for k, v in ref.items() if k != "bandit_fb"}
+        "NumericalAttrStats", "BanditFeedbackAggregator"}
+    ref = jalg.verification_jobs(str(tmp_path))
+    assert jobs == ref
+
+
+def test_bandit_fb_certificate_is_the_reference_s(work_dir, tmp_path,
+                                                  mesh8):
+    """The posterior fold's certificate on ``[cpu] * 8``: the same seeds,
+    split points, checks and verdicts as the reference's on its 8-device
+    mesh."""
+    got = algebra.verify_fold_spec(
+        algebra.spec_factory("bandit_fb", work_dir, CPU), ROWS, MESHES[8],
+        seeds=algebra.DEFAULT_SEEDS, spec_name="bandit_fb")
+    jwd = str(tmp_path)
+    jalg.verification_jobs(jwd)
+    want = jalg.verify_fold_spec(
+        jalg.spec_factory("bandit_fb", jwd), jalg.verification_rows(), mesh8,
+        seeds=jalg.DEFAULT_SEEDS, spec_name="bandit_fb")
+
+    def shape(reps):
+        return [{k: v for k, v in r.to_dict().items() if k != "mesh"}
+                for r in reps]
+    assert shape(got) == shape(want)
+    assert not [r.format() for r in got if r.failed or r.withdrawn]
 
 
 def test_run_dynamic_is_clean_on_the_cpu_meshes():
