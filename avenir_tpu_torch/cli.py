@@ -5,9 +5,12 @@ multi -Dconf.path=<manifest> <in> [<out>] [--device cpu|cuda] [--resume]
 [--trace <out.json>] [--metrics-out <series.jsonl>] [--profile-dir=<dir>]``
 (core.multiscan); the workflow DAG: ``python -m avenir_tpu_torch dag
 -Dconf.path=<workflow.properties> <in> [<out>]`` with the same flags
-(core.dag); and the prediction server: ``python -m avenir_tpu_torch
+(core.dag); the prediction server: ``python -m avenir_tpu_torch
 serve -Dconf.path=<serve.properties> [--device cpu|cuda] [--trace
-<out.json>] [--metrics-out <series.jsonl>]`` (serve.server).
+<out.json>] [--metrics-out <series.jsonl>]`` (serve.server); and the
+streaming decision service: ``python -m avenir_tpu_torch stream
+-Dconf.path=<stream.properties> [--device cpu|cuda] [--resume] [--trace
+<out.json>] [--metrics-out <series.jsonl>]`` (stream.service).
 
 The same invocation, ``.properties`` files, schema JSONs and in/out
 directory layout as the reference package's ``python -m avenir_tpu``; job
@@ -114,6 +117,10 @@ JOBS: Dict[str, tuple] = {
     "org.chombo.mr.TemporalFilter": ("chombo", "TemporalFilter", "tef"),
     "org.chombo.mr.Projection": ("chombo", "Projection", ""),
     "org.chombo.mr.RunningAggregator": ("chombo", "RunningAggregator", ""),
+    # the streaming loop; positional args are (topologyName, configFile)
+    # as the reference's main() (ReinforcementLearnerTopology.java:42-47)
+    "org.avenir.reinforce.ReinforcementLearnerTopology":
+        ("streaming", "ReinforcementLearnerTopology", ""),
 }
 
 
@@ -416,6 +423,10 @@ def main(argv: Optional[list] = None) -> int:
               "       python -m avenir_tpu_torch serve "
               "-Dconf.path=<serve.properties> [--device cpu|cuda] "
               "[--trace <out.json>] [--metrics-out <series.jsonl>]\n"
+              "       python -m avenir_tpu_torch stream "
+              "-Dconf.path=<stream.properties> [--device cpu|cuda] "
+              "[--resume] [--trace <out.json>] [--metrics-out "
+              "<series.jsonl>]\n"
               "known jobs:\n  " + "\n  ".join(sorted(JOBS)), file=sys.stderr)
         return 2
     job_name, rest = argv[0], argv[1:]
@@ -423,6 +434,10 @@ def main(argv: Optional[list] = None) -> int:
         # the online prediction server (serve.server)
         from .serve.server import serve_main
         return serve_main(rest)
+    if job_name == "stream":
+        # the streaming decision service (stream.service)
+        from .stream.service import stream_main
+        return stream_main(rest)
     if job_name == "multi":
         # the shared scan (core.multiscan)
         return multi_main(rest)

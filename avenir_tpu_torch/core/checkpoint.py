@@ -41,9 +41,11 @@ Config surface:
 :class:`WorkflowCheckpointer` is the workflow DAG's (core.dag)
 stage-completion sidecar.
 
+:class:`OffsetCheckpointer` is the stream feedback consumer's (offset,
+posterior) sidecar (stream.consumer).
+
 The reference pickles its own encoder, so sidecars are not read across
-the two packages.  The stream-offset checkpointer waits for the stream
-tier.
+the two packages.
 """
 
 from __future__ import annotations
@@ -358,6 +360,155 @@ class StreamCheckpointer:
 
     def complete(self) -> None:
         """Remove every generation after a successful run."""
+        for path in generation_paths(self.path, self.keep):
+            try:
+                os.unlink(path)
+            except FileNotFoundError:
+                pass
+
+
+# ---------------------------------------------------------------------------
+# stream-offset checkpointing (the exactly-once feedback sidecar)
+# ---------------------------------------------------------------------------
+
+OFFSET_CKPT_VERSION = 1
+
+
+class OffsetCheckpointer:
+    """Offset + fold-carry sidecar for an unbounded stream consumer
+    (the ``stream.consumer`` feedback consumer's exactly-once hinge).
+
+    A file-scan checkpoint fingerprints its input file; a stream has no
+    file, so identity is the DECLARED stream identity (stream key,
+    consumer group, tenant/arm manifest, posterior dtype) — a sidecar
+    written against a different stream or manifest raises
+    :class:`CheckpointMismatch` instead of silently resuming the wrong
+    posterior.  Everything else — atomic tmp+rename saves, generation
+    rotation (``checkpoint.keep``), newest→oldest corruption fallback
+    surfacing :class:`CheckpointCorrupt`, the ``checkpoint.fallback``
+    policy, and the ``ckpt_corrupt`` fault point — is the same machinery
+    :class:`StreamCheckpointer` uses, so the chaos soak exercises one
+    durability layer, not two.
+
+    The exactly-once contract: the LAST-APPLIED stream entry id and the
+    fold carry persist in ONE payload, so a kill anywhere leaves a
+    consistent (offset, carry) pair — resume re-reads the stream's
+    pending entries and the offset watermark dedupes anything at or
+    below it (duplicate delivery), while anything above it was never
+    folded into this carry and applies exactly once.  Falling back a
+    generation just lowers the watermark: the extra entries replay, and
+    the integer-exact fold makes the result byte-identical.
+    """
+
+    def __init__(self, path: str, interval_events: int,
+                 identity: Dict[str, Any], resume: bool = False,
+                 keep: int = DEFAULT_KEEP, fallback: str = FALLBACK_COLD):
+        if interval_events < 1:
+            raise ValueError(
+                f"checkpoint interval must be >= 1 event: {interval_events}")
+        self.path = path
+        self.interval = int(interval_events)
+        self.identity = dict(identity)
+        self.resume = bool(resume)
+        self.keep = max(1, int(keep))
+        self.fallback = fallback
+        self.saves = 0
+
+    @classmethod
+    def from_config(cls, config, interval_events: int,
+                    identity: Dict[str, Any],
+                    default_path: str) -> Optional["OffsetCheckpointer"]:
+        """None when checkpointing is off AND no resume was requested
+        (mirrors :meth:`StreamCheckpointer.from_config`)."""
+        resume = config.get_boolean(KEY_RESUME, False)
+        if interval_events <= 0 and not resume:
+            return None
+        return cls(config.get(KEY_PATH, default_path),
+                   interval_events if interval_events > 0 else 256,
+                   identity, resume=resume,
+                   keep=config.get_int(KEY_KEEP, DEFAULT_KEEP),
+                   fallback=_fallback_from_config(config))
+
+    def save(self, offset: str, carry: Any, state: Dict[str, Any]) -> None:
+        """Atomically write (offset, carry, consumer state) as one
+        sidecar, rotating the previous generation older first."""
+        payload = {
+            "version": OFFSET_CKPT_VERSION,
+            "identity": self.identity,
+            "offset": str(offset),
+            "carry": assert_portable_carry(
+                carry, context="stream-offset checkpoint carry"),
+            "state": pickle.dumps(dict(state),
+                                  protocol=pickle.HIGHEST_PROTOCOL),
+        }
+        d = os.path.dirname(os.path.abspath(self.path))
+        os.makedirs(d, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(prefix=".ckpt-", dir=d)
+        try:
+            with os.fdopen(fd, "wb") as fh:
+                pickle.dump(payload, fh, protocol=pickle.HIGHEST_PROTOCOL)
+            _rotate_generations(self.path, self.keep)
+            os.replace(tmp, self.path)
+        except BaseException:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            raise
+        _maybe_corrupt_sidecar(self.path, self.saves)
+        self.saves += 1
+
+    def _validate(self, path: str,
+                  payload: Dict[str, Any]) -> Dict[str, Any]:
+        if payload.get("version") != OFFSET_CKPT_VERSION:
+            raise CheckpointMismatch(
+                f"stream checkpoint {path}: version "
+                f"{payload.get('version')} != {OFFSET_CKPT_VERSION}")
+        if payload.get("identity") != self.identity:
+            raise CheckpointMismatch(
+                f"stream checkpoint {path} was written against a "
+                f"different stream identity ({payload.get('identity')} "
+                f"!= {self.identity}) — re-run without --resume")
+        try:
+            payload["state"] = pickle.loads(payload["state"])
+        except (KeyError, TypeError, pickle.PickleError, EOFError,
+                AttributeError, ImportError, IndexError,
+                UnicodeDecodeError, ValueError) as e:
+            raise CheckpointCorrupt(
+                f"stream checkpoint {path}: consumer state unreadable "
+                f"({type(e).__name__}: {e})") from None
+        return payload
+
+    def load(self) -> Optional[Dict[str, Any]]:
+        """The newest valid generation's (offset, carry, state), walking
+        past corrupt generations exactly like
+        :meth:`StreamCheckpointer.load` (an older generation's lower
+        watermark just replays more pending entries — byte-identical)."""
+        counters = _durability_counters()
+        corrupt: List[str] = []
+        for path in generation_paths(self.path, self.keep):
+            if not os.path.exists(path):
+                continue
+            try:
+                payload = self._validate(path, _load_payload(path))
+            except CheckpointCorrupt as e:
+                counters.incr("Durability", "Checkpoint corrupt")
+                corrupt.append(str(e))
+                continue
+            if corrupt:
+                counters.incr("Durability", "Generation fallbacks")
+            return payload
+        if not corrupt:
+            return None
+        if self.fallback == FALLBACK_FAIL:
+            raise CheckpointCorrupt(
+                f"every stream checkpoint generation of {self.path} is "
+                f"corrupt ({'; '.join(corrupt)}) and {KEY_FALLBACK}="
+                f"{FALLBACK_FAIL}")
+        counters.incr("Durability", "Cold starts")
+        return None
+
+    def complete(self) -> None:
         for path in generation_paths(self.path, self.keep):
             try:
                 os.unlink(path)

@@ -11,6 +11,9 @@ teleComChurn.json``) into ``FeatureSchema``/``FeatureField``:
 - numeric fields may carry ``bucketWidth`` (bin = value / bucketWidth,
   truncated toward zero), ``min``/``max``, ``splitScanInterval`` and
   ``maxSplit``.
+
+``CostSchema`` reads an attribute-change cost file (``CostAttribute``
+per attribute: name, ordinal, cost).
 """
 
 from __future__ import annotations
@@ -128,3 +131,40 @@ class FeatureSchema:
             if f.ordinal == ordinal:
                 return f
         raise KeyError(f"no field with ordinal {ordinal}")
+
+
+@dataclass
+class CostAttribute:
+    """One attribute's change cost (util/CostSchema.java:43-77 equivalent)."""
+    name: str = ""
+    ordinal: int = -1
+    cost: float = 0.0
+    extra: Dict[str, Any] = dc_field(default_factory=dict)
+
+
+class CostSchema:
+    """Attribute-change cost metadata (util/CostSchema.java equivalent)."""
+
+    def __init__(self, attributes: List[CostAttribute]):
+        self.attributes = attributes
+
+    @classmethod
+    def from_file(cls, path: str) -> "CostSchema":
+        with open(path, "r") as fh:
+            d = json.load(fh)
+        attrs = []
+        for a in d.get("attributes", d.get("costAttributes", [])):
+            ca = CostAttribute()
+            for k, v in a.items():
+                if hasattr(ca, k) and k != "extra":
+                    setattr(ca, k, v)
+                else:
+                    ca.extra[k] = v
+            attrs.append(ca)
+        return cls(attrs)
+
+    def cost_by_ordinal(self, ordinal: int) -> float:
+        for a in self.attributes:
+            if a.ordinal == ordinal:
+                return a.cost
+        raise KeyError(f"no cost attribute with ordinal {ordinal}")

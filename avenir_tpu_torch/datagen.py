@@ -3,8 +3,10 @@ generators (``avenir_tpu/datagen/generators.py``: ``gen_telecom_churn``,
 ``gen_elearn``, ``gen_usage``, ``gen_transactions``,
 ``gen_state_sequences``, ``gen_hmm_sequences``, ``gen_retarget``,
 ``gen_hosp_readmit``, ``gen_visit_history``, ``gen_text_classified``,
-``gen_event_seq``, ``gen_price_rounds``) and of the presets that
-the runbooks call (``avenir_tpu/datagen/cli.py``).
+``gen_event_seq``, ``gen_price_rounds``, ``gen_disease``,
+``gen_xactions``, ``gen_numeric_classed``, and the click-through reward
+simulator ``ctr_reward_sampler``) and of the presets that the runbooks
+call (``avenir_tpu/datagen/cli.py``).
 
 The same seed gives the same rows as the reference package's generators
 (both draw from ``numpy.random.default_rng``).  Command line::
@@ -12,8 +14,8 @@ The same seed gives the same rows as the reference package's generators
     python -m avenir_tpu_torch.datagen <preset> <sizes...> [--seed S] [--out FILE]
 
 with the presets of :data:`PRESETS` (``transactions`` and
-``timed_transactions`` take two sizes, transactions and items; the others
-one).
+``timed_transactions`` take two sizes, transactions and items,
+``xactions`` customers and days; the others one).
 """
 
 from __future__ import annotations
@@ -465,6 +467,109 @@ def gen_price_rounds(n_products: int, n_prices: int = 5, seed: int = 42):
     return prices, mean_profit, sample_reward
 
 
+def gen_disease(n: int, seed: int = 42) -> List[List[str]]:
+    """Disease-risk rows per resource/disease.rb:8-75: id, age, race,
+    weight, diet, family history, domestic life, status Yes/No.  Risk
+    multiplies up with age, AFA race, high-fat diet, family history, and
+    living alone — the rule-mining fixture (tutorial_diesase_rule_mining)."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(n):
+        pid = f"{int(rng.integers(10**11, 10**12))}"
+        age = 20 + int(rng.integers(60))
+        race = _weighted_choice(rng, [("EUA", 10), ("AFA", 3), ("LAA", 1),
+                                      ("ASA", 1)])
+        weight = 120 + int(rng.integers(120))
+        diet = _weighted_choice(rng, [("LF", 2), ("REG", 8), ("HF", 4)])
+        fam = _weighted_choice(rng, [("NFH", 5), ("FH", 1)])
+        dom = _weighted_choice(rng, [("S", 2), ("DP", 4)])
+        pr = 15.0
+        pr *= 1.0 if age < 40 else (1.05 if age < 50 else
+                                    (1.15 if age < 60 else
+                                     (1.4 if age < 70 else 1.5)))
+        pr *= {"AFA": 1.2, "ASA": 0.9, "LAA": 0.95}.get(race, 1.0)
+        pr *= 1.15 if diet == "HF" else 1.0
+        pr *= 1.2 if fam == "FH" else 1.0
+        pr *= 1.2 if dom == "S" else 1.0
+        pr = min(pr, 99.0)
+        status = "Yes" if rng.integers(100) < pr else "No"
+        rows.append([pid, str(age), race, str(weight), diet, fam, dom, status])
+    return rows
+
+
+def gen_xactions(n_cust: int, n_days: int, visitor_percent: float = 0.05,
+                 seed: int = 42) -> List[List[str]]:
+    """Raw purchase transactions per resource/buy_xaction.rb:5-58:
+    custID, xactionID, ISO date, amount.  Amounts alternate between small
+    frequent and large infrequent purchases depending on days since the
+    customer's previous transaction — the input to the state-conversion +
+    Markov marketing-plan pipeline (mark_plan.rb)."""
+    import datetime
+
+    rng = np.random.default_rng(seed)
+    cust_ids = [f"C{int(rng.integers(10**9, 10**10))}" for _ in range(n_cust)]
+    hist = {}
+    rows = []
+    xid = 1360000000
+    date = datetime.date(2013, 1, 1)
+    for _ in range(n_days):
+        n_x = int(visitor_percent * n_cust * (85 + int(rng.integers(30))) / 100)
+        for _ in range(n_x):
+            cid = cust_ids[int(rng.integers(len(cust_ids)))]
+            if cid in hist:
+                last_date, last_amt = hist[cid][-1]
+                days = (date - last_date).days
+                if days < 30:
+                    amount = (50 + int(rng.integers(20)) - 10 if last_amt < 40
+                              else 30 + int(rng.integers(10)) - 5)
+                elif days < 60:
+                    amount = (100 + int(rng.integers(40)) - 20 if last_amt < 80
+                              else 60 + int(rng.integers(20)) - 10)
+                else:
+                    amount = (180 + int(rng.integers(60)) - 30 if last_amt < 150
+                              else 120 + int(rng.integers(40)) - 20)
+            else:
+                hist[cid] = []
+                amount = 40 + int(rng.integers(180))
+            hist[cid].append((date, amount))
+            xid += 1
+            rows.append([cid, str(xid), date.isoformat(), str(amount)])
+        date += datetime.timedelta(days=1)
+    return rows
+
+
+def ctr_reward_sampler(seed: int = 42):
+    """Click-through-rate reward simulator per resource/lead_gen.py:12-66:
+    three page actions with hidden Gaussian CTR distributions (page3 best).
+    Returns (actions, sample(action) -> int reward) for driving the
+    streaming RL loop the way the reference's Redis simulator does."""
+    rng = np.random.default_rng(seed)
+    distr = {"page1": (30, 12), "page2": (60, 30), "page3": (80, 10)}
+
+    def sample(action: str) -> int:
+        mean, sd = distr[action]
+        # reference sums 12 uniform draws (Irwin-Hall approx of a Gaussian)
+        s = int(sum(rng.integers(1, 100) for _ in range(12)))
+        r = int(((s - 600) / 100.0) * sd + mean)
+        return max(r, 0)
+
+    return list(distr), sample
+
+
+def gen_numeric_classed(n: int, n_features: int = 4, n_classes: int = 2,
+                        sep: float = 2.0, seed: int = 42) -> List[List[str]]:
+    """Generic numeric classification rows (id, f1..fk, class) with
+    class-separated Gaussian features — fixture for logistic regression,
+    Fisher discriminant, and kNN."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        c = int(rng.integers(0, n_classes))
+        feats = rng.normal(c * sep, 1.0, n_features)
+        rows.append([f"R{i:06d}"] + [f"{v:.3f}" for v in feats] + [f"C{c}"])
+    return rows
+
+
 def visit_history(n: int, seed: int = 42) -> List[List[str]]:
     """The ``visit_history`` preset: half the users convert, rows labelled."""
     return gen_visit_history(n, conv_rate=50, label=True, seed=seed)
@@ -486,6 +591,9 @@ PRESETS: Dict[str, tuple] = {
     "visit_history": (visit_history, 1),
     "text_classified": (gen_text_classified, 1),
     "event_seq": (gen_event_seq, 1),
+    "disease": (gen_disease, 1),
+    "xactions": (gen_xactions, 2),
+    "numeric_classed": (gen_numeric_classed, 1),
 }
 
 

@@ -1075,6 +1075,28 @@ class BayesianPredictor:
         return _java_int32(ratio * 100), feat_prior, feat_post
 
     @staticmethod
+    def _prepare_f32(post, prior, gauss_post, gauss_prior, class_prior,
+                     is_cont):
+        """The float32 scorer's per-model tables, made once a model: the
+        float32 bin tables and their logs (a zero clamped to 1e-30), each
+        Gaussian's mean, clamped std and ``-log(std)``, and the log class
+        priors.  The logs are elementwise, so a pick from a log table is
+        the log of the pick, bit for bit."""
+        f32 = torch.float32
+        tiny = 1e-30
+        post = post.to(f32)
+        prior = prior.to(f32)
+
+        def gauss(params):
+            params = params.to(f32)
+            std = params[..., 1].clamp_min(1e-9)
+            return params[..., 0], std, -log_f32(std)
+        return ((post, prior, log_f32(post.clamp_min(tiny)),
+                 log_f32(prior.clamp_min(tiny)))
+                + gauss(gauss_post) + gauss(gauss_prior)
+                + (log_f32(class_prior.to(f32)), is_cont))
+
+    @staticmethod
     def _score_batch_f32(x, values, post, prior, gauss_post, gauss_prior,
                          class_prior, is_cont):
         """Log-space float32 scoring, the default path.  Tail density
@@ -1084,45 +1106,50 @@ class BayesianPredictor:
         the mathematically right ratio on rows whose float64 products
         underflow.  A bin unseen in training (zero posterior) yields
         probability 0, as the float64 path does.  The bin pick is a gather,
-        so it is exact."""
+        so it is exact.  A server prepares the tables once
+        (:meth:`_prepare_f32`) and calls :meth:`_score_prepared_f32`."""
+        return BayesianPredictor._score_prepared_f32(
+            x, values, *BayesianPredictor._prepare_f32(
+                post, prior, gauss_post, gauss_prior, class_prior, is_cont))
+
+    @staticmethod
+    def _score_prepared_f32(x, values, post, prior, lpost, lprior,
+                            gpost_mean, gpost_std, gpost_nlog, gprior_mean,
+                            gprior_std, gprior_nlog, lclass_prior, is_cont,
+                            feat: bool = True):
+        """:meth:`_score_batch_f32` on the tables of :meth:`_prepare_f32`;
+        ``feat=False`` leaves the feature probabilities out (``None``),
+        for a caller that prints only the class probabilities."""
         f32 = torch.float32
         dev = x.device
         x = x.long()
         values = values.to(f32)
-        post = post.to(f32)
-        prior = prior.to(f32)
-        gauss_post = gauss_post.to(f32)
-        gauss_prior = gauss_prior.to(f32)
-        class_prior = class_prior.to(f32)
         n, F = x.shape
         C = post.shape[0]
         xc = x.clamp(0, post.shape[2] - 1)
         cols = torch.arange(F, device=dev)
         half_log_2pi = torch.tensor(0.5 * math.log(2.0 * math.pi), dtype=f32)
 
-        def log_gauss(v, params):
-            mean = params[..., 0]
-            std = params[..., 1].clamp_min(1e-9)
+        def log_gauss(v, mean, std, nlog_std):
             z = (v - mean) / std
             # -0.5*z*z - log(std) with the multiply and the subtract in
             # one rounding, as XLA's backend contracts them
-            return fma_f32(z, z * -0.5, -log_f32(std)) - half_log_2pi
+            return fma_f32(z, z * -0.5, nlog_std) - half_log_2pi
 
-        tiny = 1e-30
+        crow = torch.arange(C, device=dev)[None, :, None]
         prior_pick = prior[cols[None, :], xc]                           # [n, F]
-        post_pick = post[torch.arange(C, device=dev)[None, :, None],
-                         cols[None, None, :], xc[:, None, :]]          # [n, C, F]
+        post_pick = post[crow, cols[None, None, :], xc[:, None, :]]     # [n, C, F]
         lprior_f = torch.where(
-            is_cont[None, :], log_gauss(values, gauss_prior[None, :, :]),
-            log_f32(prior_pick.clamp_min(tiny)))
+            is_cont[None, :],
+            log_gauss(values, gprior_mean, gprior_std, gprior_nlog),
+            lprior[cols[None, :], xc])
         lfeat_prior = _sum_last(lprior_f)                               # [n]
         lpost_f = torch.where(
             is_cont[None, None, :],
-            log_gauss(values[:, None, :], gauss_post[None]),
-            log_f32(post_pick.clamp_min(tiny)))
+            log_gauss(values[:, None, :], gpost_mean, gpost_std, gpost_nlog),
+            lpost[crow, cols[None, None, :], xc[:, None, :]])
         lfeat_post = _sum_last(lpost_f)                                 # [n, C]
-        lratio = (lfeat_post + log_f32(class_prior)[None, :]
-                  - lfeat_prior[:, None])
+        lratio = lfeat_post + lclass_prior[None, :] - lfeat_prior[:, None]
         probs = _java_int32(torch.exp(lratio) * 100)
         # a true zero posterior factor must give probability 0, as the
         # float64 product does; the tiny clamp would otherwise cancel
@@ -1130,13 +1157,16 @@ class BayesianPredictor:
         post_zero = ((~is_cont)[None, None, :] & (post_pick <= 0)).any(dim=2)
         prior_zero = ((~is_cont)[None, :] & (prior_pick <= 0)).any(dim=1)
         probs = torch.where(post_zero, torch.zeros_like(probs), probs)
+        if not feat:
+            return probs, None, None
         # the feature probabilities exponentiate in float64 (tail products
-        # below ~1e-38 would flush to 0 in float32), with XLA's exp: they
-        # are printed as they are in prob-only mode
+        # below ~1e-38 would flush to 0 in float32), with XLA's exp, all in
+        # one call: they are printed as they are in prob-only mode
+        feat = exp_f64(torch.cat([lfeat_prior[:, None], lfeat_post],
+                                 dim=1).double())
         zero = torch.zeros((), dtype=torch.float64, device=dev)
-        return (probs,
-                torch.where(prior_zero, zero, exp_f64(lfeat_prior.double())),
-                torch.where(post_zero, zero, exp_f64(lfeat_post.double())))
+        return (probs, torch.where(prior_zero, zero, feat[:, 0]),
+                torch.where(post_zero, zero, feat[:, 1:]))
 
     @staticmethod
     def log_oracle(x, values, post, prior, gauss_post, gauss_prior,

@@ -11,8 +11,7 @@ Reference surface:
   (:219-243).
 - ``markov.SuffixTreeBuilder`` / ``SuffixTreeNode`` — in-memory suffix tree
   built from those lines (SuffixTreeBuilder.java:45-70), used downstream for
-  sequence probability queries; no job of the port reads it, and it is not
-  ported.
+  sequence probability queries (host code, copied).
 
 The port's counterpart of ``avenir_tpu/models/pst.py``, with the same
 config keys and output bytes.  Symbols are vocab-encoded on the host; in
@@ -29,7 +28,7 @@ instead (the ``PST / HostFallbackWindows`` counter) with the same output.
 from __future__ import annotations
 
 from collections import Counter as PyCounter
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -217,3 +216,54 @@ class ProbabilisticSuffixTreeGenerator:
             if len(win) == max_len:
                 out.append(list(key) + list(win))
         return out
+
+
+class SuffixTreeNode:
+    """In-memory PST node (markov/SuffixTreeNode.java:28-158)."""
+
+    def __init__(self, token: Optional[str] = None):
+        self.token = token
+        self.count = 0
+        self.children: Dict[str, "SuffixTreeNode"] = {}
+
+    def add(self, tokens: Sequence[str], count: int = 1) -> None:
+        node = self
+        for t in tokens[:-1]:
+            node = node.children.setdefault(t, SuffixTreeNode(t))
+        # last token carries the count (lines are full paths with counts)
+        leaf = node.children.setdefault(tokens[-1], SuffixTreeNode(tokens[-1]))
+        leaf.count += count
+
+    def find(self, tokens: Sequence[str]) -> Optional["SuffixTreeNode"]:
+        node = self
+        for t in tokens:
+            node = node.children.get(t)
+            if node is None:
+                return None
+        return node
+
+    def is_leaf(self) -> bool:
+        return not self.children
+
+
+class SuffixTreeBuilder:
+    """Builds (optionally partitioned) trees from generator output lines
+    (markov/SuffixTreeBuilder.java:45-70)."""
+
+    def __init__(self, path: str, delim: str = ",",
+                 num_id_fields: int = 0):
+        self.tree = SuffixTreeNode()
+        self.partitioned: Dict[Tuple[str, ...], SuffixTreeNode] = {}
+        for line in read_lines(path):
+            items = line.split(delim)
+            count = int(items[-1])
+            toks = items[:-1]
+            if num_id_fields:
+                pid = tuple(toks[:num_id_fields])
+                tree = self.partitioned.setdefault(pid, SuffixTreeNode())
+                tree.add(toks[num_id_fields:], count)
+            else:
+                self.tree.add(toks, count)
+
+    def get_tree(self, part_id: Optional[Tuple[str, ...]] = None) -> SuffixTreeNode:
+        return self.tree if part_id is None else self.partitioned[part_id]

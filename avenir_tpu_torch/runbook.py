@@ -3,9 +3,11 @@
 A runbook (``resource/<name>/run.sh`` or ``run.py``) drives the reference
 package: ``python -m avenir_tpu <Job> ...``, ``python -m
 avenir_tpu.datagen ...``, or in Python ``from avenir_tpu.cli import main
-as job``.  :func:`port_runbook` copies the runbook's directory and
-rewrites those command lines and imports to the port's, adding
-``--device <device>`` to every job when a device is given;
+as job`` and other imports of the package.  :func:`port_runbook` copies
+the runbook's directory and rewrites those command lines (a line
+continued with ``\\`` included) and the imports of every Python file
+there (helpers, and a script fed to Python from the shell) to the port's,
+adding ``--device <device>`` to every job when a device is given;
 :func:`run_runbook` runs the copy (or an unchanged copy, for the
 reference) in a subprocess from its own directory.  Command line::
 
@@ -23,16 +25,25 @@ from typing import Callable, Optional
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# `-m avenir_tpu <args>` as a command (not the datagen module)
-_SHELL_JOB = re.compile(r"-m avenir_tpu (.*?)[ \t]*$", re.M)
+# `-m avenir_tpu <args>` as a command (not the datagen module), with the
+# line's continuation backslash apart
+_SHELL_JOB = re.compile(r"-m avenir_tpu (.*?)([ \t]*\\)?[ \t]*$", re.M)
+
+
+def _rewrite_imports(text: str) -> str:
+    text = text.replace("from avenir_tpu.core import ",
+                        "from avenir_tpu_torch.core.io import ")
+    return re.sub(r"\b(from|import) avenir_tpu\.", r"\1 avenir_tpu_torch.",
+                  text)
 
 
 def _rewrite_shell(text: str, device: Optional[str]) -> str:
     text = text.replace("-m avenir_tpu.datagen",
                         "-m avenir_tpu_torch.datagen")
     flag = f" --device {device}" if device else ""
-    return _SHELL_JOB.sub(lambda m: f"-m avenir_tpu_torch {m.group(1)}"
-                          f"{flag}", text)
+    text = _SHELL_JOB.sub(lambda m: f"-m avenir_tpu_torch {m.group(1)}"
+                          f"{flag}{m.group(2) or ''}", text)
+    return _rewrite_imports(text)
 
 
 def _rewrite_python(text: str, device: Optional[str]) -> str:
@@ -42,10 +53,22 @@ def _rewrite_python(text: str, device: Optional[str]) -> str:
            if device else
            "from avenir_tpu_torch.cli import main as job\n")
     text = text.replace("from avenir_tpu.cli import main as job\n", job)
-    text = text.replace("from avenir_tpu.core import ",
-                        "from avenir_tpu_torch.core.io import ")
-    return text.replace("from avenir_tpu.datagen import ",
-                        "from avenir_tpu_torch.datagen import ")
+    return _rewrite_imports(text)
+
+
+def _leftover(path: str, text: str) -> None:
+    left = re.findall(r"avenir_tpu(?!_torch)\b[^\n]*", text)
+    if left:
+        raise ValueError(f"{path}: reference invocations left after the "
+                         f"rewrite: {left}")
+
+
+def _edit_file(path: str, rewrite: Callable[[str], str]) -> None:
+    with open(path) as fh:
+        text = rewrite(fh.read())
+    _leftover(path, text)
+    with open(path, "w") as fh:
+        fh.write(text)
 
 
 def port_runbook(src: str, dst: str, device: Optional[str] = None,
@@ -58,6 +81,10 @@ def port_runbook(src: str, dst: str, device: Optional[str] = None,
     over after the port's rewrite.  A ``work/`` left in ``src`` by an
     earlier run is not copied."""
     shutil.copytree(src, dst, ignore=shutil.ignore_patterns("work"))
+    if port:
+        for name in sorted(os.listdir(dst)):
+            if name.endswith(".py") and name != "run.py":
+                _edit_file(os.path.join(dst, name), _rewrite_imports)
     for name, rewrite in (("run.sh", _rewrite_shell),
                           ("run.py", _rewrite_python)):
         path = os.path.join(dst, name)
@@ -67,10 +94,7 @@ def port_runbook(src: str, dst: str, device: Optional[str] = None,
             text = fh.read()
         if port:
             text = rewrite(text, device)
-            left = re.findall(r"avenir_tpu(?!_torch)\b[^\n]*", text)
-            if left:
-                raise ValueError(f"{path}: reference invocations left "
-                                 f"after the rewrite: {left}")
+            _leftover(path, text)
         if edit is not None:
             text = edit(text)
         with open(path, "w") as fh:

@@ -7,10 +7,10 @@ micro-batching architecture; see PAPERS.md "Online serving").
 
 - ``engine``   — per-model scorer adapters wrapping the ported predict
   paths (NB f32 log-space and f64 scorers; kNN on kernel K3; the Markov
-  log-odds classifier) behind one ``predict_lines(lines) -> lines``
-  surface, with a build-counted bounded cache of scorers keyed on
-  power-of-two batch buckets.  The decision-tree and bandit kinds are
-  refused at load (not ported yet).
+  log-odds classifier; the decision tree's host routing; the streaming
+  bandit decisions over the live posterior store) behind one
+  ``predict_lines(lines) -> lines`` surface, with a build-counted bounded
+  cache of scorers keyed on power-of-two batch buckets.
 - ``registry`` — loads artifacts from their reference text formats,
   keyed by model name + version, with explicit warmup (each scorer built
   and run once at the configured buckets) and atomic hot-swap reload.

@@ -18,9 +18,11 @@ line the batch predictor would have written for the same row:
 - ``decisionTree``      — the tree builder's ``DecisionPathList``: each
   record routed to its first leaf path by one predicate matrix a batch
   (host NumPy, ``models.split``), as the reference's adapter (copied).
+- ``banditDecision``    — ``decide`` requests of the streaming decision
+  service: the arm chosen by Thompson sampling or UCB over the live
+  ``stream.posterior.PosteriorStore`` that every replica shares.
 
-The reference's ``banditDecision`` kind is not ported yet: such a model
-is refused at load (:data:`UNPORTED_KINDS`), never skipped.
+An unknown kind is refused at load, never skipped.
 
 Every adapter computes on one explicit ``torch.device`` (``cuda:0``
 unless the caller asks for the CPU); a ``None`` device resolves to the
@@ -306,10 +308,10 @@ class NaiveBayesAdapter(ModelAdapter):
     """Wraps ``BayesianPredictor``: probability tables are built ONCE from
     the declared schema extents and live on the adapter's device; per
     batch only the padded int32 ``x`` and float64 ``values`` move.  The
-    scorer is the batch job's own ``_score_batch_f32`` or
-    ``_score_batch`` (``bp.score.precision``), with XLA's float math
-    (ops.xla_math) and no TF32.  Table shapes equal what the batch
-    predictor derives for any in-domain input, so responses are
+    scorer is the batch job's own ``_score_batch_f32`` (its tables
+    prepared once, at load) or ``_score_batch`` (``bp.score.precision``),
+    with XLA's float math (ops.xla_math) and no TF32.  Table shapes equal
+    what the batch predictor derives for any in-domain input, so responses are
     byte-identical to the batch job's output lines; out-of-domain rows
     (out-of-vocabulary categorical value, numeric past the declared range
     or negative) are rejected per-row instead of silently mis-binning."""
@@ -327,13 +329,22 @@ class NaiveBayesAdapter(ModelAdapter):
         _require_declared_schema(schema)
         self.encoder = DatasetEncoder(schema)
         ds0 = self.encoder.encode([])
-        self._tables = predictor_tables_to_device(
-            self.predictor._build_tables(ds0), self.device)
+        host = predictor_tables_to_device(
+            self.predictor._build_tables(ds0), "cpu")
         self._num_bins = np.asarray(ds0.num_bins, np.int64)
         self._binned = np.asarray(ds0.binned_mask, bool)
-        self._score_fn = (BayesianPredictor._score_batch_f32
-                          if self.predictor.score_precision == "float32"
-                          else BayesianPredictor._score_batch)
+        # the float32 scorer's logs of the tables are taken once a model,
+        # on the host (the same bits as on a card), and not per batch
+        # (and its feature probabilities only where they are printed)
+        self._score_kw = {}
+        if self.predictor.score_precision == "float32":
+            self._score_fn = BayesianPredictor._score_prepared_f32
+            host = BayesianPredictor._prepare_f32(*host)
+            self._score_kw = {
+                "feat": self.predictor.output_feature_prob_only}
+        else:
+            self._score_fn = BayesianPredictor._score_batch
+        self._tables = tuple(t.to(self.device) for t in host)
         self._F = len(self.encoder.feature_fields)
         self._cls_ord = schema.class_attr_field().ordinal
         self._min_fields = max(
@@ -366,7 +377,7 @@ class NaiveBayesAdapter(ModelAdapter):
         fn = self._compiled(x.shape[0])
         dev = self.device
         return fn(torch.from_numpy(x).to(dev), torch.from_numpy(v).to(dev),
-                  *self._tables)
+                  *self._tables, **self._score_kw)
 
     def warm(self, bucket: int) -> None:
         probs, _, _ = self._score(np.zeros((bucket, self._F), np.int32),
@@ -399,10 +410,9 @@ class NaiveBayesAdapter(ModelAdapter):
         v = np.zeros((b, self._F), np.float64)
         x[:n] = xm
         v[:n] = ds.values
-        probs, feat_prior, feat_post = self._score(x, v)
-        probs = probs.cpu().numpy()[:n]
-        feat_prior = feat_prior.cpu().numpy()[:n]
-        feat_post = feat_post.cpu().numpy()[:n]
+        probs, feat_prior, feat_post = (
+            None if t is None else t.cpu().numpy()[:n]
+            for t in self._score(x, v))
         actuals = [r[self._cls_ord] for r in recs]
         out = self.predictor.emit_lines(
             [lines[i] for i in ok], recs, actuals, probs, feat_prior,
@@ -733,24 +743,75 @@ class DecisionTreeAdapter(ModelAdapter):
         return None
 
 
+# ---------------------------------------------------------------------------
+# streaming bandit decisions (stream.posterior)
+# ---------------------------------------------------------------------------
+
+class BanditDecisionAdapter(ModelAdapter):
+    """Serves ``decide`` requests for the streaming decision service:
+    request lines are ``eventID,tenant``, responses ``eventID,tenant,arm``,
+    the arm chosen by Thompson sampling or UCB over the tenant's per-arm
+    posterior.
+
+    The posterior is the live :class:`~avenir_tpu_torch.stream.posterior.
+    PosteriorStore` named by ``stream.store``: every replica's adapter
+    resolves to the same store (built from this model's manifest on the
+    adapter's device when not registered yet), so the feedback consumer's
+    folds reach every replica at once.  Decisions are pure functions of
+    (posterior, ``stream.seed``, event id), so responses do not depend on
+    batching, replica or restarts.  Unknown tenants and short rows fail
+    per row (a ``None`` result), never scored against another tenant."""
+
+    KIND = "banditDecision"
+
+    def __init__(self, config: JobConfig, counters: Counters, **kw):
+        super().__init__(config, counters, **kw)
+        from ..stream.posterior import ensure_store, event_crc
+
+        self.store = ensure_store(config, device=self.device)
+        self._crc = event_crc
+        self._min_fields = 2
+
+    def warm(self, bucket: int) -> None:
+        self.store.decide(np.zeros(bucket, np.int32),
+                          np.zeros(bucket, np.uint32))
+
+    def predict_lines(self, lines: List[str]) -> List[Optional[str]]:
+        records = self._split(lines)
+        index = self.store.tenant_index
+        ok = [i for i, r in enumerate(records)
+              if len(r) >= self._min_fields and r[1] in index]
+        results: List[Optional[str]] = [None] * len(lines)
+        if not ok:
+            return results
+        n = len(ok)
+        b = self._bucket(n)
+        tid = np.zeros(b, np.int32)
+        crc = np.zeros(b, np.uint32)
+        for j, i in enumerate(ok):
+            tid[j] = index[records[i][1]]
+            crc[j] = self._crc(records[i][0])
+        sels = self.store.decide(tid, crc)
+        arms = self.store.arms
+        for j, i in enumerate(ok):
+            r = records[i]
+            results[i] = (f"{r[0]}{self.delim}{r[1]}{self.delim}"
+                          f"{arms[int(sels[j])]}")
+            self.counters.incr(SERVE_GROUP, "Decisions")
+        return results
+
+
 ADAPTER_KINDS: Dict[str, type] = {
     cls.KIND: cls for cls in (NaiveBayesAdapter, NearestNeighborAdapter,
-                              MarkovClassifierAdapter, DecisionTreeAdapter)}
-
-#: the reference's other adapter kind, refused at load until its model is
-#: ported
-UNPORTED_KINDS = ("banditDecision",)
+                              MarkovClassifierAdapter, DecisionTreeAdapter,
+                              BanditDecisionAdapter)}
 
 
 def adapter_class(kind: str) -> type:
-    """The adapter class of ``kind``; an unported or unknown kind
-    raises, naming it, so no configured model is ever skipped."""
+    """The adapter class of ``kind``; an unknown kind raises, naming it,
+    so no configured model is ever skipped."""
     cls = ADAPTER_KINDS.get(kind)
     if cls is not None:
         return cls
-    if kind in UNPORTED_KINDS:
-        raise NotImplementedError(
-            f"model kind {kind!r} is not ported yet; ported kinds: "
-            + ", ".join(sorted(ADAPTER_KINDS)))
     raise ValueError(f"unknown model kind {kind!r}; known: "
                      + ", ".join(sorted(ADAPTER_KINDS)))

@@ -13,8 +13,8 @@ see resource/serving/ for a complete runbook):
     serve.model.<name>.variant.<v>.latency.class=fast|standard
     serve.model.<name>.variant.<v>.accuracy.class=standard|parity
 
-The reference's ``banditDecision`` kind is refused at load: it is not
-ported yet (engine.UNPORTED_KINDS).
+Every kind of the reference is ported; an unknown kind is refused at
+load (engine.adapter_class).
 
 Variants (INFaaS-style, PAPERS.md) are alternative scorer builds of the
 SAME artifact — ``f32``/``f64`` are built-in presets for the NB and

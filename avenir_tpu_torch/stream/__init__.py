@@ -1,2 +1,9 @@
-"""The streaming-decision tier's pieces that the port has so far: the
-fold half of ``stream/posterior.py`` (the batch feedback replay)."""
+"""The streaming-decision tier: the port of ``avenir_tpu/stream``.
+
+- :mod:`.posterior`: the per-(tenant, arm) posterior monoid (the fold,
+  ``ArmPosterior``, the live ``PosteriorStore`` with its Thompson and UCB
+  decide path, the store registry, and the shared-scan
+  ``FeedbackFoldSpec``);
+- :mod:`.consumer`: the exactly-once Redis-stream feedback consumer;
+- :mod:`.service`: the ``python -m avenir_tpu_torch stream`` entry point.
+"""

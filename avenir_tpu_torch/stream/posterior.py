@@ -1,4 +1,4 @@
-"""Per-(tenant, arm) bandit posterior state: the fold half of
+"""Per-(tenant, arm) bandit posterior state: the port of
 ``avenir_tpu/stream/posterior.py``.
 
 Every tenant owns one row of per-arm sufficient statistics, pull counts
@@ -7,45 +7,71 @@ and reward sums.  Reward events fold in as scatter-adds
 contract), and two carries combine by elementwise add
 (``core.multiscan.merge_carries``), a commutative monoid that
 ``core.algebra`` certifies through :class:`FeedbackFoldSpec` (jid
-``bandit_fb``).
+``bandit_fb``).  Rewards are integers on the wire, so the float sums are
+exact in any order.
 
-This module holds what the batch replay job
-(``models.bandit.BanditFeedbackAggregator``) needs: the fold, the event
-parser, the canonical posterior lines, the tenant and arm manifests and
-the shared-scan FoldSpec.  The decide path (``_ucb_decide``,
-``_thompson_decide`` with its threefry draws), ``ArmPosterior`` and the
-live ``PosteriorStore`` come with the stream tier (ROADMAP queue 1 item
-4).
+Three layers:
+
+- :class:`ArmPosterior`: the host-form state value (``state_dict`` /
+  ``from_state`` / ``merge``) and the canonical emitted lines shared by
+  the batch aggregator and the streaming audit.
+- :class:`PosteriorStore`: the live store on one device (``cuda:0``
+  unless the caller asks for another).  The feedback consumer folds
+  event batches in out of place and swaps the ``(pulls, reward)`` pair
+  under the store's lock; the decide path reads that pair under the same
+  lock, so a decision never sees two folds' halves.  Decisions are
+  Thompson sampling or UCB (:func:`_thompson_decide`,
+  :func:`_ucb_decide`) with jax's threefry draws (``ops.threefry``) and
+  XLA's float math (``ops.xla_math``), so a decision is a pure function
+  of (posterior, seed, event id), equal to the reference's bit for bit.
+- :class:`FeedbackFoldSpec`: the shared-scan FoldSpec replaying a
+  reward-event CSV log, the batch twin of the online consumer.
 
 Config surface (``stream.*``): ``stream.tenants`` /
 ``stream.tenants.path`` (tenant manifest), ``stream.arms``,
-``stream.posterior.dtype`` (``float64`` | ``float32``), and the column
-mapping ``stream.tenant.ordinal`` / ``stream.arm.ordinal`` /
-``stream.reward.ordinal``.
+``stream.algorithm`` (``thompson`` | ``ucb``), ``stream.seed``,
+``stream.thompson.sigma``, ``stream.posterior.dtype`` (``float64`` |
+``float32``), ``stream.store`` (the process-local store registry key),
+and the batch-replay column mapping ``stream.tenant.ordinal`` /
+``stream.arm.ordinal`` / ``stream.reward.ordinal``.
 """
 
 from __future__ import annotations
 
 import re
+import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..core import sanitizer, telemetry
 from ..core.io import read_lines, write_output
 from ..core.metrics import Counters
 from ..core.multiscan import FoldSpec as MultiScanFoldSpec
+from ..ops import threefry
 from ..ops.counting import count_table
+from ..ops.xla_math import fma_f32, fma_f64, log_f32, log_f64, sqrt_rn
 
 KEY_TENANTS = "stream.tenants"
 KEY_TENANTS_PATH = "stream.tenants.path"
 KEY_ARMS = "stream.arms"
+KEY_ALGORITHM = "stream.algorithm"
+KEY_SEED = "stream.seed"
+KEY_SIGMA = "stream.thompson.sigma"
 KEY_DTYPE = "stream.posterior.dtype"
+KEY_STORE = "stream.store"
 KEY_TENANT_ORD = "stream.tenant.ordinal"
 KEY_ARM_ORD = "stream.arm.ordinal"
 KEY_REWARD_ORD = "stream.reward.ordinal"
 
+DEFAULT_SEED = 2026
+DEFAULT_SIGMA = 1.0
 DEFAULT_DTYPE = "float64"
+DEFAULT_STORE = "default"
+
+ALGO_THOMPSON = "thompson"
+ALGO_UCB = "ucb"
 
 STREAM_GROUP = "Stream"
 
@@ -77,6 +103,47 @@ def _posterior_local(t, a, r, mask, n_tenants, n_arms, dtype_name,
     out["pulls"] += part["pulls"]
     out["reward"] += part["reward"]
     return out
+
+
+def _ucb_decide(pulls: torch.Tensor, reward: torch.Tensor,
+                tid: torch.Tensor) -> torch.Tensor:
+    """Deterministic UCB1 over normalized posterior means: untried arms
+    first (infinite bonus; ties go to the lowest arm index), else ``mean
+    + sqrt(2 ln N_tenant / n_arm)``, with XLA's ``log``."""
+    n = pulls[tid].to(reward.dtype)                        # [B, A]
+    nmax = n.clamp_min(1.0)
+    mean = reward[tid] / nmax
+    total = pulls.sum(dim=1).clamp_min(1)[tid].to(reward.dtype)
+    log = log_f64 if reward.dtype == torch.float64 else log_f32
+    bonus = sqrt_rn(2.0 * log(total)[:, None] / nmax)
+    val = torch.where(n == 0, torch.full_like(n, float("inf")),
+                      mean + bonus)
+    return torch.argmax(val, dim=1)
+
+
+def _thompson_decide(pulls: torch.Tensor, reward: torch.Tensor,
+                     tid: torch.Tensor, crc: torch.Tensor, seed: int,
+                     sigma: float) -> torch.Tensor:
+    """Gaussian Thompson sampling: per arm a draw ``N(mean, sigma /
+    sqrt(n + 1))``, the row's key ``fold_in(PRNGKey(seed), crc)`` (the
+    event id's CRC32), so a decision depends on (posterior, seed, event
+    id) only, never on the batch it came in.  ``mean + sd * z`` is one
+    FMA, as XLA contracts it."""
+    n = pulls[tid].to(reward.dtype)                        # [B, A]
+    mean = reward[tid] / n.clamp_min(1.0)
+    # a tensor over a tensor: a CUDA card's division by (or of) a Python
+    # scalar multiplies by a reciprocal, a second rounding
+    sd = torch.full_like(n, sigma) / sqrt_rn(n + 1.0)
+    keys = threefry.fold_in(threefry.prng_key(seed, reward.device), crc)
+    z = threefry.normal(keys, (mean.shape[1],), reward.dtype)
+    fma = fma_f64 if reward.dtype == torch.float64 else fma_f32
+    return torch.argmax(fma(sd, z, mean), dim=1)
+
+
+def event_crc(event_id: str) -> int:
+    """The per-decision RNG discriminator: CRC32 of the event id (stable
+    across processes and platforms)."""
+    return zlib.crc32(event_id.encode("utf-8"))
 
 
 def parse_event(fields: Sequence[str], t_ord: int, a_ord: int, r_ord: int,
@@ -145,6 +212,292 @@ def arms_from_config(config) -> List[str]:
     if len(set(names)) != len(names):
         raise ValueError(f"duplicate arm ids in {KEY_ARMS}")
     return names
+
+
+class ArmPosterior:
+    """Host-form per-(tenant, arm) posterior state, the monoid value.
+
+    ``merge`` is elementwise add over identical manifests;
+    ``state_dict`` / ``from_state`` round-trip it for checkpoints.
+    Rewards are integer-valued, so merges are exact in any order."""
+
+    __slots__ = ("tenants", "arms", "pulls", "reward")
+
+    def __init__(self, tenants: Sequence[str], arms: Sequence[str],
+                 pulls: Optional[np.ndarray] = None,
+                 reward: Optional[np.ndarray] = None,
+                 dtype: np.dtype = np.dtype(DEFAULT_DTYPE)):
+        self.tenants = list(tenants)
+        self.arms = list(arms)
+        shape = (len(self.tenants), len(self.arms))
+        self.pulls = (np.zeros(shape, np.int64) if pulls is None
+                      else np.asarray(pulls, np.int64).reshape(shape))
+        self.reward = (np.zeros(shape, dtype) if reward is None
+                       else np.asarray(reward, dtype).reshape(shape))
+
+    def state_dict(self) -> dict:
+        return {"tenants": list(self.tenants), "arms": list(self.arms),
+                "pulls": np.asarray(self.pulls),
+                "reward": np.asarray(self.reward),
+                "dtype": str(self.reward.dtype)}
+
+    @classmethod
+    def from_state(cls, state: dict) -> "ArmPosterior":
+        return cls(state["tenants"], state["arms"], pulls=state["pulls"],
+                   reward=state["reward"],
+                   dtype=np.dtype(state["dtype"]))
+
+    def merge(self, other: "ArmPosterior") -> "ArmPosterior":
+        if (self.tenants != other.tenants or self.arms != other.arms):
+            raise ValueError(
+                "cannot merge posteriors over different manifests")
+        self.pulls = self.pulls + other.pulls
+        self.reward = self.reward + other.reward.astype(self.reward.dtype)
+        return self
+
+    def apply(self, t_idx: np.ndarray, a_idx: np.ndarray,
+              rewards: np.ndarray) -> None:
+        """Host-side fold of one event batch (the consumer's mirror:
+        integer adds, so it stays equal to the device state)."""
+        np.add.at(self.pulls, (t_idx, a_idx), 1)
+        np.add.at(self.reward, (t_idx, a_idx),
+                  np.asarray(rewards).astype(self.reward.dtype))
+
+    def means(self) -> np.ndarray:
+        """Per-(tenant, arm) posterior mean reward (0 for untried)."""
+        return self.reward / np.maximum(self.pulls, 1)
+
+    def lines(self, delim: str = ",") -> List[str]:
+        return posterior_lines(self.tenants, self.arms, self.pulls,
+                               self.reward, delim)
+
+
+def _pow2(n: int) -> int:
+    b = 8
+    while b < n:
+        b *= 2
+    return b
+
+
+class PosteriorStore:
+    """The live posterior of one tenant fleet, on one device.
+
+    ``fold_events`` sends an event batch to the device
+    (``core.pipeline.ChunkTransfer``, padded to a power-of-two row bucket
+    with tenant -1, which adds nothing), folds it out of place and swaps
+    the ``{"pulls", "reward"}`` state under the store's lock; ``decide``
+    takes the state under the same lock and scores against it, so it
+    sees one fold's pulls and rewards together.  ``pulls`` stay int64
+    (``restore`` does not narrow them).  With a ``mesh`` of several
+    positions the rows are split over the positions and the partial
+    tables summed onto its first device, as the reference's fold does."""
+
+    def __init__(self, key: str, tenants: Sequence[str],
+                 arms: Sequence[str], algorithm: str = ALGO_THOMPSON,
+                 seed: int = DEFAULT_SEED, sigma: float = DEFAULT_SIGMA,
+                 dtype: str = DEFAULT_DTYPE, device=None, mesh=None):
+        from ..core import pipeline
+        from ..device import resolve_device
+
+        if algorithm not in (ALGO_THOMPSON, ALGO_UCB):
+            raise ValueError(
+                f"{KEY_ALGORITHM} must be {ALGO_THOMPSON} or {ALGO_UCB}: "
+                f"{algorithm!r}")
+        self.key = key
+        self.tenants = list(tenants)
+        self.arms = list(arms)
+        self.tenant_index = {t: i for i, t in enumerate(self.tenants)}
+        self.arm_index = {a: i for i, a in enumerate(self.arms)}
+        self.algorithm = algorithm
+        self.seed = int(seed)
+        self.sigma = float(sigma)
+        self.dtype = _dtype_from_name(dtype)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.device = (mesh.devices.flat[0] if mesh is not None
+                       else resolve_device(device))
+        self._static = (len(self.tenants), len(self.arms), str(self.dtype))
+        self._lock = sanitizer.make_lock("stream.posterior")
+        self._xfer = pipeline.ChunkTransfer(self.device, mesh=self.mesh)
+        self._state = self._place(self._zero_state())
+        self._decide_fns: dict = {}
+
+    def _zero_state(self) -> dict:
+        shape = (len(self.tenants), len(self.arms))
+        return {"pulls": np.zeros(shape, np.int64),
+                "reward": np.zeros(shape, self.dtype)}
+
+    def _place(self, host: dict) -> dict:
+        return {"pulls": torch.tensor(np.asarray(host["pulls"], np.int64),
+                                      device=self.device),
+                "reward": torch.tensor(np.asarray(host["reward"],
+                                                  self.dtype),
+                                       device=self.device)}
+
+    @classmethod
+    def from_config(cls, key: str, config, device=None,
+                    mesh=None) -> "PosteriorStore":
+        return cls(key,
+                   tenants_from_config(config),
+                   arms_from_config(config),
+                   algorithm=config.get(KEY_ALGORITHM, ALGO_THOMPSON),
+                   seed=config.get_int(KEY_SEED, DEFAULT_SEED),
+                   sigma=config.get_float(KEY_SIGMA, DEFAULT_SIGMA),
+                   dtype=config.get(KEY_DTYPE, DEFAULT_DTYPE),
+                   device=device, mesh=mesh)
+
+    # -- the feedback fold (consumer side) ---------------------------------
+    def fold_events(self, t_idx: np.ndarray, a_idx: np.ndarray,
+                    rewards: np.ndarray) -> None:
+        """Fold one parsed event batch into the device state and publish
+        the new state (one assignment under the lock)."""
+        from ..core.obs import get_tracer
+        from ..ops.counting import sharded_reduce_resident
+
+        n = len(t_idx)
+        if n == 0:
+            return
+        b = _pow2(n)
+        t = np.full(b, -1, np.int32)
+        a = np.zeros(b, np.int32)
+        r = np.zeros(b, np.int64)
+        t[:n], a[:n], r[:n] = t_idx, a_idx, rewards
+        with self._lock:
+            with get_tracer().span("stream.fold", store=self.key):
+                *arrays, mask = self._xfer((t, a, r))
+                if self.mesh is not None:
+                    part = sharded_reduce_resident(
+                        _posterior_local, *arrays, mask=mask,
+                        mesh=self.mesh, static_args=self._static)
+                else:
+                    part = _posterior_local(*arrays, mask, *self._static)
+                state = self._state
+                self._state = {"pulls": state["pulls"] + part["pulls"],
+                               "reward": state["reward"] + part["reward"]}
+
+    def restore(self, state: dict) -> None:
+        """Seed the state from a checkpointed host posterior (resume)."""
+        post = ArmPosterior.from_state(state)
+        if post.tenants != self.tenants or post.arms != self.arms:
+            raise ValueError(
+                "checkpointed posterior manifest does not match this "
+                "store's tenant/arm manifest")
+        placed = self._place({"pulls": post.pulls, "reward": post.reward})
+        with self._lock:
+            self._state = placed
+
+    def host_posterior(self) -> ArmPosterior:
+        """The state copied to the host."""
+        with self._lock:
+            state = self._state
+        return ArmPosterior(self.tenants, self.arms,
+                            pulls=state["pulls"].cpu().numpy(),
+                            reward=state["reward"].cpu().numpy(),
+                            dtype=self.dtype)
+
+    # -- the decide path (serving side) ------------------------------------
+    def _decide_fn(self):
+        fn = self._decide_fns.get(self.algorithm)
+        if fn is None:
+            if self.algorithm == ALGO_UCB:
+                fn = telemetry.profiled_build(
+                    _ucb_decide, f"stream.decide.ucb:{self.key}")
+            else:
+                seed, sigma = self.seed, self.sigma
+
+                def thompson(pulls, reward, tid, crc):
+                    return _thompson_decide(pulls, reward, tid, crc,
+                                            seed, sigma)
+
+                fn = telemetry.profiled_build(
+                    thompson, f"stream.decide.thompson:{self.key}")
+            self._decide_fns[self.algorithm] = fn
+        return fn
+
+    def decide(self, tenant_idx: np.ndarray,
+               crcs: np.ndarray) -> np.ndarray:
+        """Arm index per request row (rows pre-padded by the caller; pad
+        rows score against tenant 0 and are discarded)."""
+        with self._lock:
+            state = self._state
+            fn = self._decide_fn()
+        tid = torch.from_numpy(np.asarray(tenant_idx, np.int64)).to(
+            self.device)
+        if self.algorithm == ALGO_UCB:
+            sels = fn(state["pulls"], state["reward"], tid)
+        else:
+            crc = torch.from_numpy(
+                np.asarray(crcs, np.uint32).astype(np.int64)).to(self.device)
+            sels = fn(state["pulls"], state["reward"], tid, crc)
+        return sels.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# the process-local store registry (shared by replicas and the consumer)
+# ---------------------------------------------------------------------------
+
+_STORES: Dict[str, PosteriorStore] = {}
+_STORES_LOCK = sanitizer.make_lock("stream.stores")
+
+
+def get_store(key: str) -> Optional[PosteriorStore]:
+    with _STORES_LOCK:
+        return _STORES.get(key)
+
+
+def register_store(store: PosteriorStore) -> PosteriorStore:
+    with _STORES_LOCK:
+        _STORES[store.key] = store
+    return store
+
+
+def _check_store_config(store: PosteriorStore, config) -> None:
+    """A config resolving to an already-registered store must not
+    disagree with it: every stream.* identity field the config declares
+    is checked against the registered store."""
+    declared = []
+    if config.get(KEY_TENANTS) or config.get(KEY_TENANTS_PATH):
+        declared.append(("tenants", tenants_from_config(config),
+                         store.tenants))
+    if config.get(KEY_ARMS):
+        declared.append(("arms", arms_from_config(config), store.arms))
+    if config.get(KEY_ALGORITHM):
+        declared.append(("algorithm", config.get(KEY_ALGORITHM),
+                         store.algorithm))
+    if config.get(KEY_SEED) is not None:
+        declared.append(("seed", config.get_int(KEY_SEED), store.seed))
+    if config.get(KEY_DTYPE):
+        declared.append(("dtype", str(_dtype_from_name(
+            config.get(KEY_DTYPE))), str(store.dtype)))
+    for field, want, have in declared:
+        if want != have:
+            raise ValueError(
+                f"stream.store {store.key!r} is already registered with "
+                f"{field}={have!r}, but this config declares {want!r} — "
+                f"use a different {KEY_STORE} key (or restart) instead "
+                f"of silently serving from the stale manifest")
+
+
+def ensure_store(config, device=None, mesh=None) -> PosteriorStore:
+    """The store named by ``stream.store``: the registered instance when
+    one exists (every replica's adapter and the feedback consumer share
+    one state; the stream.* identity fields the config declares must
+    match it), else built from the config manifest on ``device`` and
+    registered."""
+    key = config.get(KEY_STORE, DEFAULT_STORE)
+    with _STORES_LOCK:
+        store = _STORES.get(key)
+        if store is None:
+            store = _STORES[key] = PosteriorStore.from_config(
+                key, config, device=device, mesh=mesh)
+        else:
+            _check_store_config(store, config)
+        return store
+
+
+def clear_stores() -> None:
+    """Drop every registered store (test isolation)."""
+    with _STORES_LOCK:
+        _STORES.clear()
 
 
 class FeedbackFoldSpec(MultiScanFoldSpec):

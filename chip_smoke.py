@@ -77,12 +77,12 @@ path on the card and again on the CPU:
    over 50,000 items, threshold 0.003, count mode, k = 1-5) cold and warm
    (the incidence resident), with its census (|F2| >= 1,000, the three
    planted 5-itemsets at k = 5), the k-pass times and the support matmul's
-   device time, and its first 100,000 transactions on the card and on the
+   device time, and its first 50,000 transactions on the card and on the
    CPU;
 9. ``markov``: ``resource/churn_markov/run.sh`` and
    ``resource/hmm_viterbi/run.sh``'s steps through the command line, then
    the family at a real size from vectorized generators of the same
-   chains: the trainer streamed over 500,000 sequences (cold, then warm
+   chains: the trainer streamed over 250,000 sequences (cold, then warm
    off the pair cache), the classifier at float64 and float32 on 100,000,
    the HMM builder on 200,000 tagged rows and Viterbi on 100,000;
 10. ``serve_markov``: ``python -m avenir_tpu_torch serve`` with the
@@ -113,7 +113,7 @@ path on the card and again on the CPU:
    every level's records, the ``split=.../segment=...`` tree), bench.py:1327's
    level pass at full width (2,000,000 rows x 64 predicates x 8 paths x 2
    classes; its first 200,000 rows against the CPU, its total against the
-   closed form), ``DecisionTreeBuilder`` streamed over 1,000,000 retarget
+   closed form), ``DecisionTreeBuilder`` streamed over 300,000 retarget
    rows, and ``serve_tree``: the runbook's tree as a ``decisionTree`` model
    behind ``python -m avenir_tpu_torch serve``, 16 single-row clients and
    batches of 1-64, each response equal to the CPU route;
@@ -142,12 +142,34 @@ path on the card and again on the CPU:
 18. ``host_jobs``: the class_balance, event_burst, event_seq_gsp,
    bandit_variants and price_optimize runbooks through the port
    (``avenir_tpu_torch.runbook``: rewritten scratch copies in
-   subprocesses, four at once) on the card and on the CPU, every file
+   subprocesses, six at once) on the card and on the CPU, every file
    equal; ``BanditFeedbackAggregator`` over 1M events on the card and on
    the CPU (equal bytes, rows/s, idle share); ``bandit_fb``'s fold
-   certificate on [cuda:0] and [cuda:0] * 4.  Phases 7-18 launch no kernel
-   of the port but K1 (the NB runbooks' training, MI, the shared scan, NB
-   text training, the DAG's NB and MI folds); each prints its host-clock
+   certificate on [cuda:0] and [cuda:0] * 4; also item 3's
+   disease_rules, marketing_plan and multitenant runbooks (the last with
+   its own storm: 50 tenants x 8 rows at once), and the multitenant
+   training and serving in process (its NB training's K1 launches and
+   K1 at its chunk, a cold promote and a profiled request over its
+   1,000-tenant catalog, card against CPU);
+19. ``stream_paths``: the stream tier on cuda:0 against the CPU: jax's
+   threefry draws bit for bit (``threefry2x32`` and the 32- and 64-bit
+   draws at 10^6 counters, ``normal`` float64 and float32 and ``uniform``
+   float32 at 10^5 event CRCs x 4 arms, ``randint`` and ``categorical``
+   at [4096, 3]) and nine answers computed by jax; the streaming runbook
+   through ``python -m avenir_tpu_torch stream`` (kill, ``--resume``, its
+   audit against the batch replay) and the lead-gen runbook, files equal;
+   bench.py:1665's decision cell (256 tenants x 4 arms, Thompson, float64,
+   seed 7, a reward firehose into the same store): decisions/s and
+   p50/p99 at 500/s, 1,500/s and saturation, the idle share, device
+   events per ``decide``, and every decision of a recorded leg equal to
+   the CPU's for the same state; bench.py:1593's fleet cell (UCB1 over
+   4,096 entities x 3 arms, 6 waves of 4,096 events, and randomGreedy and
+   softMax for one wave), events/s and equal action lines; the feedback
+   consumer under ``feedback_dup@2``, ``feedback_reorder@3`` and
+   ``feedback_drop@4`` (killed, resumed), each posterior the batch
+   replay's.  Phases 7-19 launch no kernel of the port but K1 (the NB
+   runbooks' training, MI, the shared scan, NB text training, the DAG's
+   NB and MI folds, the multitenant training); each prints its host-clock
    times and a ``torch.profiler`` device-busy and idle share.
 
 Kernel counts (and the native encoder's call count) are set to 0 just
@@ -260,7 +282,7 @@ def counter(text: str, group: str, name: str) -> int:
 # K1 / K2: the histogram kernel
 # ---------------------------------------------------------------------------
 
-def main_path_chunk(train_dir: str):
+def main_path_chunk(train_dir: str, schema: str = SCHEMA):
     """The first training chunk exactly as the cold streamed trainer hands
     it to K1 (int8 codes, -1 in the Gaussian column, no mask), the
     trainer's table extents and its K2 widths: ``(x, y, n_class, bins,
@@ -269,7 +291,7 @@ def main_path_chunk(train_dir: str):
     from avenir_tpu_torch.core.schema import FeatureSchema
     from avenir_tpu_torch.models.bayesian import _NBStreamState, rawbin_widths
 
-    enc = DatasetEncoder(FeatureSchema.from_file(SCHEMA))
+    enc = DatasetEncoder(FeatureSchema.from_file(schema))
     x, values, y, n = next(enc.encode_path_chunks(train_dir, ",",
                                                   chunk_rows=CHUNK_ROWS))
     st = _NBStreamState(enc)
@@ -2379,9 +2401,9 @@ APRIORI_BLOCKS, APRIORI_BLOCK_SZ, APRIORI_DRAWS = 40, 12, 6
 APRIORI_PLANTED = ((3001, 3007, 3011, 3013, 3017),
                    (4001, 4202, 4303, 4404, 4505),
                    (5001, 5002, 5003, 5004, 5005))
-APRIORI_CPU_ROWS = 100_000          # the card-against-CPU comparison's rows
+APRIORI_CPU_ROWS = 50_000           # the card-against-CPU comparison's rows
 NL = b"\n"
-MARKOV_SEQS, MARKOV_CHUNK = 500_000, 65_536
+MARKOV_SEQS, MARKOV_CHUNK = 250_000, 65_536
 MARKOV_SCORED, HMM_TAGGED, HMM_DECODED = 100_000, 200_000, 100_000
 
 
@@ -2612,7 +2634,7 @@ def apriori_paths(torch, card) -> None:
     """The freq_items runbook on the card and on the CPU, byte-equal; then
     bench.py's Apriori cell at full width on the card, cold and warm (the
     incidence resident), with its census (|F2| >= 1,000, the three
-    planted 5-itemsets at k = 5), and its first 100,000 transactions on
+    planted 5-itemsets at k = 5), and its first 50,000 transactions on
     the card and on the CPU, byte-equal."""
     from avenir_tpu_torch.models import association
 
@@ -2680,7 +2702,7 @@ def apriori_paths(torch, card) -> None:
         log(f"apriori first {APRIORI_CPU_ROWS} transactions on {dev}: "
             f"k-pass seconds {[round(x, 3) for x in s]}")
     if head_out["cuda"] != head_out["cpu"]:
-        raise AssertionError("apriori outputs on the first 100,000 "
+        raise AssertionError(f"apriori outputs on the first {APRIORI_CPU_ROWS} "
                              "transactions differ between card and CPU")
     log(f"apriori first {APRIORI_CPU_ROWS} transactions: k = 1-5 outputs "
         f"byte-equal card and CPU (|F| = "
@@ -2819,7 +2841,7 @@ def write_hmm_rows(n: int, seed: int, tagged: bool) -> bytes:
 def markov_paths(torch, card) -> dict:
     """The churn_markov and hmm_viterbi runbooks on the card and on the
     CPU, byte-equal; then the family at a real size through the command
-    line, card against CPU: the trainer streamed over 500,000 sequences
+    line, card against CPU: the trainer streamed over 250,000 sequences
     (cold, then warm off the pair cache), the classifier at float64 and
     float32 on 100,000, the HMM builder on 200,000 tagged rows and Viterbi
     on 100,000 observation rows.  Returns the serving phase's inputs."""
@@ -3114,7 +3136,7 @@ SHARED_SCAN_SCHEMA = {"fields": [
 # bench.py:1327's level pass at full width; its CPU comparison's rows
 LEVEL_N, LEVEL_PATHS, LEVEL_PREDS, LEVEL_CLASSES = 2_000_000, 8, 64, 2
 LEVEL_CPU_ROWS = 200_000
-DTB_STREAM_ROWS, DTB_STREAM_CHUNK = 1_000_000, 65_536
+DTB_STREAM_ROWS, DTB_STREAM_CHUNK = 300_000, 65_536
 TREE_SERVE_ROWS = 200
 PST_ROWS, TEXT_ROWS = 200_000, 200_000
 TEXT_TRAIN = 160_000                 # the rest are scored
@@ -3641,7 +3663,7 @@ def level_pass(torch, card) -> None:
 
 
 def tree_streamed(torch, card) -> None:
-    """``DecisionTreeBuilder`` streamed over 1,000,000 retarget rows: the
+    """``DecisionTreeBuilder`` streamed over 300,000 retarget rows: the
     runbook's configuration with ``cartAmount`` the only feature (a level
     split on ``retargetType`` writes each row once for every satisfied
     predicate of its 255 two-group partitions), the root level on the
@@ -4460,8 +4482,9 @@ def dag_paths(torch, histogram, card) -> tuple:
 # ---------------------------------------------------------------------------
 
 HOST_RUNBOOKS = ("class_balance", "event_burst", "event_seq_gsp",
-                 "bandit_variants", "price_optimize")
-HOST_PARALLEL = 4
+                 "bandit_variants", "price_optimize", "disease_rules",
+                 "marketing_plan", "multitenant")
+HOST_PARALLEL = 6
 FEEDBACK_EVENTS, FEEDBACK_TENANTS, FEEDBACK_ARMS = 1_000_000, 64, 8
 
 
@@ -4483,13 +4506,110 @@ def write_feedback_log(path: str) -> str:
     return path
 
 
-def host_jobs(torch, card) -> None:
-    """The five runbooks of the batch jobs through the port (each a
-    rewritten scratch copy in a subprocess, ``avenir_tpu_torch.runbook``)
-    on the card's machine, cuda and CPU, every file of their ``work/``
-    equal; ``BanditFeedbackAggregator`` over 1M events on cuda:0 and on
-    the CPU (equal bytes, rows/s, the device idle share); ``bandit_fb``'s
-    fold certificate on [cuda:0] and [cuda:0] * 4."""
+def multitenant_steps(torch, histogram, card, w: str):
+    """``resource/multitenant/run.sh``'s training step in process on
+    cuda:0 and on the CPU (K1's launches counted, the model equal on
+    both), then a server over ``gen_tenants.py``'s 1,000-tenant catalog:
+    a cold tenant's promote and first response, and one resident request
+    profiled on the card, the responses equal on both.  (The runbook
+    itself, storm and all, runs with the other runbooks in
+    :func:`host_jobs`.)  Returns K1's launches and its case at the
+    training chunk."""
+    import json
+    import runpy
+
+    from avenir_tpu_torch import datagen
+    from avenir_tpu_torch.core.config import load_job_config
+    from avenir_tpu_torch.serve.server import PredictionServer
+
+    book = os.path.join(ROOT, "resource", "multitenant")
+    got = {}
+    for dev in ("cuda", "cpu"):
+        with in_dir(os.path.join(w, dev)):
+            for f in ("teleComChurn.json", "nb.properties", "bp.properties"):
+                shutil.copy(os.path.join(book, f), ".")
+            if datagen.main(["telecom_churn", "3000", "--seed", "31",
+                             "--out", "work/all.csv"]) != 0:
+                raise AssertionError("datagen telecom_churn failed")
+            with open("work/all.csv") as fh:
+                lines = fh.read().splitlines(keepends=True)
+            write_part("work/train", "".join(lines[:2400]).encode())
+            histogram.reset_launch_counts()
+            t = time.perf_counter()
+            run_job(["BayesianDistribution", "-Dconf.path=nb.properties",
+                     "work/train", "work/model", "--device", dev])
+            train_s = time.perf_counter() - t
+            if dev == "cuda":
+                k1 = histogram.K1_LAUNCHES
+                if k1 < 1:
+                    raise AssertionError("multitenant training: no K1 "
+                                         "launch")
+                x, y, C, B, _ = main_path_chunk(
+                    "work/train", os.path.join(book, "teleComChurn.json"))
+                xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+                case = ("K1mt", "the multitenant runbook's training chunk "
+                        "(2,400 rows)", C, B, None,
+                        lambda: (xt.cuda(), yt.cuda(), None))
+            argv = sys.argv
+            sys.argv = ["gen_tenants.py", "work/serve.properties", "1000",
+                        "50"]
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    runpy.run_path(os.path.join(book, "gen_tenants.py"),
+                                   run_name="__main__")
+            finally:
+                sys.argv = argv
+            srv = PredictionServer(load_job_config(
+                {"conf.path": "work/serve.properties"}), device=dev)
+            srv.start()
+            rows = [ln.strip() for ln in lines[2400:2410]]
+
+            def ask(name, row):
+                r = srv.handle_line(json.dumps({"model": name, "row": row}))
+                while r.get("cold_start") or r.get("quota_exceeded"):
+                    time.sleep(r.get("retry_after_ms", 100) / 1000.0)
+                    r = srv.handle_line(json.dumps({"model": name,
+                                                    "row": row}))
+                r.pop("trace_id", None)
+                return r
+
+            try:
+                t = time.perf_counter()
+                out = [ask("seg0999", rows[5])]
+                promote_ms = (time.perf_counter() - t) * 1e3
+                if dev == "cuda":
+                    by_kind, wall_s = profile_device(
+                        torch, lambda: ask("seg0999", rows[6]),
+                        {"histogram kernel": "histogram_kernel"})
+                    events = sum(v[1] for v in by_kind.values())
+                    log(f"multitenant: a cold tenant's promote and first "
+                        f"response {promote_ms:.3f} ms; a resident request "
+                        f"{wall_s * 1e3:.3f} ms profiled, {events} device "
+                        f"events [{card}]")
+                out += [ask("seg0999", r) for r in rows[6:]]
+            finally:
+                srv.stop()
+            if any("output" not in r for r in out):
+                raise AssertionError(f"multitenant server on {dev}: {out}")
+            got[dev] = (read_bytes("work/model"), out)
+            log(f"multitenant training on {dev}: {train_s:.3f} s; a cold "
+                f"tenant's first response {promote_ms:.3f} ms [{card}]")
+    same_on_both("multitenant training and responses", got)
+    log(f"multitenant training: K1 launches {k1}")
+    return {"K1mt": k1}, case
+
+
+def host_jobs(torch, histogram, card):
+    """The runbooks of the batch jobs and queue 1 item 3's three
+    leftovers through the port (each a rewritten scratch copy in a
+    subprocess, ``avenir_tpu_torch.runbook``) on the card's machine, cuda
+    and CPU, every file of their ``work/`` equal but a server's log (its
+    port and timings); the multitenant runbook's training and serving in
+    process (:func:`multitenant_steps`); ``BanditFeedbackAggregator``
+    over 1M events on cuda:0 and on the CPU (equal bytes, rows/s, the
+    device idle share); ``bandit_fb``'s fold certificate on [cuda:0] and
+    [cuda:0] * 4.  Returns :func:`multitenant_steps`'s K1 launches and
+    case."""
     from avenir_tpu_torch.core import algebra
     from avenir_tpu_torch.core.config import JobConfig
     from avenir_tpu_torch.models.bandit import BanditFeedbackAggregator
@@ -4504,9 +4624,11 @@ def host_jobs(torch, card) -> None:
         edit = price_optimize_edit if name == "price_optimize" else None
         dst = os.path.join(w, f"{name}_{dev}")
         t = time.perf_counter()
-        run_runbook(os.path.join(ROOT, "resource", name), dst, device=dev,
-                    edit=edit, timeout=600)
-        return time.perf_counter() - t, dir_bytes(os.path.join(dst, "work"))
+        out = run_runbook(os.path.join(ROOT, "resource", name), dst,
+                          device=dev, edit=edit, timeout=600)
+        files = dir_bytes(os.path.join(dst, "work"))
+        return time.perf_counter() - t, {k: v for k, v in files.items()
+                                         if not k.endswith(".log")}, out
 
     # the subprocesses spend most of their time starting an interpreter and
     # importing torch, so HOST_PARALLEL of them run at once
@@ -4524,6 +4646,13 @@ def host_jobs(torch, card) -> None:
             f"{done[(name, 'cuda')][0]:.3f} s, cpu "
             f"{done[(name, 'cpu')][0]:.3f} s; {len(outs['cuda'])} files "
             f"byte-equal [{card}]")
+    for dev in ("cuda", "cpu"):     # the multitenant storm's own report
+        for line in done[("multitenant", dev)][2].splitlines():
+            if line.startswith(("hot storm", "cold tail", "coldstart")):
+                log(f"multitenant runbook on {dev}: {line} [{card}]")
+
+    mt = multitenant_steps(torch, histogram, card,
+                           os.path.join(w, "multitenant"))
 
     events = write_feedback_log(os.path.join(w, "feedback", "events.csv"))
     cfg = {"stream.tenants": ",".join(f"t{i}" for i in range(
@@ -4570,6 +4699,542 @@ def host_jobs(torch, card) -> None:
                                  f"{bad}")
         log(f"bandit_fb's fold certificate on {mesh!r}: {len(reps)} reports "
             f"clean in {time.perf_counter() - t:.3f} s")
+    return mt
+
+
+# ---------------------------------------------------------------------------
+# the stream tier: jax's threefry draws, the decision service, the fleet
+# ---------------------------------------------------------------------------
+
+# jax 0.9 (partitionable threefry, x64) on the CPU: the card's only direct
+# tie to jax, which its machine does not have
+JAX_KNOWN = {
+    "bits32": [3990326858, 119968723, 1204907629, 1165571636],
+    "bits64": [10778220229466284155, 5597741082693187592],
+    "split": [2509499953, 2017747067, 1303325659, 1250539528],
+    "fold_in": [1058043697, 3261176354],
+    "normal_f64": [0xbff14ff0e4c7f39b, 0x3ff1e5b60c37878b,
+                   0xbff60f3433786751],
+    "normal_f32": [0xbf2cbfca, 0xbf190ded, 0xbf2d8373],
+    "uniform_f32": [0x3f2c9128, 0x3f79807e, 0x3e9b0e50, 0x3ee34e88],
+    "randint": [2, 0, 2, 0, 2, 0],
+    "categorical": [1, 2, 1, 2, 2, 2],
+}
+DRAW_COUNTERS, DRAW_CRCS, DRAW_ARMS = 1_000_000, 100_000, 4
+DECIDE_TENANTS, DECIDE_ARMS = 256, ("a", "b", "c", "d")
+DECIDE_RATES = (500, 1500, None)        # None: saturation
+DECIDE_LEG_S = 0.5
+DECIDE_WINDOW = 256                     # requests in flight at saturation
+FLEET_ENTITIES, FLEET_WAVES, FLEET_WAVE = 4096, 6, 4096
+FLEET_ACTIONS = ("p1", "p2", "p3")
+FAULT_EVENTS = 400
+
+
+def bits_of(torch, t):
+    t = t.cpu()
+    if t.dtype == torch.float64:
+        return t.view(torch.int64)
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    return t
+
+
+def same_bits(torch, label, got, want) -> None:
+    g, w = bits_of(torch, got), bits_of(torch, want)
+    if g.shape != w.shape or not bool((g == w).all()):
+        n = int((g != w).sum()) if g.shape == w.shape else -1
+        raise AssertionError(f"{label}: the card's bits differ from the "
+                             f"CPU's ({n} of {w.numel()})")
+
+
+def stream_draws(torch, card) -> None:
+    """Every draw of ``ops/threefry.py`` on cuda:0 against the CPU, bit for
+    bit, at the stream tier's shapes; the card's draws against the jax
+    answers above."""
+    import numpy as np
+    import zlib
+
+    from avenir_tpu_torch.ops import threefry as tf
+
+    cuda = torch.device("cuda", 0)
+    rng = np.random.default_rng(13)
+    k = tf.prng_key(41)
+    kc = k.to(cuda)
+    words = [torch.from_numpy(rng.integers(0, 2 ** 32, DRAW_COUNTERS))
+             for _ in range(2)]
+    kw = [int(x) for x in rng.integers(0, 2 ** 32, 2)]
+    cases = [
+        ("threefry2x32", lambda d: torch.stack(tf.threefry2x32(
+            kw[0], kw[1], words[0].to(d), words[1].to(d)))),
+        ("random_bits 32", lambda d: tf.random_bits(
+            k.to(d), 32, (DRAW_COUNTERS,))),
+        ("random_bits 64", lambda d: tf.random_bits(
+            k.to(d), 64, (DRAW_COUNTERS,))),
+    ]
+    crcs = torch.from_numpy(rng.integers(0, 2 ** 32, DRAW_CRCS))
+    keys = tf.fold_in(tf.prng_key(7), crcs)
+    for dt in (torch.float64, torch.float32):
+        cases.append((f"normal {dt} ({DRAW_CRCS} CRCs x {DRAW_ARMS})",
+                      lambda d, dt=dt: tf.normal(keys.to(d), (DRAW_ARMS,),
+                                                 dt)))
+    cases.append((f"uniform float32 ({DRAW_CRCS} CRCs x {DRAW_ARMS})",
+                  lambda d: tf.uniform(keys.to(d), (DRAW_ARMS,),
+                                       torch.float32)))
+    cases.append(("randint [4096, 3]",
+                  lambda d: tf.randint(k.to(d), (4096, 3), 0, 3)))
+    logits = torch.log(torch.from_numpy(rng.dirichlet(
+        [1, 1, 1], 4096)).float())
+    cases.append(("categorical [4096, 3]",
+                  lambda d: tf.categorical(k.to(d), logits.to(d), 1)))
+    for label, fn in cases:
+        want = fn(torch.device("cpu"))
+        got = fn(cuda)
+        same_bits(torch, label, got, want)
+        ms = time_ms(lambda: fn(cuda), 3)
+        log(f"draws {label}: the card's bits equal the CPU's; {ms:.3f} ms "
+            f"a call on the card [{card}]")
+
+    ev = tf.fold_in(kc, zlib.crc32(b"ev7-00000"))
+    k7 = tf.prng_key(7, cuda)
+    lg6 = torch.log(torch.tensor([[0.2, 0.3, 0.5]] * 6, device=cuda))
+    got = {
+        "bits32": tf.random_bits(kc, 32, (4,)),
+        "bits64": tf.random_bits(kc, 64, (2,)),
+        "split": tf.split(kc, 2).reshape(-1),
+        "fold_in": ev,
+        "normal_f64": tf.normal(ev, (3,), torch.float64),
+        "normal_f32": tf.normal(ev, (3,), torch.float32),
+        "uniform_f32": tf.uniform(k7, (4,), torch.float32),
+        "randint": tf.randint(k7, (6,), 0, 3),
+        "categorical": tf.categorical(k7, lg6, 1),
+    }
+    for name, t in got.items():
+        vals = [int(v) for v in bits_of(torch, t).tolist()]
+        want = [v - (1 << 64) if v >= 1 << 63 else v
+                for v in JAX_KNOWN[name]]
+        if name.endswith("_f32"):
+            want = [v - (1 << 32) if v >= 1 << 31 else v
+                    for v in JAX_KNOWN[name]]
+        if vals != want:
+            raise AssertionError(f"{name} on the card: {vals} against jax's "
+                                 f"{want}")
+    log(f"the card's draws equal jax's known answers ({len(got)} cases) "
+        f"[{card}]")
+
+
+def stream_runbooks(card) -> None:
+    """``resource/streaming/run.sh`` (``python -m avenir_tpu_torch stream``:
+    120 TCP decisions, SIGTERM, ``--resume``, 80 more, its own audit of
+    the live posterior against the batch replay) and
+    ``resource/lead_gen_streaming/run.py`` through the port on the card
+    and on the CPU; every work file equal (the event log holds the chosen
+    arms)."""
+    import socket
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    from avenir_tpu_torch.runbook import run_runbook
+
+    def free_port():
+        with socket.socket() as so:
+            so.bind(("127.0.0.1", 0))
+            return so.getsockname()[1]
+
+    def leg(args):
+        name, dev = args
+        dst = os.path.join(WORK, "stream", f"{name}_{dev}")
+        t = time.perf_counter()
+        out = run_runbook(os.path.join(ROOT, "resource", name), dst,
+                          device=dev, env={"PORT": str(free_port())},
+                          timeout=600)
+        # not the servers' logs, nor the consumer's sidecars (their
+        # counters depend on how the entries happened to batch)
+        files = {k: v for k, v in dir_bytes(os.path.join(dst, "work"))
+                 .items() if not k.endswith(".log") and ".ckpt" not in k}
+        return out, files, time.perf_counter() - t
+
+    legs = [(n, d) for n in ("streaming", "lead_gen_streaming")
+            for d in ("cuda", "cpu")]
+    with ThreadPoolExecutor(len(legs)) as pool:
+        done = dict(zip(legs, pool.map(leg, legs)))
+    out, files, secs = done[("streaming", "cuda")]
+    if "byte-identical" not in out:
+        raise AssertionError(f"streaming runbook's audit: {out[-2000:]}")
+    same_on_both("streaming runbook", {
+        "cuda": files, "cpu": done[("streaming", "cpu")][1]})
+    banner = open(os.path.join(WORK, "stream", "streaming_cuda", "work",
+                               "serve2.log")).read()
+    if "(cuda:0)" not in banner:
+        raise AssertionError(f"the resumed service is not on the card: "
+                             f"{banner[:300]}")
+    log(f"streaming runbook through the port: cuda {secs:.3f} s, cpu "
+        f"{done[('streaming', 'cpu')][2]:.3f} s; kill -> --resume, the "
+        f"live posterior cmp-equal to the batch replay, "
+        f"{len(files['events.csv'].splitlines())} decisions and every work "
+        f"file equal [{card}]")
+    lead = {d: done[("lead_gen_streaming", d)][0] for d in ("cuda", "cpu")}
+    if "page3 (best hidden CTR) dominates: OK" not in lead["cuda"]:
+        raise AssertionError(f"lead_gen_streaming: {lead['cuda'][-1000:]}")
+    same_on_both("lead_gen_streaming runbook", lead)
+    log(f"lead_gen_streaming runbook: page3 dominates, output equal on "
+        f"both [{card}]")
+
+
+def decision_cell(torch, card) -> None:
+    """bench.py:1665's cell at its full size through the port on cuda:0:
+    256 tenants x 4 arms, Thompson, float64, seed 7, micro-batches up to
+    128 with a 1 ms window, a consumer batch of 512 and checkpoints every
+    2,048 events, a reward firehose (about 3,000 events/s) folding into
+    the same store.  Decisions/s with p50/p99 (from the intended start) at
+    500 and 1,500 requests/s and at saturation; the device's busy time and
+    idle share at saturation; launches per ``decide``; and every decision
+    of a recorded saturation leg equal to the CPU's for the same state,
+    seed and event id."""
+    import threading
+
+    import numpy as np
+
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.serve import ShedError
+    from avenir_tpu_torch.stream import posterior
+    from avenir_tpu_torch.stream.service import StreamDecisionService
+
+    w = os.path.join(WORK, "stream", "decide")
+    os.makedirs(w, exist_ok=True)
+    tenants = [f"shop{i:03d}" for i in range(DECIDE_TENANTS)]
+    posterior.clear_stores()
+    service = StreamDecisionService(JobConfig({
+        "stream.tenants": ",".join(tenants),
+        "stream.arms": ",".join(DECIDE_ARMS),
+        "stream.seed": "7",
+        "stream.consumer.block.ms": "2",
+        "stream.consumer.batch": "512",
+        "stream.checkpoint.interval.events": "2048",
+        "checkpoint.path": os.path.join(w, "stream.ckpt"),
+        "serve.port": "0",
+        "serve.batch.max.size": "128",
+        "serve.batch.max.delay.ms": "1.0",
+        "serve.queue.max.depth": "4096",
+    }), device="cuda")
+    store = service.store
+    if store.device.type != "cuda":
+        raise AssertionError(f"the store is on {store.device}")
+    service.start()
+    batcher = service.server.batcher(service.model_name)
+    rng = np.random.default_rng(3)
+    lines = [f"ev{i:06d},{tenants[int(rng.integers(len(tenants)))]}"
+             for i in range(4096)]
+    stop_feedback = threading.Event()
+
+    def firehose():
+        frng = np.random.default_rng(4)
+        i = 0
+        while not stop_feedback.is_set():
+            for _ in range(32):
+                t = tenants[int(frng.integers(len(tenants)))]
+                a = DECIDE_ARMS[int(frng.integers(len(DECIDE_ARMS)))]
+                service.transport.publish({"data": f"{t},{a},{i % 7}"})
+                i += 1
+            time.sleep(0.01)
+
+    feeder = threading.Thread(target=firehose, daemon=True)
+    feeder.start()
+
+    def drive(rate, duration, window=DECIDE_WINDOW):
+        """Offered load for ``duration`` seconds: ``rate`` requests a second
+        open loop (latency from each request's intended start, so a
+        backlog shows in the percentiles), or with ``rate`` None a closed
+        loop keeping ``window`` requests in flight (saturation).  Waits
+        for every response; returns (decisions/s, shed, p50 ms, p99 ms,
+        responses)."""
+        lat, futures, shed = [], [], 0
+        room = threading.Semaphore(window)
+
+        def stamp(t0):
+            def done(_f):
+                lat.append(time.perf_counter() - t0)
+                if not rate:
+                    room.release()
+            return done
+
+        t0 = time.perf_counter()
+        i = 0
+        while True:
+            now = time.perf_counter()
+            if now - t0 >= duration:
+                break
+            if rate:
+                intended = t0 + i / rate
+                if intended > now:
+                    time.sleep(intended - now)
+            else:
+                room.acquire()
+                intended = time.perf_counter()
+            try:
+                fut = batcher.submit(lines[i % len(lines)])
+            except ShedError:
+                shed += 1
+                if not rate:
+                    room.release()
+            else:
+                fut.add_done_callback(stamp(intended))
+                futures.append(fut)
+            i += 1
+        outs = [f.result(timeout=300) for f in futures]
+        elapsed = time.perf_counter() - t0
+        lat.sort()
+        pct = lambda q: lat[int(q * (len(lat) - 1))] * 1e3  # noqa: E731
+        return (len(futures) / elapsed, shed, pct(0.5), pct(0.99), outs)
+
+    try:
+        drive(None, 0.2)                                  # warm up
+        applied0 = service.consumer.counters.get("Stream", "Events applied")
+        for rate in DECIDE_RATES:
+            got, shed, p50, p99, _ = drive(rate, DECIDE_LEG_S)
+            log(f"decision cell, offered {rate or 'saturation'}/s: "
+                f"{got:.1f} decisions/s, p50 {p50:.3f} ms, p99 "
+                f"{p99:.3f} ms, shed {shed} [{card}]")
+        applied = service.consumer.counters.get(
+            "Stream", "Events applied") - applied0
+        log(f"decision cell: the consumer folded {applied} reward events "
+            f"during the {len(DECIDE_RATES)} legs")
+        by_kind, wall_s = profile_device(
+            torch, lambda: drive(None, 0.3), {"index": "index"})
+        report_phase("decision cell at saturation", by_kind, wall_s,
+                     "index", card)
+
+        # one recorded saturation leg: the function that ``decide`` calls
+        # is wrapped, so the leg runs ``decide`` itself and records each
+        # call's state snapshot, inputs and selections
+        record = []
+        plain_fn = store._decide_fn()
+
+        def recording(pulls, reward, tid, crc):
+            sels = plain_fn(pulls, reward, tid, crc)
+            record.append((pulls.cpu(), reward.cpu(), tid.cpu().numpy(),
+                           crc.cpu().numpy(), sels.cpu().numpy()))
+            return sels
+
+        store._decide_fns[store.algorithm] = recording
+        try:
+            _, _, _, _, outs = drive(None, 0.3)
+        finally:
+            store._decide_fns[store.algorithm] = plain_fn
+        rows = 0
+        for pulls, reward, tid, crc, sels in record:
+            want = posterior._thompson_decide(
+                pulls, reward, torch.from_numpy(tid.astype(np.int64)),
+                torch.from_numpy(crc.astype(np.int64)), store.seed,
+                store.sigma).numpy()
+            if not (want == sels).all():
+                raise AssertionError("a decision on the card differs from "
+                                     "the CPU's for the same state")
+            rows += len(tid)
+        states = len({(int(p.sum()), float(r.sum())) for p, r, *_ in record})
+        if any(o is None or not o.startswith("ev") for o in outs):
+            raise AssertionError("a decide response is missing")
+        log(f"decision cell: {len(record)} decide batches ({rows} padded "
+            f"rows, {len(outs)} responses) over {states} posterior states "
+            f"while folding, each equal to the CPU's decision for the same "
+            f"state, seed and event ids [{card}]")
+    finally:
+        stop_feedback.set()
+        feeder.join(timeout=5)
+        service.stop()
+        posterior.clear_stores()
+
+    # launches per decide batch, the fold idle: device events per call
+    from torch.profiler import ProfilerActivity, profile
+
+    from torch.autograd import DeviceType
+    quiet = posterior.PosteriorStore("quiet", tenants, DECIDE_ARMS, seed=7,
+                                     device="cuda")
+    quiet.fold_events(rng.integers(0, 256, 4096), rng.integers(0, 4, 4096),
+                      rng.integers(0, 7, 4096))
+    tid = np.arange(128, dtype=np.int32)
+    for algo in ("thompson", "ucb"):
+        quiet.algorithm = algo
+        quiet.decide(tid, tid.astype(np.uint32))
+        torch.cuda.synchronize()
+        n_calls = 10
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for i in range(n_calls):
+                quiet.decide(tid, (tid + i).astype(np.uint32))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        events = [e for e in prof.key_averages()
+                  if e.device_type != DeviceType.CPU
+                  and (getattr(e, "self_device_time_total", 0) or 0) > 0]
+        n_dev = sum(e.count for e in events)
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        log(f"launches per decide batch ({algo}, float64, 128 rows): "
+            f"{n_dev / n_calls:.0f} device events, {busy / n_calls:.3f} ms "
+            f"device busy, {wall / n_calls * 1e3:.3f} ms a call [{card}]")
+
+
+def fleet_cell(torch, card) -> None:
+    """bench.py:1593's cell at its full size: ``GroupedStreamingLearnerLoop``
+    with UCB1 over 4,096 entities x 3 arms, 6 waves of 4,096 events (a
+    reward for every other event) refilled as the queue drains, on cuda:0
+    and on the CPU: events/s and equal action lines; randomGreedy and
+    softMax for one wave each, equal lines."""
+    import numpy as np
+
+    from avenir_tpu_torch.models.streaming import (
+        GroupedStreamingLearnerLoop, InMemoryTransport)
+
+    ents = [f"e{i}" for i in range(FLEET_ENTITIES)]
+
+    def run(ltype, dev, waves):
+        config = {"reinforcement.learner.type": ltype,
+                  "reinforcement.learner.actions": ",".join(FLEET_ACTIONS),
+                  "min.trial": "1", "reward.scale": "1", "random.seed": "5"}
+        rng = np.random.default_rng(0)
+
+        class Refill(InMemoryTransport):
+            def __init__(self):
+                super().__init__()
+                self.wave = 0
+
+            def next_event(self):
+                if not self.events and self.wave < waves:
+                    w = self.wave
+                    self.wave += 1
+                    for i, e in enumerate(rng.integers(0, FLEET_ENTITIES,
+                                                       FLEET_WAVE)):
+                        self.push_event(f"e{e}", w)
+                        if i % 2 == 0:
+                            self.push_reward(
+                                f"e{e},{FLEET_ACTIONS[int(rng.integers(3))]}",
+                                50)
+                return super().next_event()
+
+        loop = GroupedStreamingLearnerLoop(config, InMemoryTransport(),
+                                           entities=ents, device=dev)
+        t = Refill()
+        loop.transport = t
+        t0 = time.perf_counter()
+        n = loop.run(max_events=waves * FLEET_WAVE, idle_timeout=0.0,
+                     batch=FLEET_WAVE)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if n != waves * FLEET_WAVE or len(t.actions) != n:
+            raise AssertionError(f"fleet loop {ltype} on {dev}: {n} events")
+        return t.actions, secs
+
+    run("upperConfidenceBoundOne", "cuda", 1)                # warm up
+    lines, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        lines[dev], secs[dev] = run("upperConfidenceBoundOne", dev,
+                                    FLEET_WAVES)
+    same_on_both("fleet cell action lines", lines)
+    n = FLEET_WAVES * FLEET_WAVE
+    log(f"fleet cell (UCB1, {FLEET_ENTITIES} entities x 3 arms, "
+        f"{FLEET_WAVES} waves of {FLEET_WAVE}): cuda {secs['cuda']:.3f} s "
+        f"({n / secs['cuda']:.1f} events/s), cpu {secs['cpu']:.3f} s "
+        f"({n / secs['cpu']:.1f} events/s); {n} action lines equal [{card}]")
+    by_kind, wall_s = profile_device(
+        torch, lambda: run("upperConfidenceBoundOne", "cuda", 1),
+        {"index": "index"})
+    report_phase("fleet cell, one wave", by_kind, wall_s, "index", card)
+    for ltype in ("randomGreedy", "softMax"):
+        one = {dev: run(ltype, dev, 1) for dev in ("cuda", "cpu")}
+        same_on_both(f"fleet {ltype} selections",
+                     {d: v[0] for d, v in one.items()})
+        log(f"fleet {ltype}, one wave of {FLEET_WAVE}: cuda "
+            f"{one['cuda'][1]:.3f} s, cpu {one['cpu'][1]:.3f} s, "
+            f"selections equal [{card}]")
+
+
+def feedback_faults(torch, card) -> None:
+    """The feedback consumer on cuda:0 under ``feedback_dup@2``,
+    ``feedback_reorder@3`` and ``feedback_drop@4`` (the drop kills it;
+    a fresh consumer resumes from the offset sidecar): each posterior
+    equal to the clean batch replay on the CPU."""
+    import numpy as np
+
+    from avenir_tpu_torch.core import faultinject
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.models.bandit import BanditFeedbackAggregator
+    from avenir_tpu_torch.models.streaming import (FakeRedis,
+                                                   RedisStreamTransport)
+    from avenir_tpu_torch.stream.consumer import (FeedbackConsumer,
+                                                  checkpointer_from_config)
+    from avenir_tpu_torch.stream.posterior import PosteriorStore
+
+    w = os.path.join(WORK, "stream", "faults")
+    os.makedirs(w, exist_ok=True)
+    rng = np.random.default_rng(17)
+    tenants, arms = [f"t{i}" for i in range(8)], ["a", "b", "c"]
+    events = [(tenants[int(rng.integers(8))], arms[int(rng.integers(3))],
+               int(rng.integers(-5, 20))) for _ in range(FAULT_EVENTS)]
+    base = {"stream.tenants": ",".join(tenants),
+            "stream.arms": ",".join(arms), "stream.consumer.batch": "16",
+            "stream.checkpoint.interval.events": "24"}
+    with open(os.path.join(w, "events.csv"), "w") as fh:
+        fh.write("".join(f"{t},{a},{r}\n" for t, a, r in events))
+    BanditFeedbackAggregator(JobConfig(dict(base)), device="cpu").run(
+        os.path.join(w, "events.csv"), os.path.join(w, "replay"))
+    want = open(os.path.join(w, "replay", "part-r-00000")).read().split()
+
+    for plan in ("feedback_dup@2", "feedback_reorder@3", "feedback_drop@4"):
+        fake = FakeRedis()
+        tr = RedisStreamTransport("unused", 0, "fb", "g", "c1", client=fake)
+        tr.ensure_group()
+        for t, a, r in events:
+            tr.publish({"data": f"{t},{a},{r}"})
+        path = os.path.join(w, plan.split("@")[0] + ".ckpt")
+        props = dict(base, **{"checkpoint.path": path})
+        cfg = JobConfig(dict(props, **{"fault.inject.plan": plan}))
+        faultinject.configure_from_config(cfg)
+        store = PosteriorStore.from_config(plan, cfg, device="cuda")
+        cons = FeedbackConsumer(cfg, store, tr, checkpointer=(
+            checkpointer_from_config(cfg, store, path)))
+        resumed = False
+        try:
+            cons.run(idle_timeout=0.05)
+        except faultinject.InjectedFault:
+            resumed = True
+            cfg = JobConfig(dict(props, **{"checkpoint.resume": "true"}))
+            store = PosteriorStore.from_config(plan + "-2", cfg,
+                                               device="cuda")
+            cons = FeedbackConsumer(cfg, store, RedisStreamTransport(
+                "unused", 0, "fb", "g", "c1", client=fake),
+                checkpointer=checkpointer_from_config(cfg, store, path))
+            cons.run(idle_timeout=0.05)
+        finally:
+            faultinject.set_injector(None)
+        got = store.host_posterior().lines()
+        if got != want:
+            raise AssertionError(f"{plan}: the posterior differs from the "
+                                 f"batch replay")
+        applied = cons.counters.get("Stream", "Events applied")
+        if applied != len(events):
+            raise AssertionError(f"{plan}: {applied} events applied")
+        log(f"consumer under {plan}{' (killed, resumed)' if resumed else ''}"
+            f" on cuda:0: {applied} events applied once, duplicates "
+            f"skipped {cons.counters.get('Stream', 'Duplicates skipped')}, "
+            f"posterior equal to the batch replay [{card}]")
+
+
+def stream_paths(torch, card) -> None:
+    """The stream tier on cuda:0, the CPU its reference (tier-1 holds the
+    CPU to jax): the draws, the two streaming runbooks, the decision cell,
+    the fleet cell and the consumer's fault points."""
+    secs = {}
+    for part in (lambda: stream_draws(torch, card),
+                 lambda: stream_runbooks(card),
+                 lambda: decision_cell(torch, card),
+                 lambda: fleet_cell(torch, card),
+                 lambda: feedback_faults(torch, card)):
+        t = time.perf_counter()
+        part()
+        secs[len(secs)] = round(time.perf_counter() - t, 1)
+    log(f"stream_paths seconds (draws, runbooks, decision cell, fleet "
+        f"cell, faults): {list(secs.values())}")
 
 
 def main() -> int:
@@ -4622,6 +5287,7 @@ def main() -> int:
         now = time.perf_counter()
         phases[name] = round(now - t_phase, 1)
         t_phase = now
+        log(f"phase {name}: {phases[name]} s")
 
     # -- kernels against their plain versions -------------------------------
     entries = [histogram_entry(case) for case in
@@ -4707,9 +5373,12 @@ def main() -> int:
     dag_launches, dag_case = dag_paths(torch, histogram, card)
     launches.update(dag_launches)
     phase_done("dag_paths")
-    host_jobs(torch, card)
+    mt_launches, mt_case = host_jobs(torch, histogram, card)
+    launches.update(mt_launches)
     phase_done("host_jobs")
-    for case in [mi_case, ms_case] + text_cases + [dag_case]:
+    stream_paths(torch, card)
+    phase_done("stream_paths")
+    for case in [mi_case, ms_case] + text_cases + [dag_case, mt_case]:
         entries.append(histogram_entry(case))
     log(f"main-path launches: {launches}")
     log(f"phase seconds: {phases}")

@@ -12,8 +12,8 @@ through both packages with byte-equal outputs; ``aggregate_rewards`` and
 ``[cpu]`` and ``[cpu] * 8`` against the reference's; the
 ``gen_price_rounds`` fixture; and ``resource/bandit_variants/run.py`` and
 ``resource/price_optimize/run.py`` through both packages from scratch
-copies.  The vectorized learners and the streaming loop wait for the
-stream tier.
+copies.  The vectorized learners and the streaming loops are held in
+tests/test_torch_reinforce_vec.py.
 """
 
 import math

@@ -393,6 +393,31 @@ def test_f32_feature_probabilities_match_reference(F, n_cont):
     np.testing.assert_array_equal(ppost.numpy(), np.asarray(jpost))
 
 
+@pytest.mark.parametrize("kind", ["tails", "unseen"])
+def test_prepared_f32_scorer_without_feature_probs(kind):
+    """A server's float32 scorer: the tables prepared once
+    (``_prepare_f32``), and ``feat=False`` where the feature
+    probabilities are not printed.  Its int probabilities are those of
+    the whole scorer, which keeps the reference's parity contract, and
+    with ``feat=True`` its feature probabilities are the reference's
+    bits."""
+    x, values, *tables = _tables_case(kind)
+    _, jprior, jpost = jax.jit(jb.BayesianPredictor._score_batch_f32)(
+        *map(jnp.asarray, [x, values] + tables))
+    args = (torch.from_numpy(x), torch.from_numpy(values))
+    dev_tables = convert.predictor_tables_to_device(tables, CPU)
+    p_all, _, _ = tb.BayesianPredictor._score_batch_f32(*args, *dev_tables)
+    prep = tb.BayesianPredictor._prepare_f32(*dev_tables)
+    p32, fprior, fpost = tb.BayesianPredictor._score_prepared_f32(
+        *args, *prep, feat=False)
+    assert fprior is None and fpost is None
+    np.testing.assert_array_equal(p32.numpy(), p_all.numpy())
+    _, fprior, fpost = tb.BayesianPredictor._score_prepared_f32(*args,
+                                                                 *prep)
+    assert _bits_equal(fprior.numpy(), np.asarray(jprior)).all()
+    assert _bits_equal(fpost.numpy(), np.asarray(jpost)).all()
+
+
 @pytest.mark.parametrize("C", [2, 3])
 @pytest.mark.parametrize("n_cont", [0, 3], ids=["discrete", "gaussian"])
 @pytest.mark.parametrize("F", [14, 16, 17, 20, 23, 24, 31, 32, 33, 40, 48])

@@ -309,10 +309,32 @@ def test_knn_training_set_is_resident(servers):
 
 @pytest.mark.parametrize("kind", ["banditDecision"])
 def test_unported_kind_is_refused_at_load(arts, kind):
-    props = _props(arts, **{"serve.models": "m", "serve.model.m.kind": kind})
-    with pytest.raises(NotImplementedError, match=f"{kind}.*not ported"):
-        PredictionServer(JobConfig(props), device="cpu")
-    assert kind in jengine.ADAPTER_KINDS and kind not in engine.ADAPTER_KINDS
+    """The kind the port used to refuse (the streaming decisions) now
+    loads, and its decision equals the reference adapter's; an unknown
+    kind is still refused at load."""
+    from avenir_tpu.stream.posterior import clear_stores as jclear_stores
+
+    from avenir_tpu_torch.stream.posterior import clear_stores
+
+    props = _props(arts, **{"serve.models": "m", "serve.model.m.kind": kind,
+                            "serve.model.m.stream.tenants": "t1,t2",
+                            "serve.model.m.stream.arms": "a,b,c",
+                            "serve.model.m.stream.store": "serve-kind"})
+    port_srv = PredictionServer(JobConfig(props), device="cpu")
+    ref_srv = JaxServer(JaxConfig(props))
+    try:
+        port, ref = port_srv.start(), ref_srv.start()
+        for obj in ({"model": "m", "decide": "ev-7,t2"},
+                    {"model": "m", "rows": ["ev-8,t1", "ev-9,t2"]}):
+            mine = _ask(port, obj)
+            assert mine == _ask(ref, obj)
+            assert "error" not in mine
+    finally:
+        port_srv.stop()
+        ref_srv.stop()
+        clear_stores()
+        jclear_stores()
+    assert kind in jengine.ADAPTER_KINDS and kind in engine.ADAPTER_KINDS
     with pytest.raises(ValueError, match="unknown model kind"):
         ModelRegistry(JobConfig({"serve.model.m.kind": "bogus"})).describe(
             "m")
@@ -752,4 +774,4 @@ def test_tree_adapter_is_a_host_adapter(tree):
     assert ad.device_bytes() == 0
     assert ad.predict_lines(tree["test"][:7]) == _routed(tree,
                                                         tree["test"][:7])
-    assert engine.UNPORTED_KINDS == ("banditDecision",)
+    assert set(engine.ADAPTER_KINDS) == set(jengine.ADAPTER_KINDS)
