@@ -10,7 +10,15 @@ serve -Dconf.path=<serve.properties> [--device cpu|cuda] [--trace
 <out.json>] [--metrics-out <series.jsonl>]`` (serve.server); and the
 streaming decision service: ``python -m avenir_tpu_torch stream
 -Dconf.path=<stream.properties> [--device cpu|cuda] [--resume] [--trace
-<out.json>] [--metrics-out <series.jsonl>]`` (stream.service).
+<out.json>] [--metrics-out <series.jsonl>]`` (stream.service); the
+workload harness: ``python -m avenir_tpu_torch workload --scenario
+<scenario.properties> [--assert] [--device cpu|cuda]`` (workload.runner);
+the fleet observability aggregator: ``python -m avenir_tpu_torch fleetobs
+-Dfleetobs.spool.dir=<dir>`` or ``fleetobs stitch --spool <dir>``
+(fleetobs.aggregator); and the fleet router: ``python -m
+avenir_tpu_torch router -Drouter.backends=host:p1,host:p2``
+(serve.fleet.router).  ``router`` and ``fleetobs`` move bytes and read
+feeds: they import no torch and refuse ``--device``.
 
 The same invocation, ``.properties`` files, schema JSONs and in/out
 directory layout as the reference package's ``python -m avenir_tpu``; job
@@ -427,6 +435,15 @@ def main(argv: Optional[list] = None) -> int:
               "-Dconf.path=<stream.properties> [--device cpu|cuda] "
               "[--resume] [--trace <out.json>] [--metrics-out "
               "<series.jsonl>]\n"
+              "       python -m avenir_tpu_torch workload --scenario "
+              "<scenario.properties> [--assert] [--device cpu|cuda] "
+              "[-Dkey=value ...]\n"
+              "       python -m avenir_tpu_torch fleetobs "
+              "-Dfleetobs.spool.dir=<dir> [-Dfleetobs.port=N] [--once]\n"
+              "       python -m avenir_tpu_torch fleetobs stitch --spool "
+              "<dir> [--trace-id X] [--out f.json]\n"
+              "       python -m avenir_tpu_torch router "
+              "-Drouter.backends=host:p1,host:p2 [-Drouter.port=N]\n"
               "known jobs:\n  " + "\n  ".join(sorted(JOBS)), file=sys.stderr)
         return 2
     job_name, rest = argv[0], argv[1:]
@@ -438,6 +455,24 @@ def main(argv: Optional[list] = None) -> int:
         # the streaming decision service (stream.service)
         from .stream.service import stream_main
         return stream_main(rest)
+    if job_name == "workload":
+        # the seeded open-loop workload harness (workload.runner)
+        from .workload.runner import workload_main
+        return workload_main(rest)
+    if job_name in ("fleetobs", "router"):
+        # byte movers: neither imports torch nor touches a device
+        if any(a == "--device" or a.startswith("--device=") for a in rest):
+            print(f"{job_name}: takes no --device (it moves bytes and "
+                  f"reads feeds; it never touches a device)",
+                  file=sys.stderr)
+            return 2
+        if job_name == "fleetobs":
+            # the fleet observability aggregator (fleetobs.aggregator)
+            from .fleetobs.aggregator import fleetobs_main
+            return fleetobs_main(rest)
+        # the fleet router (serve.fleet.router)
+        from .serve.fleet.router import router_main
+        return router_main(rest)
     if job_name == "multi":
         # the shared scan (core.multiscan)
         return multi_main(rest)

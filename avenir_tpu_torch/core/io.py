@@ -356,8 +356,9 @@ def validate_artifact_dir(path: str, files: List[str]) -> None:
 def atomic_write_text(path: str, text: str) -> None:
     """Write ``text`` to ``path`` through a same-directory temporary file,
     ``fsync`` and ``os.replace``: a crash leaves the old file or the new
-    one, never a torn one."""
+    one, never a torn one.  Creates the directory when it is missing."""
     d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
     fd, tmp = tempfile.mkstemp(prefix="." + os.path.basename(path) + ".",
                                dir=d)
     try:

@@ -74,8 +74,11 @@ def prng_key(seed: int, device=None) -> torch.Tensor:
     """``jax.random.PRNGKey(seed)`` under x64: the seed's 64 bits as
     ``(seed >> 32, seed & 0xFFFFFFFF)``."""
     s = int(seed) & 0xFFFFFFFFFFFFFFFF
-    return torch.tensor([s >> 32, s & _MASK], dtype=torch.int64,
-                        device=device)
+    # two fills, no copy from the host: a CUDA graph can capture them
+    key = torch.empty(2, dtype=torch.int64, device=device)
+    key[:1].fill_(s >> 32)
+    key[1:].fill_(s & _MASK)
+    return key
 
 
 def _words(key: torch.Tensor):

@@ -344,9 +344,11 @@ def log_f64(x: torch.Tensor) -> torch.Tensor:
     d = ix0 - _LOG_NEAR_LO
     near1 = (d >= 0) & (d <= _LOG_NEAR_SPAN) & (x != 1.0)
     # the path near 1 costs a few hundred eager ops: one check of the
-    # inputs skips it when none takes it (the bits do not depend on it)
-    out = (torch.where(near1, _log_near_one(x), main) if bool(near1.any())
-           else main)
+    # inputs skips it when none takes it (the bits do not depend on it);
+    # a CUDA graph being captured cannot read the check, and takes it
+    both = x.is_cuda and torch.cuda.is_current_stream_capturing()
+    out = (torch.where(near1, _log_near_one(x), main)
+           if both or bool(near1.any()) else main)
     out = torch.where(x == 1.0, torch.zeros_like(out), out)
     out = torch.where(x == 0, torch.full_like(out, float("-inf")), out)
     out = torch.where((x < 0) | torch.isnan(x),

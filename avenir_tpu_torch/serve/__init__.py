@@ -33,24 +33,30 @@ micro-batching architecture; see PAPERS.md "Online serving").
   behind a device-memory-budget-aware resident LRU.
 """
 
-from .admission import QuotaExceeded, TenantAdmission           # noqa: F401
-from .batcher import MicroBatcher, ShedError                    # noqa: F401
-from .breaker import CircuitBreaker, CircuitOpenError           # noqa: F401
-from .engine import (ADAPTER_KINDS, SharedCompileTier,          # noqa: F401
-                     get_shared_tier, pow2_bucket)
-from .frontend import EventLoopFrontend                         # noqa: F401
-from .modelcache import ColdStartPending, ModelCache            # noqa: F401
-from .pool import ScorerPool                                    # noqa: F401
-from .registry import ModelRegistry                             # noqa: F401
-from .router import VariantRouter                               # noqa: F401
-from .server import (PredictionServer, TruncatedResponseError,  # noqa: F401
-                     serve_main)
-from .slo import SLOBoard                                       # noqa: F401
+# every name resolves on first use (PEP 562): the torch-free modules
+# (frontend, slo, the fleet router) import without the adapters' torch
+_EXPORTS = {
+    "QuotaExceeded": "admission", "TenantAdmission": "admission",
+    "MicroBatcher": "batcher", "ShedError": "batcher",
+    "CircuitBreaker": "breaker", "CircuitOpenError": "breaker",
+    "ADAPTER_KINDS": "engine", "SharedCompileTier": "engine",
+    "get_shared_tier": "engine", "pow2_bucket": "engine",
+    "EventLoopFrontend": "frontend",
+    "ColdStartPending": "modelcache", "ModelCache": "modelcache",
+    "ScorerPool": "pool", "ModelRegistry": "registry",
+    "VariantRouter": "router",
+    "PredictionServer": "server", "TruncatedResponseError": "server",
+    "serve_main": "server", "SLOBoard": "slo",
+}
 
-__all__ = ["ADAPTER_KINDS", "CircuitBreaker", "CircuitOpenError",
-           "ColdStartPending", "EventLoopFrontend", "MicroBatcher",
-           "ModelCache", "ModelRegistry", "PredictionServer",
-           "QuotaExceeded", "SLOBoard", "ScorerPool",
-           "SharedCompileTier", "ShedError", "TenantAdmission",
-           "TruncatedResponseError", "VariantRouter", "get_shared_tier",
-           "pow2_bucket", "serve_main"]
+
+def __getattr__(name):
+    mod = _EXPORTS.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute "
+                             f"{name!r}")
+    import importlib
+    return getattr(importlib.import_module(f".{mod}", __name__), name)
+
+
+__all__ = sorted(_EXPORTS)

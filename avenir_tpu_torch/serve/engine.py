@@ -58,6 +58,7 @@ from ..core.metrics import Counters
 from ..core.obs import get_tracer
 from ..device import resolve_device
 from ..utils.caches import bounded_cache_get, bounded_cache_put
+from ..utils.graphs import GraphedCall
 
 SERVE_GROUP = "Serve"
 
@@ -367,22 +368,28 @@ class NaiveBayesAdapter(ModelAdapter):
 
     def _compiled(self, bucket: int):
         # profiled_build: the (warmup or first-traffic) first call of each
-        # bucket's scorer lands in the xla.compile.ms telemetry counter
+        # bucket's scorer lands in the xla.compile.ms telemetry counter;
+        # on a card the scorer is a CUDA graph a bucket (its ~85 launches
+        # for a float32 row replayed as one), shared like a built scorer
+        def build():
+            fn = self._score_fn
+            if self.device.type == "cuda":
+                fn = GraphedCall(fn, self.device)
+            return telemetry.profiled_build(fn, f"serve.nb.score.b{bucket}")
         return self.cache.get(
-            ("nb", self._shape_sig, bucket),
-            lambda: telemetry.profiled_build(self._score_fn,
-                                             f"serve.nb.score.b{bucket}"))
+            ("nb", self._shape_sig, bucket, str(self.device)), build)
 
     def _score(self, x: np.ndarray, v: np.ndarray):
-        fn = self._compiled(x.shape[0])
-        dev = self.device
-        return fn(torch.from_numpy(x).to(dev), torch.from_numpy(v).to(dev),
-                  *self._tables, **self._score_kw)
+        """The scorer's outputs on the host (a graph takes its inputs from
+        the host itself)."""
+        out = self._compiled(x.shape[0])(
+            torch.from_numpy(x), torch.from_numpy(v), *self._tables,
+            **self._score_kw)
+        return tuple(None if t is None else t.cpu() for t in out)
 
     def warm(self, bucket: int) -> None:
-        probs, _, _ = self._score(np.zeros((bucket, self._F), np.int32),
-                                  np.zeros((bucket, self._F), np.float64))
-        probs.cpu()
+        self._score(np.zeros((bucket, self._F), np.int32),
+                    np.zeros((bucket, self._F), np.float64))
 
     def predict_lines(self, lines: List[str]) -> List[Optional[str]]:
         records = self._split(lines)
@@ -411,8 +418,7 @@ class NaiveBayesAdapter(ModelAdapter):
         x[:n] = xm
         v[:n] = ds.values
         probs, feat_prior, feat_post = (
-            None if t is None else t.cpu().numpy()[:n]
-            for t in self._score(x, v))
+            None if t is None else t.numpy()[:n] for t in self._score(x, v))
         actuals = [r[self._cls_ord] for r in recs]
         out = self.predictor.emit_lines(
             [lines[i] for i in ok], recs, actuals, probs, feat_prior,
@@ -771,6 +777,9 @@ class BanditDecisionAdapter(ModelAdapter):
         self.store = ensure_store(config, device=self.device)
         self._crc = event_crc
         self._min_fields = 2
+        if self.device.type == "cuda":
+            # capture the decide graphs of every bucket before serving
+            self.store.prepare_decide(pow2_buckets(self.max_bucket))
 
     def warm(self, bucket: int) -> None:
         self.store.decide(np.zeros(bucket, np.int32),

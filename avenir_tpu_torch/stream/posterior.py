@@ -24,6 +24,10 @@ Three layers:
   :func:`_ucb_decide`) with jax's threefry draws (``ops.threefry``) and
   XLA's float math (``ops.xla_math``), so a decision is a pure function
   of (posterior, seed, event id), equal to the reference's bit for bit.
+  On a CUDA card the eager chain (about 3,270 launches for a Thompson
+  decide of float64 draws) is captured once per request bucket into a
+  CUDA graph (``utils.graphs.GraphedCall``) and replayed: the same
+  kernels with the same arguments, so the same bits, in one launch.
 - :class:`FeedbackFoldSpec`: the shared-scan FoldSpec replaying a
   reward-event CSV log, the batch twin of the online consumer.
 
@@ -52,6 +56,7 @@ from ..core.multiscan import FoldSpec as MultiScanFoldSpec
 from ..ops import threefry
 from ..ops.counting import count_table
 from ..ops.xla_math import fma_f32, fma_f64, log_f32, log_f64, sqrt_rn
+from ..utils.graphs import GraphedCall
 
 KEY_TENANTS = "stream.tenants"
 KEY_TENANTS_PATH = "stream.tenants.path"
@@ -285,7 +290,9 @@ class PosteriorStore:
     ``fold_events`` sends an event batch to the device
     (``core.pipeline.ChunkTransfer``, padded to a power-of-two row bucket
     with tenant -1, which adds nothing), folds it out of place and swaps
-    the ``{"pulls", "reward"}`` state under the store's lock; ``decide``
+    the ``{"pulls", "reward"}`` state under the store's lock (folds are
+    serialized by a lock of their own, so a decide waits for the swap
+    only); ``decide``
     takes the state under the same lock and scores against it, so it
     sees one fold's pulls and rewards together.  ``pulls`` stay int64
     (``restore`` does not narrow them).  With a ``mesh`` of several
@@ -317,6 +324,7 @@ class PosteriorStore:
                        else resolve_device(device))
         self._static = (len(self.tenants), len(self.arms), str(self.dtype))
         self._lock = sanitizer.make_lock("stream.posterior")
+        self._fold_lock = sanitizer.make_lock("stream.posterior.fold")
         self._xfer = pipeline.ChunkTransfer(self.device, mesh=self.mesh)
         self._state = self._place(self._zero_state())
         self._decide_fns: dict = {}
@@ -346,33 +354,59 @@ class PosteriorStore:
                    device=device, mesh=mesh)
 
     # -- the feedback fold (consumer side) ---------------------------------
+    def _fold_part(self, t_idx: np.ndarray, a_idx: np.ndarray,
+                   rewards: np.ndarray, rows: int) -> dict:
+        """One batch's tables on the device, padded to ``rows`` (pad rows
+        carry tenant -1 and add nothing)."""
+        from ..ops.counting import sharded_reduce_resident
+
+        n = len(t_idx)
+        t = np.full(rows, -1, np.int32)
+        a = np.zeros(rows, np.int32)
+        r = np.zeros(rows, np.int64)
+        t[:n], a[:n], r[:n] = t_idx, a_idx, rewards
+        *arrays, mask = self._xfer((t, a, r))
+        if self.mesh is not None:
+            return sharded_reduce_resident(
+                _posterior_local, *arrays, mask=mask, mesh=self.mesh,
+                static_args=self._static)
+        return _posterior_local(*arrays, mask, *self._static)
+
     def fold_events(self, t_idx: np.ndarray, a_idx: np.ndarray,
                     rewards: np.ndarray) -> None:
         """Fold one parsed event batch into the device state and publish
         the new state (one assignment under the lock)."""
         from ..core.obs import get_tracer
-        from ..ops.counting import sharded_reduce_resident
 
         n = len(t_idx)
         if n == 0:
             return
-        b = _pow2(n)
-        t = np.full(b, -1, np.int32)
-        a = np.zeros(b, np.int32)
-        r = np.zeros(b, np.int64)
-        t[:n], a[:n], r[:n] = t_idx, a_idx, rewards
-        with self._lock:
-            with get_tracer().span("stream.fold", store=self.key):
-                *arrays, mask = self._xfer((t, a, r))
-                if self.mesh is not None:
-                    part = sharded_reduce_resident(
-                        _posterior_local, *arrays, mask=mask,
-                        mesh=self.mesh, static_args=self._static)
-                else:
-                    part = _posterior_local(*arrays, mask, *self._static)
+        # folds run one at a time; the decide path waits only for the
+        # swap, never for a transfer (a new bucket's pinned staging)
+        with self._fold_lock, get_tracer().span("stream.fold",
+                                                store=self.key):
+            part = self._fold_part(t_idx, a_idx, rewards, _pow2(n))
+            with self._lock:
                 state = self._state
                 self._state = {"pulls": state["pulls"] + part["pulls"],
                                "reward": state["reward"] + part["reward"]}
+
+    def prepare_fold(self, max_rows: int) -> None:
+        """Run the fold once at every row bucket up to ``max_rows`` and
+        drop the result (the state does not change): a card then has the
+        fold's kernels loaded and its pinned staging allocated before the
+        first event, which would otherwise stall the decides beside it."""
+        empty = np.zeros(0, np.int64)
+        b = _pow2(1)
+        while True:
+            with self._fold_lock:
+                part = self._fold_part(empty, empty, empty, b)
+                with self._lock:
+                    state = self._state
+                {k: state[k] + v for k, v in part.items()}
+            if b >= _pow2(max_rows):
+                break
+            b *= 2
 
     def restore(self, state: dict) -> None:
         """Seed the state from a checkpointed host posterior (resume)."""
@@ -398,20 +432,28 @@ class PosteriorStore:
     def _decide_fn(self):
         fn = self._decide_fns.get(self.algorithm)
         if fn is None:
-            if self.algorithm == ALGO_UCB:
-                fn = telemetry.profiled_build(
-                    _ucb_decide, f"stream.decide.ucb:{self.key}")
-            else:
-                seed, sigma = self.seed, self.sigma
+            seed, sigma = self.seed, self.sigma
 
-                def thompson(pulls, reward, tid, crc):
-                    return _thompson_decide(pulls, reward, tid, crc,
-                                            seed, sigma)
+            def ucb(pulls, reward, tid, crc):
+                return _ucb_decide(pulls, reward, tid)
 
-                fn = telemetry.profiled_build(
-                    thompson, f"stream.decide.thompson:{self.key}")
+            def thompson(pulls, reward, tid, crc):
+                return _thompson_decide(pulls, reward, tid, crc,
+                                        seed, sigma)
+
+            fn = ucb if self.algorithm == ALGO_UCB else thompson
+            if self.device.type == "cuda":
+                fn = GraphedCall(fn, self.device)
+            fn = telemetry.profiled_build(
+                fn, f"stream.decide.{self.algorithm}:{self.key}")
             self._decide_fns[self.algorithm] = fn
         return fn
+
+    def prepare_decide(self, buckets: Sequence[int]) -> None:
+        """Build the decide path at each request bucket now (on a card:
+        capture its graphs), so no request pays for it."""
+        for b in buckets:
+            self.decide(np.zeros(b, np.int32), np.zeros(b, np.uint32))
 
     def decide(self, tenant_idx: np.ndarray,
                crcs: np.ndarray) -> np.ndarray:
@@ -422,13 +464,9 @@ class PosteriorStore:
             fn = self._decide_fn()
         tid = torch.from_numpy(np.asarray(tenant_idx, np.int64)).to(
             self.device)
-        if self.algorithm == ALGO_UCB:
-            sels = fn(state["pulls"], state["reward"], tid)
-        else:
-            crc = torch.from_numpy(
-                np.asarray(crcs, np.uint32).astype(np.int64)).to(self.device)
-            sels = fn(state["pulls"], state["reward"], tid, crc)
-        return sels.cpu().numpy()
+        crc = torch.from_numpy(
+            np.asarray(crcs, np.uint32).astype(np.int64)).to(self.device)
+        return fn(state["pulls"], state["reward"], tid, crc).cpu().numpy()
 
 
 # ---------------------------------------------------------------------------

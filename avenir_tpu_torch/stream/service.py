@@ -147,6 +147,8 @@ class StreamDecisionService:
     def start(self) -> int:
         """Bind the TCP frontend and start the consumer thread; returns
         the bound port."""
+        if self.store.device.type == "cuda":
+            self.store.prepare_fold(self.consumer.batch)
         port = self.server.start()
         t = threading.Thread(target=self._consume,
                              name="stream-feedback", daemon=True)

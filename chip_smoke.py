@@ -77,12 +77,12 @@ path on the card and again on the CPU:
    over 50,000 items, threshold 0.003, count mode, k = 1-5) cold and warm
    (the incidence resident), with its census (|F2| >= 1,000, the three
    planted 5-itemsets at k = 5), the k-pass times and the support matmul's
-   device time, and its first 50,000 transactions on the card and on the
+   device time, and its first 25,000 transactions on the card and on the
    CPU;
 9. ``markov``: ``resource/churn_markov/run.sh`` and
    ``resource/hmm_viterbi/run.sh``'s steps through the command line, then
    the family at a real size from vectorized generators of the same
-   chains: the trainer streamed over 250,000 sequences (cold, then warm
+   chains: the trainer streamed over 125,000 sequences (cold, then warm
    off the pair cache), the classifier at float64 and float32 on 100,000,
    the HMM builder on 200,000 tagged rows and Viterbi on 100,000;
 10. ``serve_markov``: ``python -m avenir_tpu_torch serve`` with the
@@ -113,14 +113,14 @@ path on the card and again on the CPU:
    every level's records, the ``split=.../segment=...`` tree), bench.py:1327's
    level pass at full width (2,000,000 rows x 64 predicates x 8 paths x 2
    classes; its first 200,000 rows against the CPU, its total against the
-   closed form), ``DecisionTreeBuilder`` streamed over 300,000 retarget
+   closed form), ``DecisionTreeBuilder`` streamed over 150,000 retarget
    rows, and ``serve_tree``: the runbook's tree as a ``decisionTree`` model
    behind ``python -m avenir_tpu_torch serve``, 16 single-row clients and
    batches of 1-64, each response equal to the CPU route;
 14. ``pst``: ``resource/visit_pst``, then 200,000 visit rows (windows 2-4)
    on cuda:0, on a mesh of [cuda:0] * 4 (the halo) and on the CPU;
 15. ``text``: ``resource/word_count`` and ``resource/text_classify``, then
-   200,000 text rows: NB text training (one K1 launch at F = 1), scoring
+   100,000 text rows: NB text training (one K1 launch at F = 1), scoring
    and ``WordCounter``; K1 is held to its plain version at the text shape
    (the runbook's 22 tokens, and 2,000,000 tokens over a 40,000-token
    vocabulary, the cluster route);
@@ -134,7 +134,7 @@ path on the card and again on the CPU:
    retrain, the cost model's FUSE line, the memory handoffs, K1 3 x 13);
    bench.py:938's cell (400,000 rows, 65,536-row chunks, depth 2, six
    stages) as a DAG against the standalone chain with file handoff (byte
-   parity, then the best of 2 each), K1 14 in the fused group and 21 in
+   parity, then one timed run each), K1 14 in the fused group and 21 in
    the cell, two H2D copies a fused chunk, the idle share; the runbook's
    workflow killed by ``worker_death@5`` in the fused group and resumed
    (``bin`` skipped, the scan resumed mid-file, the clean bytes); K1 at
@@ -142,8 +142,10 @@ path on the card and again on the CPU:
 18. ``host_jobs``: the class_balance, event_burst, event_seq_gsp,
    bandit_variants and price_optimize runbooks through the port
    (``avenir_tpu_torch.runbook``: rewritten scratch copies in
-   subprocesses, six at once) on the card and on the CPU, every file
-   equal; ``BanditFeedbackAggregator`` over 1M events on the card and on
+   subprocesses, six at once) with ``--device cuda`` (their jobs run on
+   the host: a CPU leg would run the same code again); the runbooks
+   below on the card and on the CPU, every file equal;
+   ``BanditFeedbackAggregator`` over 500,000 events on the card and on
    the CPU (equal bytes, rows/s, idle share); ``bandit_fb``'s fold
    certificate on [cuda:0] and [cuda:0] * 4; also item 3's
    disease_rules, marketing_plan and multitenant runbooks (the last with
@@ -167,10 +169,27 @@ path on the card and again on the CPU:
    softMax for one wave), events/s and equal action lines; the feedback
    consumer under ``feedback_dup@2``, ``feedback_reorder@3`` and
    ``feedback_drop@4`` (killed, resumed), each posterior the batch
-   replay's.  Phases 7-19 launch no kernel of the port but K1 (the NB
-   runbooks' training, MI, the shared scan, NB text training, the DAG's
-   NB and MI folds, the multitenant training); each prints its host-clock
-   times and a ``torch.profiler`` device-busy and idle share.
+   replay's; the decide's CUDA graph against its eager chain (equal
+   selections, device events and call time of each);
+20. ``fleet_workload``: the workload harness and the fleet tier on
+   cuda:0: all seven scenarios' schedules (the reference's bytes, by
+   digest); the harness's bootstrap training (one K1 launch, the model
+   equal on the CPU) for each gated scenario and the fleet runbook's
+   seed; the NB server's scorer graph against its eager chain;
+   ``workload_smoke`` and ``resource/workload/run.sh``'s four scenarios
+   with ``--assert``, one at a time (each phase's rate, p50/p99 and
+   verdict, the compile counts, the bootstrap model against the CPU's);
+   ``resource/fleet/run.sh`` (two backends on the card, the router, the
+   aggregator, a ``scale`` fan-out, ``router_fleet`` through the router
+   with backend 1 SIGKILLed mid-chaos: the verdict, dropped innocents,
+   the stitched lanes, the incident, device memory per feed); then
+   ``resource/fleetobs/run.sh`` and ``resource/ci/router_smoke.py`` and
+   ``router_ha_smoke.py`` at once; 64 churn requests direct and through
+   the router, card against CPU.  Phases 7-20 launch no kernel of the
+   port but K1 (the NB runbooks' training, MI, the shared scan, NB text
+   training, the DAG's NB and MI folds, the multitenant training, the
+   workload bootstraps); each prints its host-clock times and a
+   ``torch.profiler`` device-busy and idle share.
 
 Kernel counts (and the native encoder's call count) are set to 0 just
 before each path and read just after.
@@ -2401,9 +2420,9 @@ APRIORI_BLOCKS, APRIORI_BLOCK_SZ, APRIORI_DRAWS = 40, 12, 6
 APRIORI_PLANTED = ((3001, 3007, 3011, 3013, 3017),
                    (4001, 4202, 4303, 4404, 4505),
                    (5001, 5002, 5003, 5004, 5005))
-APRIORI_CPU_ROWS = 50_000           # the card-against-CPU comparison's rows
+APRIORI_CPU_ROWS = 25_000           # the card-against-CPU comparison's rows
 NL = b"\n"
-MARKOV_SEQS, MARKOV_CHUNK = 250_000, 65_536
+MARKOV_SEQS, MARKOV_CHUNK = 125_000, 65_536
 MARKOV_SCORED, HMM_TAGGED, HMM_DECODED = 100_000, 200_000, 100_000
 
 
@@ -2634,7 +2653,7 @@ def apriori_paths(torch, card) -> None:
     """The freq_items runbook on the card and on the CPU, byte-equal; then
     bench.py's Apriori cell at full width on the card, cold and warm (the
     incidence resident), with its census (|F2| >= 1,000, the three
-    planted 5-itemsets at k = 5), and its first 50,000 transactions on
+    planted 5-itemsets at k = 5), and its first 25,000 transactions on
     the card and on the CPU, byte-equal."""
     from avenir_tpu_torch.models import association
 
@@ -2841,7 +2860,7 @@ def write_hmm_rows(n: int, seed: int, tagged: bool) -> bytes:
 def markov_paths(torch, card) -> dict:
     """The churn_markov and hmm_viterbi runbooks on the card and on the
     CPU, byte-equal; then the family at a real size through the command
-    line, card against CPU: the trainer streamed over 250,000 sequences
+    line, card against CPU: the trainer streamed over 125,000 sequences
     (cold, then warm off the pair cache), the classifier at float64 and
     float32 on 100,000, the HMM builder on 200,000 tagged rows and Viterbi
     on 100,000 observation rows.  Returns the serving phase's inputs."""
@@ -3136,10 +3155,10 @@ SHARED_SCAN_SCHEMA = {"fields": [
 # bench.py:1327's level pass at full width; its CPU comparison's rows
 LEVEL_N, LEVEL_PATHS, LEVEL_PREDS, LEVEL_CLASSES = 2_000_000, 8, 64, 2
 LEVEL_CPU_ROWS = 200_000
-DTB_STREAM_ROWS, DTB_STREAM_CHUNK = 300_000, 65_536
+DTB_STREAM_ROWS, DTB_STREAM_CHUNK = 150_000, 65_536
 TREE_SERVE_ROWS = 200
-PST_ROWS, TEXT_ROWS = 200_000, 200_000
-TEXT_TRAIN = 160_000                 # the rest are scored
+PST_ROWS, TEXT_ROWS = 200_000, 100_000
+TEXT_TRAIN = 80_000                  # the rest are scored
 TEXT_WIDE_N, TEXT_WIDE_V = 2_000_000, 40_000   # K1's cluster-route text case
 LR_ROWS, LR_ITERS, LR_RTOL = 1_000_000, 10, 1e-9
 
@@ -3663,7 +3682,7 @@ def level_pass(torch, card) -> None:
 
 
 def tree_streamed(torch, card) -> None:
-    """``DecisionTreeBuilder`` streamed over 300,000 retarget rows: the
+    """``DecisionTreeBuilder`` streamed over 150,000 retarget rows: the
     runbook's configuration with ``cartAmount`` the only feature (a level
     split on ``retargetType`` writes each row once for every satisfied
     predicate of its 255 two-group partitions), the root level on the
@@ -4017,8 +4036,8 @@ def text_k1_cases(torch, train_dir: str) -> list:
 
 def text_paths(torch, histogram, card) -> tuple:
     """``resource/word_count`` and ``resource/text_classify`` on the card
-    and on the CPU, then 200,000 text rows: NB text training (one K1
-    launch, F = 1) on 160,000, scoring the other 40,000, and WordCounter
+    and on the CPU, then 100,000 text rows: NB text training (one K1
+    launch, F = 1) on 80,000, scoring the other 20,000, and WordCounter
     over all, card against CPU.  Returns the NB text training's K1
     launches and K1's text-shape cases."""
     w = os.path.join(WORK, "text")
@@ -4067,7 +4086,7 @@ def text_paths(torch, histogram, card) -> tuple:
     k1 = got["cuda"].pop("k1")
     if k1 != 1:
         raise AssertionError(f"NB text training launched K1 {k1} times")
-    same_on_both("text at 200,000 rows", got)
+    same_on_both(f"text at {TEXT_ROWS} rows", got)
     log(f"text at {TEXT_ROWS} rows (data {gen_s:.3f} s): " + "; ".join(
         f"{label} cuda {secs['cuda'][label]:.3f} s cpu "
         f"{secs['cpu'][label]:.3f} s" for label in secs["cuda"])
@@ -4199,7 +4218,7 @@ WORKFLOW_STAGES = ("bin", "nb", "mi", "corr", "select", "retrain",
                    "validate", "publish")
 # bench.py:938's cell: 50,000 churn rows (seed 7) repeated 8 times, the
 # all-binned schema, 65,536-row chunks, depth 2, six stages
-DAG_BASE_ROWS, DAG_SEED, DAG_REPS = 50_000, 7, 2
+DAG_BASE_ROWS, DAG_SEED, DAG_REPS = 50_000, 7, 1
 DAG_STAGES = ("bin", "nb", "mi", "corr", "select", "retrain")
 
 
@@ -4301,7 +4320,7 @@ def dag_paths(torch, histogram, card) -> tuple:
     outputs equal, publish == retrain, the cost model's line, the
     handoffs, K1 13 + 13 + 13); bench.py:938's cell on cuda:0, the DAG
     against the standalone chain with file handoff (byte parity first,
-    then the best of 2 each, host clock), K1's launches in the fused group
+    then one timed run each, host clock), K1's launches in the fused group
     and the cell (7 + 7, then 7), the fused group's H2D copies a chunk,
     the device idle share and the handoffs; the runbook's workflow killed
     by ``worker_death@5`` inside the fused group and resumed with
@@ -4484,12 +4503,15 @@ def dag_paths(torch, histogram, card) -> tuple:
 HOST_RUNBOOKS = ("class_balance", "event_burst", "event_seq_gsp",
                  "bandit_variants", "price_optimize", "disease_rules",
                  "marketing_plan", "multitenant")
+#: runbooks whose jobs never touch the device: one leg, the card's
+HOST_ONLY = HOST_RUNBOOKS[:5]
 HOST_PARALLEL = 6
-FEEDBACK_EVENTS, FEEDBACK_TENANTS, FEEDBACK_ARMS = 1_000_000, 64, 8
+FEEDBACK_EVENTS, FEEDBACK_TENANTS, FEEDBACK_ARMS = 500_000, 64, 8
 
 
 def write_feedback_log(path: str) -> str:
-    """1M ``tenant,arm,reward`` events (integer rewards 0-999), seeded."""
+    """``FEEDBACK_EVENTS`` ``tenant,arm,reward`` events (integer rewards
+    0-999), seeded."""
     import numpy as np
 
     rng = np.random.default_rng(12)
@@ -4602,11 +4624,12 @@ def multitenant_steps(torch, histogram, card, w: str):
 def host_jobs(torch, histogram, card):
     """The runbooks of the batch jobs and queue 1 item 3's three
     leftovers through the port (each a rewritten scratch copy in a
-    subprocess, ``avenir_tpu_torch.runbook``) on the card's machine, cuda
-    and CPU, every file of their ``work/`` equal but a server's log (its
-    port and timings); the multitenant runbook's training and serving in
-    process (:func:`multitenant_steps`); ``BanditFeedbackAggregator``
-    over 1M events on cuda:0 and on the CPU (equal bytes, rows/s, the
+    subprocess, ``avenir_tpu_torch.runbook``) on the card's machine: the
+    host-only ones once, the others with cuda and CPU, every file of
+    their ``work/`` equal but a server's log (its port and timings); the
+    multitenant runbook's training and serving in process
+    (:func:`multitenant_steps`); ``BanditFeedbackAggregator`` over
+    500,000 events on cuda:0 and on the CPU (equal bytes, rows/s, the
     device idle share); ``bandit_fb``'s fold certificate on [cuda:0] and
     [cuda:0] * 4.  Returns :func:`multitenant_steps`'s K1 launches and
     case."""
@@ -4632,14 +4655,21 @@ def host_jobs(torch, histogram, card):
 
     # the subprocesses spend most of their time starting an interpreter and
     # importing torch, so HOST_PARALLEL of them run at once
-    legs = [(name, dev) for name in HOST_RUNBOOKS for dev in ("cuda", "cpu")]
+    legs = [(name, dev) for name in HOST_RUNBOOKS for dev in ("cuda", "cpu")
+            if dev == "cuda" or name not in HOST_ONLY]
     t = time.perf_counter()
     with ThreadPoolExecutor(HOST_PARALLEL) as pool:
         done = dict(zip(legs, pool.map(lambda leg: runbook(*leg), legs)))
-    log(f"the {len(HOST_RUNBOOKS)} runbooks on the card and on the CPU, "
+    log(f"the {len(HOST_RUNBOOKS)} runbooks ({len(legs)} legs), "
         f"{HOST_PARALLEL} subprocesses at once: {time.perf_counter() - t:.3f}"
         f" s [{card}]")
-    for name in HOST_RUNBOOKS:
+    for name in HOST_ONLY:
+        secs, files, _ = done[(name, "cuda")]
+        if not files:
+            raise AssertionError(f"{name} runbook wrote no work file")
+        log(f"{name} runbook through the port: {secs:.3f} s; {len(files)} "
+            f"files [{card}]")
+    for name in HOST_RUNBOOKS[len(HOST_ONLY):]:
         outs = {dev: done[(name, dev)][1] for dev in ("cuda", "cpu")}
         same_on_both(f"{name} runbook", outs)
         log(f"{name} runbook through the port: cuda "
@@ -5052,26 +5082,49 @@ def decision_cell(torch, card) -> None:
     quiet.fold_events(rng.integers(0, 256, 4096), rng.integers(0, 4, 4096),
                       rng.integers(0, 7, 4096))
     tid = np.arange(128, dtype=np.int32)
+    dev_tid = torch.from_numpy(tid.astype(np.int64)).cuda()
     for algo in ("thompson", "ucb"):
         quiet.algorithm = algo
-        quiet.decide(tid, tid.astype(np.uint32))
-        torch.cuda.synchronize()
-        n_calls = 10
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            for i in range(n_calls):
-                quiet.decide(tid, (tid + i).astype(np.uint32))
+
+        def eager(i):
+            """The eager chain, as ``decide`` ran it before its graphs."""
+            s = quiet._state
+            crc = torch.from_numpy((tid + i).astype(np.int64)).cuda()
+            if algo == "ucb":
+                sels = posterior._ucb_decide(s["pulls"], s["reward"],
+                                             dev_tid)
+            else:
+                sels = posterior._thompson_decide(
+                    s["pulls"], s["reward"], dev_tid, crc, quiet.seed,
+                    quiet.sigma)
+            return sels.cpu().numpy()
+
+        def graphed(i):
+            return quiet.decide(tid, (tid + i).astype(np.uint32))
+
+        for i in range(4):
+            if not (eager(i) == graphed(i)).all():
+                raise AssertionError(f"the {algo} decide's graph differs "
+                                     f"from its eager chain")
+        for name, fn in (("eager", eager), ("graph", graphed)):
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-        events = [e for e in prof.key_averages()
-                  if e.device_type != DeviceType.CPU
-                  and (getattr(e, "self_device_time_total", 0) or 0) > 0]
-        n_dev = sum(e.count for e in events)
-        busy = sum(e.self_device_time_total for e in events) / 1e3
-        log(f"launches per decide batch ({algo}, float64, 128 rows): "
-            f"{n_dev / n_calls:.0f} device events, {busy / n_calls:.3f} ms "
-            f"device busy, {wall / n_calls * 1e3:.3f} ms a call [{card}]")
+            n_calls = 5
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                for i in range(n_calls):
+                    fn(i)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            events = [e for e in prof.key_averages()
+                      if e.device_type != DeviceType.CPU
+                      and (getattr(e, "self_device_time_total", 0) or 0) > 0]
+            n_dev = sum(e.count for e in events)
+            busy = sum(e.self_device_time_total for e in events) / 1e3
+            log(f"launches per decide batch ({algo}, float64, 128 rows, "
+                f"{name}): {n_dev / n_calls:.0f} device events, "
+                f"{busy / n_calls:.3f} ms device busy, "
+                f"{wall / n_calls * 1e3:.3f} ms a call [{card}]")
 
 
 def fleet_cell(torch, card) -> None:
@@ -5237,6 +5290,346 @@ def stream_paths(torch, card) -> None:
         f"cell, faults): {list(secs.values())}")
 
 
+# ---------------------------------------------------------------------------
+# the fleet tier and the workload harness
+# ---------------------------------------------------------------------------
+
+WORKLOAD_BOOK = os.path.join(ROOT, "resource", "workload")
+#: sha256 of each scenario's ``schedule_bytes``, from the JAX package on
+#: the CPU (tests/test_torch_workload.py holds these to the reference)
+WORKLOAD_SCHEDULES = {
+    "feedback_chaos": "2bcd87ef14bdf28ba25674eb8b35b6c8072bd3a7b166fdfa4afc85b0657c3f6d",
+    "flash_crowd": "0b88f9aac68e4959a0291c83ab3322c6b56c9ff8cdbea3050040c146cf2094df",
+    "poison_storm": "6fed677491764d0ce6c369a57e7b9542e472b55b15380d4e9b10be77183a30b4",
+    "router_fleet": "6dc3bcabed80dffd11d597dcd94a94c23b3cac0d8472e22717db3173f77c8d2f",
+    "soak": "9724dda0f79191077d1ea9baa67661a225a8252b60303c31674a532ea860a173",
+    "workload_smoke": "b8dfd64a2f1bdd3d31dc93dbaf810f0f184e26941ca524b1e6ee4083811a1a68",
+    "zipf_tenant_storm": "f6aa24e5fde2a0d080a4ac8739fa12f1524679fcfd9b61e887fc6fc55d2938b2",
+}
+#: the gate's scenarios: CI gate 3's smoke, then run.sh's four
+WORKLOAD_GATES = ("workload_smoke", "flash_crowd", "zipf_tenant_storm",
+                  "poison_storm", "feedback_chaos")
+ROUTED_REQUESTS = 64
+FLEET_TRAIN_SEED = 11           # resource/fleet/train.py's bootstrap seed
+
+
+def workload_scenario(name: str):
+    from avenir_tpu_torch.core.config import JobConfig, parse_properties
+    from avenir_tpu_torch.workload import Scenario
+
+    with open(os.path.join(WORKLOAD_BOOK, f"{name}.properties")) as fh:
+        return Scenario(JobConfig(parse_properties(fh.read())))
+
+
+def workload_schedules() -> None:
+    """Every scenario's schedule: the reference's bytes (by digest), at
+    the manifest's thread count and at one more."""
+    import hashlib
+
+    from avenir_tpu_torch.workload import build_schedule, schedule_bytes
+
+    for name, want in WORKLOAD_SCHEDULES.items():
+        scn = workload_scenario(name)
+        got = schedule_bytes(build_schedule(scn))
+        scn.config.set("workload.threads", "13")
+        again = schedule_bytes(build_schedule(type(scn)(scn.config)))
+        if hashlib.sha256(got).hexdigest() != want or again != got:
+            raise AssertionError(f"{name}: the schedule is not the "
+                                 f"reference's")
+    log(f"workload schedules: {len(WORKLOAD_SCHEDULES)} scenarios, each "
+        f"the reference's bytes at two thread counts")
+
+
+def workload_bootstraps(torch, histogram, card, w: str):
+    """The harness's bootstrap training (1,200 churn rows from the
+    scenario's seed) in process on cuda:0 and on the CPU for each gated
+    scenario that trains one, and for the fleet runbook's ``train.py``:
+    K1's launches on the card, the model and schema equal on both.
+    Returns (K1 launches of one bootstrap, K1's case at its chunk, {seed:
+    model bytes})."""
+    from avenir_tpu_torch.workload.runner import _train_artifact
+
+    fleet = workload_scenario("workload_smoke")
+    fleet.seed = FLEET_TRAIN_SEED
+    scenarios = [(n, workload_scenario(n)) for n in WORKLOAD_GATES]
+    models, k1 = {}, None
+    for name, scn in scenarios + [("fleet/train.py", fleet)]:
+        if scn.target != "serve" or scn.seed in models:
+            continue
+        got = {}
+        for dev in ("cuda", "cpu"):
+            boot = os.path.join(w, f"boot_{scn.seed}_{dev}")
+            histogram.reset_launch_counts()
+            t = time.perf_counter()
+            schema, model = _train_artifact(scn, boot, device=dev)
+            train_s = time.perf_counter() - t
+            if dev == "cuda":
+                k1 = histogram.K1_LAUNCHES
+                if k1 != 1:
+                    raise AssertionError(f"a bootstrap launched K1 {k1} "
+                                         f"times (one chunk: 1)")
+                train_dir = os.path.join(boot, "train")
+            with open(schema, "rb") as fh:
+                got[dev] = (fh.read(), read_bytes(model))
+        same_on_both(f"the bootstrap of seed {scn.seed}", got)
+        models[scn.seed] = got["cuda"][1]
+        log(f"workload bootstrap (seed {scn.seed}, {name}): K1 {k1}, "
+            f"{len(got['cuda'][1])} model bytes equal on cuda and cpu; "
+            f"{train_s:.3f} s on the CPU [{card}]")
+    x, y, C, B, _ = main_path_chunk(train_dir, schema)
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+    case = ("K1wl", "the workload bootstrap's training chunk (1,200 rows)",
+            C, B, None, lambda: (xt.cuda(), yt.cuda(), None))
+    return k1, case, models
+
+
+def verdict_lines(label: str, path: str, card: str) -> dict:
+    """Log a verdict's phases (rate, p50/p99, outcomes) and compile
+    counts; raise unless it passed."""
+    with open(path) as fh:
+        v = json.load(fh)
+    for ph in v["phases"]:
+        s = ph["summary"]
+        log(f"{label} phase {ph['name']!r}: {s['sent']} sent @ "
+            f"{s['achieved_rps']}/s, p50 {s['p50_ms']} ms, p99 "
+            f"{s['p99_ms']} ms, outcomes {s['outcomes']}, innocents "
+            f"dropped {s['innocents_dropped']}, "
+            f"{'ok' if ph['ok'] else 'VIOLATED'} [{card}]")
+    log(f"{label}: verdict {'PASS' if v['pass'] else 'FAIL'}, compiles "
+        f"after warmup {v['compiles']['after_warmup']}, at the end "
+        f"{v['compiles']['at_end']}")
+    if not v["pass"]:
+        raise AssertionError(f"{label}: envelope violated: "
+                             f"{v['violations']}")
+    return v
+
+
+def feed_memory(spool: str) -> dict:
+    """``device.hbm.bytes`` of each feed's last snapshot in a spool."""
+    out = {}
+    for d in sorted(os.listdir(spool)):
+        path = os.path.join(spool, d, "snapshot.json")
+        if os.path.exists(path):
+            with open(path) as fh:
+                g = json.load(fh)["snapshot"].get("gauges", {})
+            out[d.split("-")[0]] = {k: v["value"] for k, v in g.items()
+                                    if k.startswith("device.hbm.bytes")}
+    return out
+
+
+def routed_responses(card, schema: str, model: str) -> None:
+    """Two in-process servers behind the fleet router, on cuda:0 and on
+    the CPU: a fixed set of churn requests sent direct to a backend and
+    through the router, the same bytes, card against CPU."""
+    import random
+    import socket
+
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.serve.fleet import FleetRouter
+    from avenir_tpu_torch.serve.frontend import EventLoopFrontend
+    from avenir_tpu_torch.serve.server import PredictionServer
+    from avenir_tpu_torch.workload.generators import churn_row
+
+    def raw(port, payload):
+        with socket.create_connection(("127.0.0.1", port), timeout=60) as s:
+            s.sendall(payload)
+            buf = b""
+            while not buf.endswith(b"\n"):
+                chunk = s.recv(65536)
+                if not chunk:
+                    break
+                buf += chunk
+        return buf
+
+    props = {"serve.models": "churn", "serve.model.churn.kind": "naiveBayes",
+             "serve.model.churn.feature.schema.file.path": schema,
+             "serve.model.churn.bayesian.model.file.path": model,
+             "serve.port": "0", "serve.warmup": "true"}
+    got = {}
+    for dev in ("cuda", "cpu"):
+        backends = [PredictionServer(JobConfig(dict(props)), device=dev)
+                    for _ in range(2)]
+        ports = [b.start() for b in backends]
+        router = FleetRouter(JobConfig({
+            "router.backends": ",".join(str(p) for p in ports),
+            "router.request.timeout.sec": "60"}))
+        rfe = EventLoopFrontend(router, "127.0.0.1", 0, io_threads=1)
+        router.frontend = rfe
+        rng = random.Random(17)
+        lines = []
+        try:
+            t = time.perf_counter()
+            for i in range(ROUTED_REQUESTS):
+                payload = (json.dumps({"model": "churn",
+                                       "row": churn_row(rng, i),
+                                       "request_id": f"rq-{i}"})
+                           + "\n").encode()
+                direct, routed = raw(ports[i % 2], payload), raw(rfe.port,
+                                                                 payload)
+                if routed != direct or b'"output"' not in direct:
+                    raise AssertionError(f"routed response differs on "
+                                         f"{dev}: {direct!r} {routed!r}")
+                lines.append(direct)
+            secs = time.perf_counter() - t
+        finally:
+            rfe.stop()
+            router.stop()
+            for b in backends:
+                b.stop()
+        got[dev] = lines
+        log(f"{ROUTED_REQUESTS} churn requests direct and through the "
+            f"router on {dev}: byte-equal, {secs:.3f} s [{card}]")
+    same_on_both("routed responses", got)
+
+
+def nb_graphs(torch, card, schema: str, model: str) -> None:
+    """The NB server's scorer (``NaiveBayesAdapter._score``, a CUDA graph
+    a bucket on the card) against its eager chain on the same inputs:
+    float32 with and without the feature probabilities, and float64, at
+    buckets 1, 8 and 64.  Equal bits; each one's call time, in turns."""
+    import numpy as np
+
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.core.metrics import Counters
+    from avenir_tpu_torch.serve.engine import NaiveBayesAdapter
+
+    rng = np.random.default_rng(5)
+    for prec, feat in (("float32", "false"), ("float32", "true"),
+                       ("float64", "false")):
+        ad = NaiveBayesAdapter(JobConfig({
+            "feature.schema.file.path": schema,
+            "bayesian.model.file.path": model, "bp.score.precision": prec,
+            "output.feature.prob.only": feat}), Counters(), device="cuda")
+        for b in (1, 8, 64):
+            x = rng.integers(0, 4, (b, ad._F)).astype(np.int32)
+            v = rng.integers(0, 1000, (b, ad._F)).astype(np.float64)
+
+            def eager():
+                out = ad._score_fn(torch.from_numpy(x).cuda(),
+                                   torch.from_numpy(v).cuda(), *ad._tables,
+                                   **ad._score_kw)
+                return tuple(None if o is None else o.cpu() for o in out)
+
+            def graphed():
+                return ad._score(x, v)
+
+            for a, g in zip(eager(), graphed()):
+                if (a is None) != (g is None) or (
+                        a is not None and not torch.equal(a, g)):
+                    raise AssertionError(f"the NB {prec} scorer's graph "
+                                         f"differs at bucket {b}")
+            ms = {}
+            for name, fn in (("eager", eager), ("graph", graphed),
+                             ("graph", graphed), ("eager", eager)):
+                ms.setdefault(name, []).append(time_ms(fn, 20))
+            fmt = lambda xs: "/".join(f"{x:.4f}" for x in xs)  # noqa: E731
+            log(f"NB serving scorer {prec} (prob-only {feat}) at bucket "
+                f"{b}: graph equals the eager chain; call ms eager "
+                f"{fmt(ms['eager'])}, graph {fmt(ms['graph'])} [{card}]")
+
+
+def fleet_workload(torch, histogram, card) -> dict:
+    """The workload harness and the fleet tier through the port on
+    cuda:0: the schedules, the bootstraps (K1), ``workload_smoke`` and
+    ``resource/workload/run.sh``'s four scenarios with ``--assert`` one at
+    a time, ``resource/fleet/run.sh`` (two backends on the card, the
+    router, the aggregator, ``router_fleet`` through the router with
+    backend 1 SIGKILLed mid-chaos), then ``resource/fleetobs/run.sh`` and
+    the two router CI smokes at once, and a fixed set of requests direct
+    and routed, card against CPU.  Returns K1's launches of one bootstrap
+    and its case."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from avenir_tpu_torch.runbook import run_runbook, run_script
+
+    w = os.path.join(WORK, "fleet_workload")
+    os.makedirs(w)
+    secs = {}
+    t = time.perf_counter()
+    workload_schedules()
+    k1, case, models = workload_bootstraps(torch, histogram, card,
+                                           os.path.join(w, "boot"))
+    boot = os.path.join(w, "boot", f"boot_{FLEET_TRAIN_SEED}_cuda")
+    schema, model = (os.path.join(boot, "teleComChurn.json"),
+                     os.path.join(boot, "nb_model"))
+    nb_graphs(torch, card, schema, model)
+    secs["schedules, bootstraps, graphs"] = time.perf_counter() - t
+
+    # the gated scenarios, one at a time (their envelopes are timing
+    # gates): run.sh with the smoke first, from a copy at its repo path
+    t = time.perf_counter()
+    copy = os.path.join(w, "wl")
+    run_runbook(WORKLOAD_BOOK, os.path.join(copy, "resource", "workload"),
+                device="cuda", timeout=600, args=WORKLOAD_GATES)
+    for name in WORKLOAD_GATES:
+        out = os.path.join(copy, "resource", "workload", "work", name)
+        verdict_lines(f"workload {name} on cuda:0",
+                      os.path.join(out, "verdict.json"), card)
+        scn = workload_scenario(name)
+        if scn.target == "serve":
+            if read_bytes(os.path.join(out, "bootstrap", "nb_model")) != \
+                    models[scn.seed]:
+                raise AssertionError(f"{name}: the bootstrap model is not "
+                                     f"the CPU's")
+    secs["workload scenarios"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    book = os.path.join(w, "fleet", "resource", "fleet")
+    out = run_runbook(os.path.join(ROOT, "resource", "fleet"), book,
+                      device="cuda", timeout=600,
+                      env={"BASE_PORT": "18761", "ROUTER_PORT": "18760",
+                           "AGG_PORT": "18770"})
+    v = verdict_lines("router_fleet through the router on cuda:0",
+                      os.path.join(book, "work", "run", "verdict.json"),
+                      card)
+    dropped = {ph["name"]: ph["summary"]["innocents_dropped"]
+               for ph in v["phases"]}
+    lanes = [ln.strip() for ln in out.splitlines() if "process lanes" in ln]
+    if any(dropped.values()) or not lanes:
+        raise AssertionError(f"fleet runbook: dropped {dropped}, {lanes}")
+    if read_bytes(os.path.join(book, "work", "boot", "nb_model")) != \
+            models[FLEET_TRAIN_SEED]:
+        raise AssertionError("fleet runbook: train.py's model is not the "
+                             "CPU's")
+    log(f"fleet runbook: backend 1 SIGKILLed mid-chaos, innocents dropped "
+        f"{dropped}; {lanes[0]}; incident bundle present; device memory "
+        f"per feed {feed_memory(os.path.join(book, 'work', 'spool'))} "
+        f"[{card}]")
+    secs["fleet runbook"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    legs = {
+        "fleetobs runbook": lambda: run_runbook(
+            os.path.join(ROOT, "resource", "fleetobs"),
+            os.path.join(w, "fleetobs", "fleetobs"), device="cuda",
+            timeout=600, env={"BASE_PORT": "18741", "AGG_PORT": "18750"}),
+        "router_smoke": lambda: run_script(
+            os.path.join(ROOT, "resource", "ci", "router_smoke.py"),
+            os.path.join(w, "router_smoke"), device="cuda", timeout=600),
+        "router_ha_smoke": lambda: run_script(
+            os.path.join(ROOT, "resource", "ci", "router_ha_smoke.py"),
+            os.path.join(w, "router_ha_smoke"), device="cuda", timeout=600),
+    }
+    with ThreadPoolExecutor(len(legs)) as pool:
+        done = {k: pool.submit(fn) for k, fn in legs.items()}
+        outs = {k: f.result() for k, f in done.items()}
+    for ln in outs["fleetobs runbook"].splitlines():
+        if "per-process Requests" in ln or "process lanes" in ln:
+            log(f"fleetobs runbook: {ln.strip()} [{card}]")
+    log(f"fleetobs runbook device memory per feed "
+        f"{feed_memory(os.path.join(w, 'fleetobs', 'fleetobs', 'work', 'spool'))}")
+    for k in ("router_smoke", "router_ha_smoke"):
+        log(f"{k}: {outs[k].strip().splitlines()[-1]} [{card}]")
+    secs["fleetobs runbook, router smokes"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    routed_responses(card, schema, model)
+    secs["routed responses"] = time.perf_counter() - t
+    log(f"fleet_workload seconds: "
+        f"{ {k: round(s, 1) for k, s in secs.items()} } [{card}]")
+    return {"K1wl": k1}, case
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5378,7 +5771,11 @@ def main() -> int:
     phase_done("host_jobs")
     stream_paths(torch, card)
     phase_done("stream_paths")
-    for case in [mi_case, ms_case] + text_cases + [dag_case, mt_case]:
+    wl_launches, wl_case = fleet_workload(torch, histogram, card)
+    launches.update(wl_launches)
+    phase_done("fleet_workload")
+    for case in [mi_case, ms_case] + text_cases + [dag_case, mt_case,
+                                                   wl_case]:
         entries.append(histogram_entry(case))
     log(f"main-path launches: {launches}")
     log(f"phase seconds: {phases}")

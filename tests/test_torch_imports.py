@@ -58,7 +58,53 @@ def test_importing_every_module_leaves_jax_out():
         "models.sequence", "core.stats", "models.reinforce", "models.bandit",
         "stream.posterior", "runbook", "ops.threefry", "ops.xla_math",
         "core.pac", "stream.consumer", "stream.service",
-        "models.reinforce_vec", "models.streaming")} <= names
+        "models.reinforce_vec", "models.streaming", "fleetobs.aggregate",
+        "fleetobs.aggregator", "fleetobs.incidents", "fleetobs.stitch",
+        "serve.fleet.backend", "serve.fleet.control", "serve.fleet.lease",
+        "serve.fleet.router", "serve.fleet.watch", "workload.driver",
+        "workload.generators", "workload.runner", "workload.scenario",
+        "workload.verdict")} <= names
+
+
+TORCH_FREE = ("avenir_tpu_torch.serve.slo", "avenir_tpu_torch.serve.frontend",
+              "avenir_tpu_torch.serve.fleet.router",
+              "avenir_tpu_torch.fleetobs.aggregator")
+
+
+@pytest.mark.parametrize("module", TORCH_FREE)
+def test_router_and_aggregator_modules_import_no_torch(module):
+    """The router and the aggregator move bytes and read feeds: importing
+    them (and the serving modules they share) starts no torch runtime."""
+    code = (f"import sys, {module}\n"
+            "bad = sorted(m for m in sys.modules if m == 'torch' or "
+            "m.startswith('torch.'))\n"
+            "assert not bad, bad[:5]\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    run = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr
+
+
+@pytest.mark.parametrize("argv", [["router", "--help"],
+                                  ["fleetobs", "stitch", "--spool", "."],
+                                  ["router", "--device", "cpu"]])
+def test_router_and_fleetobs_entry_points_import_no_torch(argv, tmp_path):
+    """``python -m avenir_tpu_torch router|fleetobs ...`` through the
+    command line: no torch module is imported (``-X importtime`` lists
+    every import), and ``--device`` is refused."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    run = subprocess.run([sys.executable, "-X", "importtime", "-m",
+                          "avenir_tpu_torch"] + argv, cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    imported = [ln.rsplit("|", 1)[-1].strip() for ln in
+                run.stderr.splitlines() if ln.startswith("import time:")]
+    assert "avenir_tpu_torch.cli" in imported
+    assert not [m for m in imported if m == "torch"
+                or m.startswith("torch.")], run.stderr[-2000:]
+    assert run.returncode == (1 if argv[0] == "fleetobs" else 2)
+    if "--device" in argv:
+        assert "takes no --device" in run.stderr
 
 
 @pytest.mark.parametrize("path", _port_sources(),
