@@ -33,6 +33,14 @@ fuse run standalone after it.  ``--profile-dir=<dir>`` records the whole
 job (or ``multi`` run) with ``torch.profiler`` and writes its Chrome trace
 into ``<dir>``.
 
+``AVENIR_MESH=<data>x<model>`` runs a job (its ``run(..., mesh=)``),
+``multi``, ``dag`` and ``serve`` on ``parallel.mesh.get_mesh()``, as the
+reference's jobs do: on a card, a data x model grid over every visible
+card (data x model must equal their count); with ``--device cpu``, the
+CPU named data x model times (the counterpart of the reference's virtual
+host devices; every position computes on the one CPU).  Unset, they run
+on the one device of ``--device``.
+
 ``--resume`` sets ``checkpoint.resume=true``: a streaming job restarts
 from its sidecar checkpoint when one exists (core.checkpoint).
 ``--trace <out.json>`` turns the tracer on and writes its spans as
@@ -47,6 +55,7 @@ from __future__ import annotations
 
 import contextlib
 import importlib
+import inspect
 import os
 import sys
 from typing import Callable, Dict, Optional
@@ -164,6 +173,23 @@ def job_resolver(device=None) -> Callable:
         return factory, resolve(cls_name)[2]
     resolver.device = device
     return resolver
+
+
+def cli_mesh(device=None):
+    """The mesh a command runs on: ``parallel.mesh.get_mesh(device)`` when
+    ``AVENIR_MESH`` is set, else None (the one device of ``--device``)."""
+    if not os.environ.get("AVENIR_MESH"):
+        return None
+    from .parallel.mesh import get_mesh
+    return get_mesh(device)
+
+
+def run_mesh(device=None):
+    """``multi``'s and ``dag``'s mesh: ``cli_mesh`` when ``AVENIR_MESH``
+    is set, else the one device of ``--device``."""
+    from .device import resolve_device
+    from .parallel.mesh import make_mesh
+    return cli_mesh(device) or make_mesh([resolve_device(device)])
 
 
 def extract_device_flag(argv):
@@ -315,10 +341,8 @@ def multi_main(argv) -> int:
         config.set("checkpoint.resume", "true")
     from .core import obs, telemetry
     from .core.multiscan import run_multi
-    from .device import resolve_device
     from .fleetobs.publisher import publisher_for_job
-    from .parallel.mesh import make_mesh
-    mesh = make_mesh([resolve_device(device)])
+    mesh = run_mesh(device)
     obs.configure_from_config(config, force_enable=bool(trace_path))
     # before configure_resilience: the publisher routes flight.dump.dir
     # into the spool feed when fleetobs.spool.dir is set
@@ -376,10 +400,8 @@ def dag_main(argv) -> int:
         config.set("checkpoint.resume", "true")
     from .core import obs, telemetry
     from .core.dag import run_workflow
-    from .device import resolve_device
     from .fleetobs.publisher import publisher_for_job
-    from .parallel.mesh import make_mesh
-    mesh = make_mesh([resolve_device(device)])
+    mesh = run_mesh(device)
     obs.configure_from_config(config, force_enable=bool(trace_path))
     # before configure_resilience: the publisher routes flight.dump.dir
     # into the spool feed when fleetobs.spool.dir is set
@@ -444,6 +466,11 @@ def main(argv: Optional[list] = None) -> int:
               "<dir> [--trace-id X] [--out f.json]\n"
               "       python -m avenir_tpu_torch router "
               "-Drouter.backends=host:p1,host:p2 [-Drouter.port=N]\n"
+              "AVENIR_MESH=<data>x<model> runs a job, multi, dag and serve "
+              "on a device mesh: data x model grid over every visible card "
+              "(data*model == card count); with --device cpu, the CPU named "
+              "data*model times (every position computes on the one CPU).  "
+              "Unset: the one device of --device.\n"
               "known jobs:\n  " + "\n  ".join(sorted(JOBS)), file=sys.stderr)
         return 2
     job_name, rest = argv[0], argv[1:]
@@ -494,10 +521,16 @@ def main(argv: Optional[list] = None) -> int:
     from .core import obs
     obs.configure_from_config(config, force_enable=bool(trace_path))
     configure_resilience(config)
-    job = job_class(job_name)(config, device=device)
+    mesh = cli_mesh(device)
+    job = job_class(job_name)(config, device=(
+        device if mesh is None else mesh.devices.flat[0]))
+    # the streaming topology's run is a long-lived event loop that takes
+    # no mesh, as the reference's
+    on_mesh = ({"mesh": mesh} if mesh is not None and "mesh" in
+               inspect.signature(job.run).parameters else {})
     try:
         with profiled(profile_dir):
-            result = job.run(positional[0], positional[1])
+            result = job.run(positional[0], positional[1], **on_mesh)
     finally:
         _export_trace(trace_path)
     if isinstance(result, Counters):

@@ -40,10 +40,10 @@ such a chain as one declared DAG:
   ``checkpoint.interval.chunks`` sidecar survived.
 
 Stages run on the device of the resolver that builds them (the CLI's
-``job_resolver(device)``) and under the workflow's ``mesh``
-(``multiscan.run_standalone``'s rule for solo stages): a solo stage whose
-job has no multi-device form raises ``NotImplementedError`` on a mesh of
-several positions; it never falls back to one device.
+``job_resolver(device)``) and under the workflow's ``mesh``: a same-input
+group's shared scan folds over the mesh, and a solo stage runs its job
+with ``mesh=`` (``multiscan.run_standalone``); a mesh of several positions
+never falls back to one device.
 
 Built-in stage classes (only inside a workflow manifest):
 
@@ -217,10 +217,8 @@ class RegistryPublish:
 
     @traced_run
     def run(self, in_path: str, out_path: str, mesh=None) -> Counters:
-        from ..device import one_device_mesh
         from ..serve.registry import ModelRegistry
 
-        device = one_device_mesh(mesh, self.device, "RegistryPublish")
         cfg = self.config
         counters = Counters()
         name = cfg.must("publish.model.name")
@@ -234,7 +232,8 @@ class RegistryPublish:
                 props.setdefault(f"serve.model.{name}.{k}", v)
         props.setdefault(f"serve.model.{name}.bayesian.model.file.path",
                          in_path)
-        registry = ModelRegistry(JobConfig(props), device=device)
+        registry = ModelRegistry(JobConfig(props), device=self.device,
+                                 mesh=mesh)
         entry = registry.load(name,
                               warmup=cfg.get_boolean("publish.warmup",
                                                      False))

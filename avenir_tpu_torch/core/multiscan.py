@@ -47,7 +47,6 @@ Markov spec sets it) and ignored.
 
 from __future__ import annotations
 
-import inspect
 import os
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -548,15 +547,10 @@ def load_manifest(config: JobConfig, out_base: Optional[str],
 
 def run_standalone(job, in_path: str, out_path: str, mesh=None):
     """``job.run`` on its own scan: on the job's device for no mesh or a
-    mesh of one position, else with ``mesh=``.  A job whose ``run``
-    has no mesh form raises ``NotImplementedError`` for a larger mesh
-    (ROADMAP queue 1 item 6), as the streamed paths that refuse one do."""
+    mesh of one position, else with ``mesh=`` (every job's ``run`` takes
+    one, as the reference's standalone re-run passes it)."""
     if mesh is None or mesh.size == 1:
         return job.run(in_path, out_path)
-    if "mesh" not in inspect.signature(job.run).parameters:
-        raise NotImplementedError(
-            f"{type(job).__name__} runs on one device; a mesh of "
-            f"{mesh.size} positions is not ported yet")
     return job.run(in_path, out_path, mesh=mesh)
 
 

@@ -1,5 +1,6 @@
-"""Chunked ingest on one device: host chunks -> pinned staging ->
-non-blocking host-to-device copy -> in-place count fold.
+"""Chunked ingest: host chunks -> pinned staging -> non-blocking
+host-to-device copy -> in-place count fold, on one device or over the
+positions of a mesh.
 
 The port's counterpart of ``avenir_tpu/core/pipeline.py``.  The input
 streams through in row chunks; with ``pipeline.prefetch.depth`` d >= 1 a
@@ -13,8 +14,8 @@ The fold keeps the reference's contract: every consumer exposes
 ``carry = sum over chunks of local_fn(chunk)``, so the count tables are
 bit-identical to the one-shot pass (integer adds commute).  The reference
 pads chunks to a fixed capacity so XLA compiles one shape; PyTorch runs
-eagerly, so the port does not pad, and ``mask`` is None (every row
-valid).
+eagerly, so the port does not pad on one device, and ``mask`` is None
+(every row valid).
 
 The resilience hooks are the reference's: ``chunk_faults`` applies the
 fault plan (core.faultinject) to each byte chunk, ``ChunkTransfer`` fires
@@ -27,13 +28,14 @@ per transfer, ``ingest.fold`` per fold (the shared scan names its folds
 ``multiscan.fold``), ``checkpoint.save`` per save, and the
 ``ingest.prefetch.queue.depth`` gauge.
 
-The shared scan (core.multiscan) reads the input as raw byte chunks
-(:func:`iter_byte_chunks_meta`, the boundaries of ``row_chunk_ends``) and
-folds each job's chunk through its own :class:`ChunkFold`, whose carry may
-be one table or a dict of them; with a mesh of several positions
-(``ChunkFold(mesh=)``, ``ChunkTransfer(mesh=)``) a chunk's rows pad to the
-position count and every position folds its share, summed by the mesh's
-``psum``.
+With a mesh of several positions (``streaming_fold(mesh=)``, built on
+``ChunkTransfer(mesh=)`` and ``ChunkFold(mesh=)``) a chunk's rows pad to
+the position count, every position folds its share with its validity
+mask, and the shares are summed by the mesh's ``psum`` into the carry on
+the mesh's first device.  The shared scan (core.multiscan) reads the input
+as raw byte chunks (:func:`iter_byte_chunks_meta`, the boundaries of
+``row_chunk_ends``) and folds each job's chunk through its own
+:class:`ChunkFold`, whose carry may be one table or a dict of them.
 
 Two pieces of the reference's module are not copied.  ``HostStager``
 guards host buffers against XLA's zero-copy aliasing of a ``device_put``;
@@ -472,14 +474,18 @@ class ChunkFold:
     Every later chunk calls ``local_fn(..., out=carry)``, which adds into
     the carry in place.  (The reference donates the carry buffer to a
     jitted ``carry + psum(...)`` to get the same in-place accumulate.)
-    ``broadcast`` are device tensors passed to every call after the mask,
+    ``broadcast`` are tensors passed to every call after the mask,
     before the static arguments, as the reference's ``broadcast_args``.
 
     With a ``mesh`` of several positions (chunks from
-    ``ChunkTransfer(mesh=)``) every position runs ``local_fn`` on its
-    rows with its mask, the mesh's ``psum`` sums the tables onto the
-    mesh's first device, and the sum is added into the carry there
-    (``ops.counting.sharded_reduce_resident``).
+    ``ChunkTransfer(mesh=)``) each ``broadcast`` tensor is copied once to
+    every device of the mesh (``parallel.mesh.replicate``), every position
+    runs ``local_fn`` on its rows with its mask and its copies, the mesh's
+    ``psum`` sums the tables onto the mesh's first device, and the sum is
+    added into the carry there (``ops.counting.sharded_reduce_resident``).
+    The carry lives on that device, so ``seed`` and ``snapshot`` work as
+    on one device, and a snapshot holds the carry with the chunk's sum
+    added.
 
     Each fold is a ``span_name`` span (``ingest.fold``; the shared scan
     names its ``multiscan.fold``) with ``span_attrs``."""
@@ -496,9 +502,10 @@ class ChunkFold:
             device = mesh.devices.flat[0]
         self.device = device
         self.broadcast = tuple(broadcast)
-        if self.mesh is not None and self.broadcast:
-            raise ValueError("broadcast arguments are not ported to a mesh "
-                             "of several positions")
+        if self.mesh is not None:
+            from ..parallel.mesh import replicate
+            self.broadcast = tuple(replicate(b, self.mesh)
+                                   for b in self.broadcast)
         self.tracer = tracer or get_tracer()
         self.parent = parent
         self.span_name = span_name
@@ -564,7 +571,7 @@ class ChunkFold:
                 from ..ops.counting import sharded_reduce_resident
                 part = sharded_reduce_resident(
                     self.local_fn, *arrays, mask=mask, mesh=self.mesh,
-                    static_args=self.static_args)
+                    static_args=self.static_args, broadcast=self.broadcast)
                 if self.carry is None:
                     self.carry = part
                 else:
@@ -637,9 +644,10 @@ def streaming_fold(chunks: Iterable, local_fn: Callable,
                    broadcast_args: Sequence[np.ndarray] = (),
                    device: Optional[torch.device] = None,
                    prefetch_depth: int = DEFAULT_PREFETCH_DEPTH,
-                   checkpointer=None, initial_carry=None
+                   checkpointer=None, initial_carry=None, mesh=None
                    ) -> Optional[np.ndarray]:
-    """Fold row chunks into one count table on ``device``.
+    """Fold row chunks into one count table on ``device``, or over
+    ``mesh``.
 
     ``chunks`` yields tuples of host arrays sharing a leading row count;
     per-chunk host work (parsing, binning, moments, cap guards) belongs in
@@ -656,14 +664,27 @@ def streaming_fold(chunks: Iterable, local_fn: Callable,
     carry is snapshotted and, one consume later, handed with the token to
     ``checkpointer.save``.  ``initial_carry`` (a host table from a loaded
     checkpoint) seeds the fold, so a resumed stream, empty when the kill
-    came after the last chunk, continues from the checkpointed state."""
+    came after the last chunk, continues from the checkpointed state.
+
+    With a ``mesh`` of several positions (the reference's form) each
+    chunk's rows pad to the position count and shard over every position
+    (``ChunkTransfer(mesh=)``), the broadcast arguments are copied once to
+    each device, and each chunk's tables are summed by the mesh's ``psum``
+    into the carry on the mesh's first device (``ChunkFold(mesh=)``); the
+    result equals the one-device fold's.  A mesh of one position folds on
+    that position's device: the one-device path, with its pinned
+    staging."""
+    if mesh is not None:
+        device = mesh.devices.flat[0]
+        mesh = mesh if _sharded(mesh) else None
     tracer = get_tracer()
     parent = tracer.current_span_id()
-    transfer = ChunkTransfer(device, tracer=tracer)
+    transfer = ChunkTransfer(device, tracer=tracer, mesh=mesh)
     broadcast = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
                       for a in broadcast_args)
     cf = ChunkFold(local_fn, static_args=static_args, device=device,
-                   tracer=tracer, parent=parent, broadcast=broadcast)
+                   tracer=tracer, parent=parent, broadcast=broadcast,
+                   mesh=mesh)
     if initial_carry is not None:
         cf.seed(initial_carry)
     saver = (AsyncCheckpointSaver(checkpointer, tracer, ChunkFold.host_copy)

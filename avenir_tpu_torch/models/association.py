@@ -38,8 +38,8 @@ emission) is a copy of the reference's.  The device half is written anew:
   the shards' products are summed by ``parallel.mesh.psum``.
 - ``pipeline.chunk.rows``: the incidence streams through
   ``core.pipeline.streaming_fold`` in row chunks with the candidate index
-  as a broadcast argument, on the job's device (the streamed path takes
-  no mesh yet).
+  as a broadcast argument, on the job's device or with each chunk's rows
+  sharded over every position of the mesh.
 """
 
 from __future__ import annotations
@@ -451,25 +451,27 @@ class FrequentItemsApriori:
                           mesh, chunk_rows, depth):
         """Candidate supports by streaming incidence ROW chunks through
         ``core.pipeline``: chunk c+1's build and copy overlap chunk c's
-        product, and only (depth + 2) chunks are ever resident."""
+        product, and only (depth + 2) chunks are ever resident.  On a mesh
+        each chunk's rows shard over every position (each holds
+        ``ceil(chunk_rows / d)`` of them, the candidates' chunk size) and
+        the candidates are a broadcast argument, copied once to each
+        device."""
         from ..core import pipeline
 
-        if mesh.size != 1:
-            raise NotImplementedError(
-                "the streamed Apriori support (pipeline.chunk.rows) runs on "
-                "one device; a mesh of several positions is not ported yet")
-        device = mesh.devices.flat[0]
         n_s = sets_idx.shape[0]
-        nt_loc = max(min(chunk_rows, max(n_rows, 1)), 1)
+        nt_loc = max(-(-min(chunk_rows, max(n_rows, 1)) // mesh.size), 1)
 
         def chunks():
             for start in range(0, n_rows, chunk_rows):
                 yield (inc_chunk(start, min(start + chunk_rows, n_rows)),)
 
+        # each position's product, the mesh's psum of them and the carry
+        # are float32 sums of 0/1 products: exact integers below 2^24
+        # rows, a shard's and the whole input's
         co = pipeline.streaming_fold(
             chunks(), _apriori_chunk_support_local,
             broadcast_args=(self._candidate_chunks(sets_idx, nt_loc, k),),
-            device=device, prefetch_depth=depth)
+            mesh=mesh, prefetch_depth=depth)
         if co is None:
             return np.zeros((n_s, V_eff), dtype=np.float32)
         return co[:n_s]

@@ -1,4 +1,5 @@
-"""Naive Bayes: distribution trainer + batch predictor on one CUDA card.
+"""Naive Bayes: distribution trainer + batch predictor on a CUDA card or
+over the positions of a device mesh.
 
 The port's counterpart of ``avenir_tpu/models/bayesian.py`` (tabular
 mode).  The model text format and every output byte are the reference's:
@@ -36,6 +37,15 @@ writes the parse-once ingest cache (core.ingestcache), and later runs
 replay its mmapped matrices instead of parsing; the warm fold bins inside
 the count with kernel K2 (``ops.counting.feature_class_counts_rawbin``).
 
+Every job takes ``mesh=`` as the reference's does: training (monolithic,
+streamed cold and warm, text mode) pads and shards each chunk's rows over
+every mesh position and sums the positions' tables with the mesh's
+``psum`` (``core.pipeline.streaming_fold(mesh=)``,
+``ops.counting.sharded_reduce(mesh=)``), and scoring shards the rows over
+the mesh's ``data`` axis and scores each shard on its own device.  Counts
+are integers and scoring is row-local, so every output byte equals the
+one-device run's.
+
 Float32 matrix products never run here: the bin pick is a gather, which
 is exact, so TF32 cannot round it.  The float64 factors use XLA's float64
 ``exp`` and the float32 log-space sums XLA's float32 ``log``, its
@@ -68,7 +78,7 @@ from ..core.multiscan import FoldSpec as MultiScanFoldSpec
 from ..core.obs import get_tracer, traced_run
 from ..core.schema import FeatureSchema
 from ..convert import predictor_tables_to_device
-from ..device import one_device_mesh, resolve_device
+from ..device import resolve_device
 from ..ops.counting import (feature_class_counts,
                             feature_class_counts_rawbin, sharded_reduce)
 from ..ops.xla_math import exp_f64, fma_f32, log_f32
@@ -370,25 +380,24 @@ class BayesianDistribution:
 
     @traced_run
     def run(self, in_path: str, out_path: str, mesh=None) -> Counters:
-        """Train on ``in_path`` and write the model.  ``mesh`` may be
-        None or one position on this job's device (the streamed fold has
-        no multi-device form yet)."""
-        one_device_mesh(mesh, self.device, "BayesianDistribution")
+        """Train on ``in_path`` and write the model: on this job's device,
+        or with ``mesh`` over its positions (a mesh of one position is
+        its device)."""
         counters = Counters()
         delim_in = self.config.field_delim_regex()
         delim = self.config.field_delim_out()
         if not self.tabular:
             return self._run_text(in_path, out_path, counters, delim_in,
-                                  delim)
+                                  delim, mesh)
         tracer = get_tracer()
         with tracer.span("phase:train"):
             lines = self._train_streamed(in_path, delim_in, delim, counters,
-                                         out_path=out_path)
+                                         mesh, out_path=out_path)
             if lines is None:
                 with tracer.span("phase:load"):
                     ds = self._encode_monolithic(in_path, out_path, delim_in,
                                                  counters)
-                lines = self.train_lines(ds, delim, counters)
+                lines = self.train_lines(ds, delim, counters, mesh=mesh)
         with tracer.span("phase:emit"):
             write_output(out_path, lines)
         return counters
@@ -421,7 +430,8 @@ class BayesianDistribution:
         return enc.encode(good)
 
     def _train_streamed(self, in_path: str, delim_in: str, delim: str,
-                        counters: Counters, out_path: Optional[str] = None
+                        counters: Counters, mesh=None,
+                        out_path: Optional[str] = None
                         ) -> Optional[List[str]]:
         """Chunked training through ``core.pipeline``: the C encode,
         guards and host moments of chunk c+1 run on the prefetch worker
@@ -432,7 +442,9 @@ class BayesianDistribution:
         Count and class extents are capped from the schema and the first
         chunk; data that overflows a cap, a negative bin or an input the
         chunked encoder cannot take returns None, and the caller re-runs
-        the one-shot encode, so results always equal it.
+        the one-shot encode, so results always equal it.  With a ``mesh``
+        of several positions each chunk's rows shard over its positions
+        (``streaming_fold(mesh=)``).
 
         With the ingest cache enabled, a validated artifact for this input,
         encoder, delimiter and ``chunk_rows`` is replayed instead
@@ -493,7 +505,7 @@ class BayesianDistribution:
             scan = cache.load(chunk_rows)
             if scan is not None:
                 lines = self._train_warm(scan, enc, st, counters, delim,
-                                         quarantine)
+                                         quarantine, mesh)
                 if lines is not None and ck is not None:
                     ck.complete()
                 return lines
@@ -542,7 +554,7 @@ class BayesianDistribution:
             total = pipeline.streaming_fold(
                 chunks(), _nb_local,
                 static_args=(st.n_class_cap, st.bins_cap),
-                device=self.device, prefetch_depth=depth,
+                device=self.device, mesh=mesh, prefetch_depth=depth,
                 checkpointer=ck, initial_carry=initial_carry)
         except ChunkedEncodeUnsupported:
             if builder is not None:
@@ -567,7 +579,7 @@ class BayesianDistribution:
 
     def _train_warm(self, scan, enc: DatasetEncoder, st: _NBStreamState,
                     counters: Counters, delim: str,
-                    quarantine=None) -> Optional[List[str]]:
+                    quarantine=None, mesh=None) -> Optional[List[str]]:
         """The warm half of ``_train_streamed``: replay the cache
         artifact's recorded chunks off mmap, with no parse and no encode,
         through the same stream state (caps, guards, host moments,
@@ -610,12 +622,12 @@ class BayesianDistribution:
                     chunks(), _nb_local_rawbin,
                     static_args=(st.n_class_cap, st.bins_cap,
                                  rawbin_widths(enc)),
-                    device=self.device, prefetch_depth=depth)
+                    device=self.device, mesh=mesh, prefetch_depth=depth)
             else:
                 total = pipeline.streaming_fold(
                     chunks(), _nb_local,
                     static_args=(st.n_class_cap, st.bins_cap),
-                    device=self.device, prefetch_depth=depth)
+                    device=self.device, mesh=mesh, prefetch_depth=depth)
         except ChunkedEncodeUnsupported:
             return None
         if total is None:
@@ -663,9 +675,10 @@ class BayesianDistribution:
         return _NBFoldSpec(self, out_path)
 
     def train_lines(self, ds: EncodedDataset, delim: str,
-                    counters: Counters) -> List[str]:
+                    counters: Counters, mesh=None) -> List[str]:
         """The one-shot pass: count the whole encoded dataset on the
-        device and emit reference-format lines."""
+        device, or sharded over ``mesh``, and emit reference-format
+        lines."""
         n_class = len(ds.class_vocab)
         F = ds.n_features
         max_bins = max([b for b in ds.num_bins] + [1])
@@ -675,8 +688,10 @@ class BayesianDistribution:
             xs = xs.astype(np.int8)
         if n_class <= 127:
             ys = ys.astype(np.int8)
-        counts = sharded_reduce(_nb_local, xs, ys, device=self.device,
-                                static_args=(n_class, max_bins)).cpu().numpy()
+        kw = {"mesh": mesh} if mesh is not None else {"device": self.device}
+        counts = sharded_reduce(_nb_local, xs, ys,
+                                static_args=(n_class, max_bins),
+                                **kw).cpu().numpy()
         moments = _host_moments(ds.values, ds.y, n_class, cont_cols)
         return self._emit_model_lines(ds, counts, moments, delim, counters)
 
@@ -775,7 +790,7 @@ class BayesianDistribution:
     TEXT_ORDINAL = 1   # fixed featureAttrOrdinal (BayesianDistribution.java:121)
 
     def _run_text(self, in_path: str, out_path: str, counters: Counters,
-                  delim_in: str, delim: str) -> Counters:
+                  delim_in: str, delim: str, mesh=None) -> Counters:
         """``tabular.input=false``: each record is ``text<delim>classVal``;
         tokens are counted as binned feature values of ordinal 1
         (BayesianDistribution.java:187-196).  Tokenizing and the token
@@ -799,10 +814,12 @@ class BayesianDistribution:
                     cls_ids.append(cv)
             x = np.asarray(tok_ids, dtype=np.int32)[:, None]
             y = np.asarray(cls_ids, dtype=np.int32)
+            kw = ({"mesh": mesh} if mesh is not None
+                  else {"device": self.device})
             counts = sharded_reduce(
-                _nb_local, x, y, device=self.device,
-                static_args=(len(class_vocab), max(len(vocab), 1))
-            ).cpu().numpy()
+                _nb_local, x, y,
+                static_args=(len(class_vocab), max(len(vocab), 1)),
+                **kw).cpu().numpy()
 
         with tracer.span("phase:emit"):
             lines: List[str] = []
@@ -1232,21 +1249,46 @@ class BayesianPredictor:
                 "n_healthy": int(healthy.sum()),
                 "n_tail": int((~healthy).sum())}
 
-    def score(self, records):
+    def score(self, records, mesh=None):
         """Encode ``records`` and score them on the device with the
         configured precision; returns ``(ds, tables, probs, feat_prior,
-        feat_post)`` with host numpy results."""
+        feat_post)`` with host numpy results.
+
+        With a ``mesh`` (the reference's form, ``shard_map`` over
+        ``data``) the rows pad to a multiple of the ``data`` axis's size
+        and each data shard is scored once, on the device of its first
+        position, against that device's copy of the tables; the other
+        positions of a data shard, along ``model``, would hold replicas
+        and score nothing more.  The scoring is row-local, so the result,
+        cut back to the records, equals the one-device result byte for
+        byte."""
+        from ..parallel.mesh import pad_rows, shard_rows
+
         ds = DatasetEncoder(self.schema).encode(records)
         tables = self._build_tables(ds)
         score_fn = (self._score_batch_f32
                     if self.score_precision == "float32"
                     else self._score_batch)
-        dev = self.device
-        probs, feat_prior, feat_post = score_fn(
-            torch.from_numpy(ds.x).to(dev), torch.from_numpy(ds.values).to(dev),
-            *predictor_tables_to_device(tables, dev))
-        return (ds, tables, probs.cpu().numpy(), feat_prior.cpu().numpy(),
-                feat_post.cpu().numpy())
+        n = ds.x.shape[0]
+        if mesh is None or mesh.shape["data"] == 1:
+            dev = self.device if mesh is None else mesh.devices.flat[0]
+            shards = [(torch.from_numpy(ds.x).to(dev),
+                       torch.from_numpy(ds.values).to(dev))]
+        else:
+            d = mesh.shape["data"]
+            shards = zip(shard_rows(pad_rows(ds.x, d)[0], mesh),
+                         shard_rows(pad_rows(ds.values, d)[0], mesh))
+        tables_on = {}
+        outs = []
+        for x, values in shards:
+            if x.device not in tables_on:
+                tables_on[x.device] = predictor_tables_to_device(tables,
+                                                                 x.device)
+            outs.append(score_fn(x, values, *tables_on[x.device]))
+        probs, feat_prior, feat_post = (
+            torch.cat([o[i].cpu() for o in outs]).numpy()[:n]
+            for i in range(3))
+        return ds, tables, probs, feat_prior, feat_post
 
     def score_text(self, records):
         """Text mode (``tabular.input=false``): each record's tokens scored
@@ -1272,9 +1314,9 @@ class BayesianPredictor:
 
     @traced_run
     def run(self, in_path: str, out_path: str, mesh=None) -> Counters:
-        """Score ``in_path`` and write one prediction line per record.
-        ``mesh`` may be None or one position on this job's device."""
-        one_device_mesh(mesh, self.device, "BayesianPredictor")
+        """Score ``in_path`` and write one prediction line per record: on
+        this job's device, or with ``mesh`` one data shard of the rows on
+        each device of its ``data`` axis (:meth:`score`)."""
         counters = Counters()
         delim_regex = self.config.field_delim_regex()
         delim = self.config.field_delim_out()
@@ -1284,7 +1326,7 @@ class BayesianPredictor:
             probs, feat_prior, feat_post = self.score_text(records)
             actuals = [items[1] for items in records]
         else:
-            _, _, probs, feat_prior, feat_post = self.score(records)
+            _, _, probs, feat_prior, feat_post = self.score(records, mesh)
             cls_ord = self.schema.class_attr_field().ordinal
             actuals = [r[cls_ord] for r in records]
         out = self.emit_lines(raw_lines, records, actuals, probs, feat_prior,

@@ -137,7 +137,9 @@ class AgglomerativeGraphical:
         return "%032x" % self.rng.getrandbits(128)
 
     @traced_run
-    def run(self, in_path: str, out_path: str) -> Counters:
+    def run(self, in_path: str, out_path: str, mesh=None) -> Counters:
+        # ``mesh`` is taken, as every job's run takes one, and not used:
+        # this job runs on the host, as the reference's does
         counters = Counters()
         delim_regex = self.config.field_delim_regex()
         delim = self.config.field_delim_out()

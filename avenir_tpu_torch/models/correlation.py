@@ -330,8 +330,8 @@ class NumericalCorrelation:
 
 
 class NumericalAttrStatsManager:
-    """Reader for the stats file of chombo's ``NumericalAttrStats`` (the
-    reference's ``models.discriminant``, not ported yet)."""
+    """Reader for the stats file of chombo's ``NumericalAttrStats``
+    (``models.discriminant``, which writes it)."""
 
     def __init__(self, path: str, delim: str = ","):
         self.stats = {}

@@ -210,7 +210,9 @@ class FeatureCondProbJoiner:
         self.device = resolve_device(device)
 
     @traced_run
-    def run(self, in_path: str, out_path: str) -> Counters:
+    def run(self, in_path: str, out_path: str, mesh=None) -> Counters:
+        # ``mesh`` is taken, as every job's run takes one, and not used:
+        # this job runs on the host, as the reference's does
         counters = Counters()
         delim_regex = self.config.field_delim_regex()
         delim = self.config.field_delim_out()
@@ -431,7 +433,9 @@ class NearestNeighbor:
         return delim.join(parts), predicted
 
     @traced_run
-    def run(self, in_path: str, out_path: str) -> Counters:
+    def run(self, in_path: str, out_path: str, mesh=None) -> Counters:
+        # ``mesh`` is taken, as every job's run takes one, and not used:
+        # this job runs on the host, as the reference's does
         counters = Counters()
         delim_regex = self.config.field_delim_regex()
         ccw = self.class_cond_weighted

@@ -10,8 +10,9 @@ config keys, input layouts and output bytes:
   counts are one ``count_table`` over every adjacent pair, on the job's
   device or summed over a mesh (``ops.counting.sharded_reduce``); with
   ``pipeline.chunk.rows`` the pairs stream through
-  ``core.pipeline.streaming_fold`` (and through the pair cache of
-  ``core.ingestcache`` when ``ingest.cache.enable`` is on).
+  ``core.pipeline.streaming_fold``, on the device or over the mesh (and
+  through the pair cache of ``core.ingestcache`` when
+  ``ingest.cache.enable`` is on).
 - ``MarkovModelClassifier`` sums ``log(P_c0[from, to] / P_c1[from, to])``
   over each sequence and thresholds it.  The reference takes the log of
   the model's own tables on the device, so its bits are XLA's: glibc's
@@ -34,9 +35,8 @@ config keys, input layouts and output bytes:
   ``jnp.argmax`` and the reference's strict ``>``), then the backtrack.
 
 Every job takes a ``device`` (``cuda:0`` unless the caller asks for the
-CPU).  The trainer's ``fold_spec`` exports its part of a shared scan
-(core.multiscan, ``_MarkovFoldSpec``).  Not ported yet: ``mesh=`` on the
-streamed trainer.
+CPU) and its ``run`` a ``mesh``.  The trainer's ``fold_spec`` exports its
+part of a shared scan (core.multiscan, ``_MarkovFoldSpec``).
 """
 
 from __future__ import annotations
@@ -266,15 +266,6 @@ class MarkovStateTransitionModel:
             lines.extend(serialize_matrix(normalize_rows(counts, scale)))
         return lines
 
-    def _stream_device(self, mesh) -> torch.device:
-        if mesh is None:
-            return self.device
-        if mesh.size != 1:
-            raise NotImplementedError(
-                "the streamed Markov trainer (pipeline.chunk.rows) runs on "
-                "one device; a mesh of several positions is not ported yet")
-        return mesh.devices.flat[0]
-
     def _count_streamed(self, in_path, delim_regex, vocab, S, eff_skip,
                         class_ord, chunk_rows, depth, mesh):
         """One streaming pass over row chunks: per chunk the trailing
@@ -287,7 +278,6 @@ class MarkovStateTransitionModel:
         from ..core import ingestcache, pipeline
         from ..core.binning import ChunkedEncodeUnsupported
 
-        device = self._stream_device(mesh)
         # parse-once cache: the flattened pair streams are this job's whole
         # parse product, so a validated artifact replays them off mmap
         # chunk for chunk with the recorded class labels; counts truncate
@@ -304,7 +294,7 @@ class MarkovStateTransitionModel:
                 (tuple(np.asarray(a) for a in ch)
                  for ch in cached.chunks()),
                 _markov_pair_local, static_args=(n_class_cap, S),
-                device=device, prefetch_depth=depth)
+                device=self.device, mesh=mesh, prefetch_depth=depth)
             return self._streamed_result(counts, class_labels, class_ord, S)
         builder = pcache.builder(chunk_rows) if pcache is not None else None
 
@@ -347,7 +337,7 @@ class MarkovStateTransitionModel:
                 cap[0] = n_class_cap = max(len(class_labels), 1) + 2
             counts = pipeline.streaming_fold(
                 stream, _markov_pair_local, static_args=(n_class_cap, S),
-                device=device, prefetch_depth=depth)
+                device=self.device, mesh=mesh, prefetch_depth=depth)
         except ChunkedEncodeUnsupported:
             if builder is not None:
                 builder.abort()

@@ -16,16 +16,17 @@ With ``pipeline.chunk.rows`` the input streams in row chunks through
 ``ingest.cache.enable`` through the parse-once cache
 (``core.ingestcache``); a chunk the streamed path cannot take (a late
 class, a bin beyond the cap, a negative bin) makes the job re-run the
-one-shot encode, so the bytes never depend on the path.  The streamed
-path runs on one device and refuses a mesh of several positions.
+one-shot encode, so the bytes never depend on the path.  With a mesh
+the streamed path shards every chunk's rows over the mesh's positions
+and sums both tables with its ``psum`` (``streaming_fold(mesh=)``).
 ``check_pair_table_budget`` refuses a schema whose pair table would
 exceed ``pipeline.device.budget.bytes`` before any input is read.
 
 ``fold_spec`` exports the job's part of a shared scan (core.multiscan):
 ``_MIFoldSpec`` shares the schema encode and the copy with co-registered
-jobs on the same schema file, and folds both tables, a dict carry.  Not
-ported yet: ``parse_scores`` (the DAG's artifact import), which waits for
-``core/dag.py``.
+jobs on the same schema file, and folds both tables, a dict carry.
+``parse_scores`` reads a written ranking back (the DAG's artifact
+import).
 """
 
 from __future__ import annotations
@@ -302,15 +303,6 @@ class MutualInformation:
             write_output(out_path, lines)
         return counters
 
-    def _stream_device(self, mesh) -> torch.device:
-        if mesh is None:
-            return self.device
-        if mesh.size != 1:
-            raise NotImplementedError(
-                "the streamed MI job (pipeline.chunk.rows) runs on one "
-                "device; a mesh of several positions is not ported yet")
-        return mesh.devices.flat[0]
-
     def _run_streamed(self, enc: DatasetEncoder, in_path, out_path, cfg,
                       delim, counters: Counters, mesh, chunk_rows: int,
                       depth: int) -> Optional[Counters]:
@@ -331,7 +323,6 @@ class MutualInformation:
         from ..core import ingestcache, pipeline
         from ..core.binning import ChunkedEncodeUnsupported
 
-        device = self._stream_device(mesh)
         delim_regex = cfg.field_delim_regex()
         st = _MIStreamState(enc)
         cache = ingestcache.IngestCache.from_config(cfg, in_path, enc,
@@ -375,7 +366,7 @@ class MutualInformation:
                 stream, _mi_local,
                 static_args=(st.caps["C"], st.caps["B"],
                              st.pair_i, st.pair_j),
-                device=device, prefetch_depth=depth)
+                device=self.device, mesh=mesh, prefetch_depth=depth)
         except ChunkedEncodeUnsupported:
             if builder is not None:
                 builder.abort()

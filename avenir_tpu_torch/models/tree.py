@@ -30,8 +30,8 @@ The reference's bf16 one-hot contraction (``count_on_mxu``) was a TPU
 choice and has no counterpart: every count here is ``count_table``, equal
 to both of the reference's branches.  Split selection and the decision
 file stay on the host.  With ``pipeline.chunk.rows`` a level streams
-through ``core.pipeline.streaming_fold`` on one device (a mesh of several
-positions is refused there).
+through ``core.pipeline.streaming_fold``, on the device or over the mesh
+(pass 1's count; pass 2 routes the records on the host).
 
 Documented deviations from the reference (which is unexercised and carries
 several blocking defects in this package):
@@ -724,15 +724,6 @@ class DecisionTreeBuilder:
         write_output(out_path, out_lines)
         return counters
 
-    def _stream_device(self, mesh) -> torch.device:
-        if mesh is None:
-            return self.device
-        if mesh.size != 1:
-            raise NotImplementedError(
-                "the streamed tree level (pipeline.chunk.rows) runs on one "
-                "device; a mesh of several positions is not ported yet")
-        return mesh.devices.flat[0]
-
     def _run_level_streamed(self, in_path: str, out_path: str,
                             counters: Counters, mesh, chunk_rows: int,
                             depth: int) -> Optional[Counters]:
@@ -758,7 +749,6 @@ class DecisionTreeBuilder:
         if self.attr_select_strategy in (self.ATTR_SEL_RANDOM_ALL,
                                          self.ATTR_SEL_RANDOM_NOT_USED_YET):
             return None
-        device = self._stream_device(mesh)
         delim_regex = self.config.field_delim_regex()
         delim = self.config.field_delim_out()
         dpl = DecisionPathList.from_file(self.decision_file)
@@ -827,8 +817,8 @@ class DecisionTreeBuilder:
             if K:
                 counts_sup = pipeline.streaming_fold(
                     stream, _path_pred_class_count_local,
-                    static_args=(a_cap, K, n_class_cap), device=device,
-                    prefetch_depth=depth)
+                    static_args=(a_cap, K, n_class_cap), device=self.device,
+                    mesh=mesh, prefetch_depth=depth)
             else:
                 for _ in stream:      # discovery only; nothing to count
                     pass

@@ -125,16 +125,22 @@ def sharded_reduce(local_fn: Callable, *row_arrays,
 
 
 def sharded_reduce_resident(local_fn: Callable, *row_arrays, mask, mesh,
-                            static_args: tuple = ()):
+                            static_args: tuple = (),
+                            broadcast: Sequence = ()):
     """``sharded_reduce`` for rows already placed: each of ``row_arrays``
     and ``mask`` is one tensor per mesh position (``parallel.shard_rows``
     over ``('data', 'model')`` after ``pad_rows`` to the position count),
     so data that stays on the devices across calls is not moved again.
-    Returns the ``psum`` of the positions' outputs (a tensor, or a tuple,
-    list or dict of tensors) on the mesh's first device."""
+    Each of ``broadcast`` is one tensor per position as well (a
+    ``parallel.replicate`` copy), passed to that position's ``local_fn``
+    after its mask and before ``static_args``, as the reference's
+    ``broadcast_args``.  Returns the ``psum`` of the positions' outputs (a
+    tensor, or a tuple, list or dict of tensors) on the mesh's first
+    device."""
     from ..parallel.mesh import psum
-    outs = [local_fn(*shard, m, *static_args)
-            for *shard, m in zip(*row_arrays, mask)]
+    bcast = list(zip(*broadcast)) or [()] * len(mask)
+    outs = [local_fn(*shard, m, *b, *static_args)
+            for (*shard, m), b in zip(zip(*row_arrays, mask), bcast)]
     first = outs[0]
     if isinstance(first, torch.Tensor):
         return psum(outs)[0]

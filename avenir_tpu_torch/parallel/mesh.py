@@ -110,22 +110,32 @@ def make_mesh(devices: Optional[Sequence] = None, data: Optional[int] = None,
     return Mesh(grid.reshape(data, model))
 
 
-def get_mesh() -> Mesh:
-    """The default mesh: ``AVENIR_MESH=<data>x<model>`` over every visible
-    CUDA card when set (data x model must equal the card count), else one
-    ``cuda:0``.  Raises without a card."""
+def get_mesh(device=None) -> Mesh:
+    """The default mesh: ``AVENIR_MESH=<data>x<model>`` when set, else the
+    one device ``device`` (``cuda:0`` by default).  On CUDA the set form
+    spans every visible card (data x model must equal the card count); on
+    the CPU (``device='cpu'``) it names the CPU data x model times, the
+    counterpart of the reference's virtual host devices.  Raises without
+    a card unless the CPU is asked for."""
+    from ..device import resolve_device
+    dev = resolve_device(device)
     spec = os.environ.get("AVENIR_MESH")
     if not spec:
-        from ..device import resolve_device
-        return make_mesh([resolve_device()])
+        return make_mesh([dev])
     try:
         data_s, model_s = spec.lower().split("x")
-        return make_mesh(data=int(data_s), model=int(model_s))
+        data, model = int(data_s), int(model_s)
+        if dev.type == "cpu":
+            if data < 1 or model < 1:
+                raise ValueError(spec)
+            return make_mesh([dev] * (data * model), data=data, model=model)
+        return make_mesh(data=data, model=model)
     except (ValueError, TypeError) as e:
-        raise ValueError(
-            f"bad AVENIR_MESH={spec!r}; expected <data>x<model> with "
-            f"data*model == device count ({torch.cuda.device_count()})"
-        ) from e
+        count = ("any positive data and model on the CPU" if dev.type == "cpu"
+                 else f"data*model == device count "
+                      f"({torch.cuda.device_count()})")
+        raise ValueError(f"bad AVENIR_MESH={spec!r}; expected "
+                         f"<data>x<model> with {count}") from e
 
 
 def pad_rows(arr: np.ndarray, multiple: int,

@@ -27,7 +27,9 @@ An unknown kind is refused at load, never skipped.
 Every adapter computes on one explicit ``torch.device`` (``cuda:0``
 unless the caller asks for the CPU); a ``None`` device resolves to the
 card and fails when there is none, so a replica never scores on the CPU
-by default.
+by default.  An adapter also takes the registry's ``mesh``: with several
+positions the kNN adapter ranks through ``pairwise_distances(mesh=)`` and
+the bandit adapter builds its store over the mesh; the others ignore it.
 
 Batches are padded to the nearest power-of-two bucket so each scorer
 sees a small fixed set of shapes.  PyTorch runs eagerly, so a "compile"
@@ -246,12 +248,13 @@ class ModelAdapter:
 
     def __init__(self, config: JobConfig, counters: Counters,
                  cache: Optional[ScorerCompileCache] = None,
-                 max_bucket: int = 64, device=None):
+                 max_bucket: int = 64, device=None, mesh=None):
         self.config = config
         self.counters = counters
         self.cache = cache or ScorerCompileCache(counters)
         self.max_bucket = pow2_bucket(max_bucket)
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.delim_regex = config.field_delim_regex()
         self.delim = config.field_delim_out()
 
@@ -516,16 +519,25 @@ class NearestNeighborAdapter(ModelAdapter):
         return self.train.nbytes()
 
     def _distances(self, qnum, qcat):
-        from ..ops.distance import resident_distances
+        from ..ops.distance import pairwise_distances, resident_distances
 
-        # count a "compilation" per first-seen padded query shape, keyed
-        # by the TRAINING-set shape signature (not adapter identity), as
-        # the reference does for its shape-keyed distance compiles
+        # count a "compilation" per first-seen padded query shape (the
+        # queries pad to the mesh's position count), keyed by the
+        # TRAINING-set shape signature (not adapter identity), as the
+        # reference does for its shape-keyed distance compiles
+        d = self.mesh.size if self.mesh is not None else 1
         self.cache.get(
             ("knn-shape", tuple(self.train.tnum.shape),
              tuple(self.train.tcat.shape), self.top_k, self.algorithm,
-             self.scale, self.topk_method, qnum.shape[0]),
+             self.scale, self.topk_method, -(-qnum.shape[0] // d) * d),
             lambda: True)
+        if d > 1:
+            t = self.train
+            return pairwise_distances(
+                qnum, qcat, t.tnum, t.tcat, t.num_weights, t.cat_weights,
+                algorithm=self.algorithm, scale=self.scale,
+                top_k=self.top_k, mesh=self.mesh,
+                topk_method=self.topk_method)
         return resident_distances(
             qnum, qcat, self.train, scale=self.scale, top_k=self.top_k,
             topk_method=self.topk_method)
@@ -774,7 +786,8 @@ class BanditDecisionAdapter(ModelAdapter):
         super().__init__(config, counters, **kw)
         from ..stream.posterior import ensure_store, event_crc
 
-        self.store = ensure_store(config, device=self.device)
+        self.store = ensure_store(config, device=self.device,
+                                  mesh=self.mesh)
         self._crc = event_crc
         self._min_fields = 2
         if self.device.type == "cuda":

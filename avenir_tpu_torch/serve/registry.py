@@ -30,7 +30,11 @@ online path.  Inline ``serve.model.<name>.*`` keys overlay the file —
 e.g. pointing ``bayesian.model.file.path`` at a re-trained artifact
 before a ``reload``.  Every adapter is built on an explicit
 ``torch.device``: the one ``build`` is given (the replica pool assigns
-one per replica), else the registry's.
+one per replica), else the registry's.  A registry built on a ``mesh``
+(``ModelRegistry(config, mesh=)``, the DAG's publish stage) passes it to
+every adapter: the kNN adapter ranks over the mesh and the bandit adapter
+builds its store on it, and the other kinds score on the registry's
+device, the mesh's first, as the reference's adapters ignore it.
 
 Entries are keyed (name, version); ``get(name)`` resolves the latest
 loaded version.  ``reload`` builds a complete new adapter OFF-lock (model
@@ -109,9 +113,11 @@ class ModelEntry:
 class ModelRegistry:
     """Loads/holds the online models; thread-safe lookup + hot swap."""
 
-    def __init__(self, config: JobConfig, device=None):
+    def __init__(self, config: JobConfig, device=None, mesh=None):
         self.config = config
-        self.device = device
+        self.mesh = mesh
+        self.device = (device if device is not None or mesh is None
+                       else mesh.devices.flat[0])
         self.max_batch = config.get_int("serve.batch.max.size", 64)
         buckets = config.get("serve.warmup.buckets")
         self.warmup_buckets = (
@@ -272,7 +278,7 @@ class ModelRegistry:
                                                    tier=self.compile_tier),
                           max_bucket=pow2_bucket(self.max_batch),
                           device=device if device is not None
-                          else self.device)
+                          else self.device, mesh=self.mesh)
         except TornArtifactError as e:
             # manifest validation caught a half-published artifact: name
             # the model so a failed `reload` response is actionable — no

@@ -141,9 +141,9 @@ class PredictionServer:
     completes or deadline-times-out every queued request — nothing is
     silently dropped)."""
 
-    def __init__(self, config: JobConfig, device=None):
+    def __init__(self, config: JobConfig, device=None, mesh=None):
         self.config = config
-        self.registry = ModelRegistry(config, device=device)
+        self.registry = ModelRegistry(config, device=device, mesh=mesh)
         self.timeout = config.get_float("serve.request.timeout.sec", 30.0)
         self.deadline_s = max(
             0.0, config.get_float("serve.request.deadline.ms", 0.0)) / 1000.0
@@ -1272,7 +1272,7 @@ def request_text(host: str, port: int, obj: dict,
 def serve_main(argv) -> int:
     """``python -m avenir_tpu_torch serve -Dconf.path=serve.properties
     [--device cpu|cuda] [--trace out.json] [--metrics-out series.jsonl]``."""
-    from ..cli import (configure_resilience, extract_device_flag,
+    from ..cli import (cli_mesh, configure_resilience, extract_device_flag,
                        extract_metrics_out_flag, extract_trace_flag)
 
     argv, device = extract_device_flag(list(argv))
@@ -1300,7 +1300,7 @@ def serve_main(argv) -> int:
     from ..fleetobs.publisher import publisher_for_job
     publisher = publisher_for_job(config, role="serve")
     configure_resilience(config)
-    server = PredictionServer(config, device=device)
+    server = PredictionServer(config, device=device, mesh=cli_mesh(device))
     if publisher is not None:
         publisher.attach(server.telemetry)
     # started only after the server construction succeeded: a model-load

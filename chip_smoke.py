@@ -139,7 +139,22 @@ path on the card and again on the CPU:
    workflow killed by ``worker_death@5`` in the fused group and resumed
    (``bin`` skipped, the scan resumed mid-file, the clean bytes); K1 at
    the retrain stage's chunk;
-18. ``host_jobs``: the class_balance, event_burst, event_seq_gsp,
+18. ``mesh_jobs``: every job that folds or scores on the device, on a
+   mesh naming cuda:0 four times (2 x 2 for the predictor), each held
+   byte for byte against the same job on cuda:0 alone with both
+   host-clock times: NB over the 1.6M rows cold (13 x 4 K1 launches) and
+   warm off its ingest cache (13 x 4 K2), with the device idle share;
+   ``h2d@9`` killing the streamed NB fold on the mesh and the resume
+   there; the predictor over the 400k rows at float64 and float32 (the
+   bytes of ``nb_paths``); MI streamed cold and warm over bench.py:840's
+   400,000 rows; the Markov trainer over the 125,000 sequences cold and
+   warm off the pair cache; the tree builder's streamed level over the
+   150,000 rows; Apriori k = 2, 3 streamed over the first 25,000
+   transactions; bench.py:938's DAG cell (bytes, handoffs, K1 21 x 4);
+   the four-job manifest with an ``h2d`` fault that withdraws NB, which
+   re-runs standalone on the mesh; K1 and K2 held at one position's
+   shard of the main-path chunk (32,768 rows and their mask);
+19. ``host_jobs``: the class_balance, event_burst, event_seq_gsp,
    bandit_variants and price_optimize runbooks through the port
    (``avenir_tpu_torch.runbook``: rewritten scratch copies in
    subprocesses, six at once) with ``--device cuda`` (their jobs run on
@@ -153,7 +168,7 @@ path on the card and again on the CPU:
    training and serving in process (its NB training's K1 launches and
    K1 at its chunk, a cold promote and a profiled request over its
    1,000-tenant catalog, card against CPU);
-19. ``stream_paths``: the stream tier on cuda:0 against the CPU: jax's
+20. ``stream_paths``: the stream tier on cuda:0 against the CPU: jax's
    threefry draws bit for bit (``threefry2x32`` and the 32- and 64-bit
    draws at 10^6 counters, ``normal`` float64 and float32 and ``uniform``
    float32 at 10^5 event CRCs x 4 arms, ``randint`` and ``categorical``
@@ -171,7 +186,7 @@ path on the card and again on the CPU:
    ``feedback_drop@4`` (killed, resumed), each posterior the batch
    replay's; the decide's CUDA graph against its eager chain (equal
    selections, device events and call time of each);
-20. ``fleet_workload``: the workload harness and the fleet tier on
+21. ``fleet_workload``: the workload harness and the fleet tier on
    cuda:0: all seven scenarios' schedules (the reference's bytes, by
    digest); the harness's bootstrap training (one K1 launch, the model
    equal on the CPU) for each gated scenario and the fleet runbook's
@@ -185,11 +200,12 @@ path on the card and again on the CPU:
    the stitched lanes, the incident, device memory per feed); then
    ``resource/fleetobs/run.sh`` and ``resource/ci/router_smoke.py`` and
    ``router_ha_smoke.py`` at once; 64 churn requests direct and through
-   the router, card against CPU.  Phases 7-20 launch no kernel of the
-   port but K1 (the NB runbooks' training, MI, the shared scan, NB text
-   training, the DAG's NB and MI folds, the multitenant training, the
-   workload bootstraps); each prints its host-clock times and a
-   ``torch.profiler`` device-busy and idle share.
+   the router, card against CPU.  Phases 7-21 launch no kernel of the
+   port but K1 and K2 (the NB runbooks' training, MI, the shared scan,
+   NB text training, the DAG's NB and MI folds, every NB fold of
+   ``mesh_jobs``, the multitenant training, the workload bootstraps);
+   each prints its host-clock times and a ``torch.profiler`` device-busy
+   and idle share.
 
 Kernel counts (and the native encoder's call count) are set to 0 just
 before each path and read just after.
@@ -1196,6 +1212,10 @@ def report_device(by_kind, wall_s, kernel_kind, card) -> None:
         f"{1 - busy_ms / 1e3 / wall_s:.6f} [{card}]")
 
 
+#: nb_paths' scoring seconds on cuda:0, beside mesh_jobs' runs on a mesh
+NB_SCORE_S = {}
+
+
 def nb_paths(torch, histogram, train_dir, test_dir, card) -> dict:
     """NB cold training (K1), then with the ingest cache on, cold and
     warm (K2), then scoring; every output held against the CPU run.
@@ -1307,6 +1327,8 @@ def nb_paths(torch, histogram, train_dir, test_dir, card) -> dict:
         raise AssertionError(f"float32 scoring parity contract broken: {viol}")
     scorer_cost(torch, ds, tables, card)
 
+    NB_SCORE_S.update({"score float64": score64_s,
+                       "score float32": score32_s})
     log(f"NB train (cuda, cold): {TRAIN_ROWS / train_s:.0f} rows/s "
         f"({train_s:.3f} s, {n_chunks} chunks of {CHUNK_ROWS}) [{card}]")
     log(f"NB train (cuda, writing the ingest cache): "
@@ -4497,6 +4519,348 @@ def dag_paths(torch, histogram, card) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# mesh_jobs: every streamed job, the predictor and the DAG on a mesh
+# ---------------------------------------------------------------------------
+
+MESH_D = 4                     # positions of the phase's mesh, all cuda:0
+APRIORI_MESH_CHUNK = 4_096     # the streamed Apriori passes' row chunks
+MESH_NB_KILL = "h2d@9"         # the streamed NB fold's fault on the mesh
+MESH_MULTI_FAULT = "h2d@2"     # withdraws one job of the four-job manifest
+
+
+def on_mesh(argv, mesh):
+    """A job of the port's command line (``argv`` as ``run_job`` takes it,
+    without ``--device``) run in process with ``mesh=``: the command line
+    reaches a mesh only through ``AVENIR_MESH``, which spans cards, and
+    this machine has one.  Returns the job's counters."""
+    from avenir_tpu_torch.cli import job_class, resolve
+    from avenir_tpu_torch.core.config import load_job_config, parse_cli_args
+
+    defines, positional = parse_cli_args(list(argv[1:]))
+    config = load_job_config(defines, resolve(argv[0])[2])
+    job = job_class(argv[0])(config, device=mesh.devices.flat[0])
+    return job.run(positional[0], positional[1], mesh=mesh)
+
+
+def mesh_inputs(train_dir: str, test_dir: str, shared: tuple) -> dict:
+    """The earlier phases' inputs and one-device outputs that mesh_jobs
+    reads: NB's (nb_paths), bench.py:840's cell (mi_corr), the Markov
+    trainer's sequences, the tree builder's root level (tree), Apriori's
+    first transactions and bench.py:938's cell (dag_paths)."""
+    j = os.path.join
+    return {"train": train_dir, "test": test_dir, "train_rows": TRAIN_ROWS,
+            "nb_cfg": NB_CFG, "nb_model": j(WORK, "model_cuda"),
+            "pred64": j(WORK, "pred64_cuda"), "pred32": j(WORK, "pred32_cuda"),
+            **NB_SCORE_S,
+            "shared_in": shared[0], "shared_schema": shared[1],
+            "shared_rows": SHARED_ROWS,
+            "markov_train": j(WORK, "markov", "train"),
+            "tree_root": j(WORK, "tree_stream", "root"),
+            "tree_root_dec": j(WORK, "tree_stream", "root.json"),
+            "tree_schema": j(WORK, "tree_stream", "retarget_amount.json"),
+            "apriori_in": j(WORK, "apriori", "trans_head"),
+            "apriori_rows": APRIORI_CPU_ROWS,
+            "dag_in": j(WORK, "dag", "cell_in"),
+            "dag_schema": j(WORK, "dag", "cell.json")}
+
+
+def mesh_jobs(torch, histogram, card, dev, inputs) -> tuple:
+    """Every job of the port that folds or scores on a device, run on a
+    mesh that names ``dev`` ``MESH_D`` times (cuda:0 on the card: every
+    position's launches and the mesh's psum, no bytes between cards) and
+    held byte for byte against the same job on ``dev`` alone, with the
+    host-clock seconds of each: NB cold (K1 on every position) and warm
+    off the ingest cache (K2), both 13 chunks x 4 positions; the
+    predictor on 2 x 2 at float64 and float32; a kill and resume of the
+    streamed NB fold on the mesh; MI streamed cold and warm over
+    bench.py:840's cell; the Markov trainer cold and warm off the pair
+    cache; the tree builder's streamed level; Apriori k = 2, 3 streamed;
+    bench.py:938's DAG cell (bytes and memory handoffs); the four-job
+    manifest with an ``h2d`` fault that withdraws a job, which re-runs
+    standalone on the mesh.  ``inputs`` names the earlier phases' inputs
+    and the NB outputs of ``nb_paths``.  Returns the NB launches by kid
+    and K1's and K2's cases at one position's shard of the main-path
+    chunk."""
+    import numpy as np
+
+    from avenir_tpu_torch.cli import job_resolver
+    from avenir_tpu_torch.core import faultinject, multiscan
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.core.dag import run_workflow
+    from avenir_tpu_torch.core.faultinject import (FaultInjector,
+                                                   InjectedFault, parse_plan)
+    from avenir_tpu_torch.models.association import FrequentItemsApriori
+    from avenir_tpu_torch.models.bayesian import (BayesianDistribution,
+                                                  BayesianPredictor)
+    from avenir_tpu_torch.parallel import make_mesh
+
+    w = os.path.join(WORK, "mesh_jobs")
+    os.makedirs(w, exist_ok=True)
+    mesh = make_mesh([dev] * MESH_D)
+    mesh22 = make_mesh([dev] * MESH_D, data=2, model=2)
+    on_card = dev.type == "cuda"
+    secs = {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def timed(label, fn):
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        secs[label] = time.perf_counter() - t
+        return out
+
+    def launches(want_k1, want_k2, label):
+        got = (histogram.K1_LAUNCHES, histogram.K2_LAUNCHES)
+        if on_card and got != (want_k1, want_k2):
+            raise AssertionError(f"{label}: K1/K2 launched {got}, not "
+                                 f"{(want_k1, want_k2)}")
+        histogram.reset_launch_counts()
+        return got
+
+    def same(label, got, want):
+        if got != want or not want:
+            raise AssertionError(f"{label}: the mesh's output differs from "
+                                 f"the one-device run's")
+
+    def nb(cfg, out, on):
+        return BayesianDistribution(JobConfig(dict(cfg)), device=dev).run(
+            inputs["train"], os.path.join(w, out), mesh=on)
+
+    # -- NB cold (K1) and warm off the ingest cache (K2) --------------------
+    n_chunks = math.ceil(inputs["train_rows"] / CHUNK_ROWS)
+    histogram.reset_launch_counts()
+    c = timed("NB cold 1", lambda: nb(inputs["nb_cfg"], "nb_one", None))
+    if c.get("Ingest", "Chunks") != n_chunks:
+        raise AssertionError(f"NB cold: {c.get('Ingest', 'Chunks')} chunks")
+    launches(n_chunks, 0, "NB cold on one device")
+    timed(f"NB cold {MESH_D}", lambda: nb(inputs["nb_cfg"], "nb_mesh", mesh))
+    k1 = launches(MESH_D * n_chunks, 0, f"NB cold on {mesh}")[0]
+    one = read_bytes(os.path.join(w, "nb_one"))
+    same("NB cold", read_bytes(os.path.join(w, "nb_mesh")), one)
+    same("NB cold against nb_paths' model", one,
+         read_bytes(inputs["nb_model"]))
+    cache_cfg = dict(inputs["nb_cfg"], **{
+        "ingest.cache.enable": "true",
+        "ingest.cache.dir": os.path.join(w, "ingestcache")})
+    nb(cache_cfg, "nb_cache_cold", None)        # writes the cache
+    histogram.reset_launch_counts()
+    timed("NB warm 1", lambda: nb(cache_cfg, "nb_warm_one", None))
+    launches(0, n_chunks, "NB warm on one device")
+    timed(f"NB warm {MESH_D}", lambda: nb(cache_cfg, "nb_warm_mesh", mesh))
+    k2 = launches(0, MESH_D * n_chunks, f"NB warm on {mesh}")[1]
+    for out in ("nb_cache_cold", "nb_warm_one", "nb_warm_mesh"):
+        same(f"NB {out}", read_bytes(os.path.join(w, out)), one)
+    if on_card:
+        by_kind, wall_s = profile_device(
+            torch, lambda: nb(inputs["nb_cfg"], "nb_mesh_profiled", mesh),
+            {"histogram kernel": "histogram_kernel"})
+        report_phase(f"NB cold on {mesh}", by_kind, wall_s,
+                     "histogram kernel", card)
+        histogram.reset_launch_counts()
+
+    # -- a kill and resume of the streamed NB fold on the mesh --------------
+    ck_cfg = dict(inputs["nb_cfg"], **{"checkpoint.interval.chunks": "3"})
+    faultinject.set_injector(FaultInjector(parse_plan(MESH_NB_KILL)))
+    try:
+        nb(ck_cfg, "nb_killed", mesh)
+    except InjectedFault as e:
+        died = str(e)
+    else:
+        raise AssertionError(f"{MESH_NB_KILL} did not kill the streamed NB "
+                             f"fold")
+    finally:
+        faultinject.set_injector(None)
+    sidecar = os.path.join(w, "nb_killed.ckpt")
+    with open(sidecar, "rb") as fh:
+        ck = pickle.load(fh)
+    histogram.reset_launch_counts()
+    timed(f"NB resumed {MESH_D}", lambda: nb(
+        dict(ck_cfg, **{"checkpoint.resume": "true"}), "nb_killed", mesh))
+    left = n_chunks - (ck["chunk_index"] + 1)
+    launches(MESH_D * left, 0, "the resumed NB fold")
+    same("NB resumed", read_bytes(os.path.join(w, "nb_killed")), one)
+    if os.path.exists(sidecar):
+        raise AssertionError("the resumed NB fold left its sidecar")
+    log(f"NB streamed on {mesh}: killed ({died}) after the sidecar of chunk "
+        f"{ck['chunk_index']}, resumed on the mesh with {MESH_D} x {left} K1 "
+        f"launches in {secs[f'NB resumed {MESH_D}']:.3f} s, the uninterrupted "
+        f"model's bytes")
+
+    # -- the predictor on 2 x 2 --------------------------------------------
+    for prec, want in (("float64", "pred64"), ("float32", "pred32")):
+        cfg = dict(inputs["nb_cfg"], **{
+            "bayesian.model.file.path": inputs["nb_model"],
+            "bp.score.precision": prec})
+        out = os.path.join(w, f"{want}_mesh")
+        timed(f"score {prec} 2x2", lambda: BayesianPredictor(
+            JobConfig(cfg, "bp"), device=dev).run(inputs["test"], out,
+                                                   mesh=mesh22))
+        same(f"predictor {prec} on {mesh22}", read_bytes(out),
+             read_bytes(inputs[want]))
+    launches(0, 0, "the predictor")
+
+    # -- MI streamed over bench.py:840's cell, cold then warm ----------------
+    mi_chunks = math.ceil(inputs["shared_rows"] / SHARED_CHUNK)
+    mi = ["MutualInformation",
+          f"-Dfeature.schema.file.path={inputs['shared_schema']}",
+          f"-Dpipeline.chunk.rows={SHARED_CHUNK}",
+          "-Dingest.cache.enable=true"]
+    for label, on, want_k1 in (("1", None, mi_chunks),
+                               (str(MESH_D), mesh, MESH_D * mi_chunks)):
+        argv = mi + [f"-Dingest.cache.dir={os.path.join(w, 'mi_cache' + label)}"]
+        for leg in ("cold", "warm"):
+            out = os.path.join(w, f"mi_{leg}_{label}")
+            timed(f"MI {leg} {label}", lambda: on_mesh(
+                argv + [inputs["shared_in"], out], on or make_mesh([dev])))
+            launches(want_k1, 0, f"MI {leg} on {label} position(s)")
+            same(f"MI {leg} on {label} position(s)", read_bytes(out),
+                 read_bytes(os.path.join(w, "mi_cold_1")))
+
+    # -- the Markov trainer, cold then warm off the pair cache --------------
+    mst = ["MarkovStateTransitionModel",
+           f"-Dconf.path={CHURN_MARKOV}/mst.properties",
+           f"-Dpipeline.chunk.rows={MARKOV_CHUNK}",
+           "-Dingest.cache.enable=true"]
+    for label, on in (("1", make_mesh([dev])), (str(MESH_D), mesh)):
+        argv = mst + [f"-Dingest.cache.dir={os.path.join(w, 'pc' + label)}"]
+        for leg in ("cold", "warm"):
+            out = os.path.join(w, f"markov_{leg}_{label}")
+            timed(f"Markov {leg} {label}", lambda: on_mesh(
+                argv + [inputs["markov_train"], out], on))
+            same(f"Markov {leg} on {label} position(s)", read_bytes(out),
+                 read_bytes(os.path.join(w, "markov_cold_1")))
+
+    # -- the tree builder's streamed level ----------------------------------
+    tree = {}
+    for label, on in (("1", make_mesh([dev])), (str(MESH_D), mesh)):
+        dec = os.path.join(w, f"tree_{label}.json")
+        shutil.copy(inputs["tree_root_dec"], dec)
+        out = os.path.join(w, f"tree_level_{label}")
+        timed(f"tree level {label}", lambda: on_mesh(
+            ["DecisionTreeBuilder", f"-Dconf.path={DTB_BOOK}/dtb.properties",
+             f"-Dfeature.schema.file.path={inputs['tree_schema']}",
+             f"-Dpipeline.chunk.rows={DTB_STREAM_CHUNK}",
+             f"-Ddecision.file.path={dec}", inputs["tree_root"], out], on))
+        tree[label] = (open(dec, "rb").read(), read_bytes(out))
+    same("the streamed tree level", tree[str(MESH_D)], tree["1"])
+
+    # -- Apriori k = 2, 3 streamed ------------------------------------------
+    base = {"fia.skip.field.count": "1", "fia.tans.id.ord": "0",
+            "fia.support.threshold": str(APRIORI_THRESHOLD),
+            "fia.total.tans.count": str(inputs["apriori_rows"]),
+            "fia.emit.trans.id": "false"}
+    ap = os.path.join(w, "ap")
+    FrequentItemsApriori(JobConfig(dict(base, **{
+        "fia.item.set.length": "1"})), device=dev).run(
+        inputs["apriori_in"], f"{ap}_1_k1")
+    shutil.copytree(f"{ap}_1_k1", f"{ap}_{MESH_D}_k1")
+    for k in (2, 3):
+        for label, on in (("1", None), (str(MESH_D), mesh)):
+            props = dict(base, **{
+                "fia.item.set.length": str(k),
+                "fia.item.set.file.path": f"{ap}_{label}_k{k - 1}",
+                "pipeline.chunk.rows": str(APRIORI_MESH_CHUNK)})
+            timed(f"Apriori k={k} {label}", lambda: FrequentItemsApriori(
+                JobConfig(props), device=dev).run(
+                inputs["apriori_in"], f"{ap}_{label}_k{k}", mesh=on))
+        same(f"Apriori k = {k} streamed",
+             read_bytes(f"{ap}_{MESH_D}_k{k}"), read_bytes(f"{ap}_1_k{k}"))
+    launches(0, 0, "Apriori")
+
+    # -- bench.py:938's DAG cell --------------------------------------------
+    dag = {}
+    for label, on in (("1", make_mesh([dev])), (str(MESH_D), mesh)):
+        msgs = []
+        out = os.path.join(w, f"dag_{label}")
+        timed(f"DAG {label}", lambda: run_workflow(
+            JobConfig(dag_cell_manifest(inputs["dag_schema"])),
+            inputs["dag_in"], out, job_resolver(dev), mesh=on,
+            log=msgs.append))
+        (done,) = [m for m in msgs if "workflow complete" in m]
+        # K1: NB's and MI's folds in the fused group, then the retrain's
+        dag[label] = (stage_bytes(out, DAG_STAGES), handoffs(done),
+                      launches(3 * mi_chunks * on.size, 0,
+                               f"DAG {label}")[0])
+    if dag[str(MESH_D)][:2] != dag["1"][:2]:
+        raise AssertionError(f"the DAG cell on {mesh}: other bytes or "
+                             f"handoffs than on one device")
+
+    # -- a withdrawn job of the four-job manifest re-runs on the mesh -------
+    four = ("nb", "mi", "corr", "stats")
+    cfg = JobConfig(dict(a[2:].split("=", 1) for a in shared_defines(
+        inputs["shared_schema"], four)))
+    multi = {}
+    for label, on, plan in (("1", make_mesh([dev]), None),
+                            (str(MESH_D), mesh, MESH_MULTI_FAULT)):
+        msgs = []
+        out = os.path.join(w, f"multi_{label}")
+        faultinject.set_injector(FaultInjector(parse_plan(plan))
+                                 if plan else None)
+        try:
+            timed(f"multi {label}", lambda: multiscan.run_multi(
+                cfg, inputs["shared_in"], out, job_resolver(dev), mesh=on,
+                log=msgs.append))
+        finally:
+            faultinject.set_injector(None)
+        multi[label] = ({j: read_bytes(os.path.join(out, j)) for j in four},
+                        [m for m in msgs if "standalone" in m])
+    withdrawn = multi[str(MESH_D)][1]
+    if multi["1"][1] or len(withdrawn) != 1 or "failed" in withdrawn[0]:
+        raise AssertionError(f"the four-job manifest's standalone re-runs: "
+                             f"{multi['1'][1]} / {withdrawn}")
+    same("the four-job manifest", multi[str(MESH_D)][0], multi["1"][0])
+    histogram.reset_launch_counts()
+
+    pairs = [("NB cold", "NB cold"), ("NB warm", "NB warm"),
+             ("score float64", None), ("score float32", None),
+             ("MI cold", "MI cold"), ("MI warm", "MI warm"),
+             ("Markov cold", "Markov cold"), ("Markov warm", "Markov warm"),
+             ("tree level", "tree level"), ("Apriori k=2", "Apriori k=2"),
+             ("Apriori k=3", "Apriori k=3"), ("DAG", "DAG"),
+             ("multi", "multi")]
+    parts = []
+    for label, one_label in pairs:
+        if one_label is None:
+            parts.append(f"{label} {secs[label + ' 2x2']:.3f} s on 2 x 2 "
+                         f"(one device: {inputs[label]:.3f} s in nb_paths)")
+        else:
+            parts.append(f"{label} {secs[f'{label} {MESH_D}']:.3f} s "
+                         f"(one device {secs[f'{one_label} 1']:.3f} s)")
+    log(f"mesh_jobs on {mesh} (2 x 2 for the predictor), every output "
+        f"byte-equal to the one-device run: " + "; ".join(parts)
+        + f"; K1 {k1} and K2 {k2} launches on the NB main path; the DAG "
+        f"cell's K1 {dag[str(MESH_D)][2]}, memory handoffs "
+        f"{dag[str(MESH_D)][1]}; the manifest's withdrawn job: "
+        f"{withdrawn[0]} [{card}]")
+
+    if not on_card:
+        return {"K1mesh": k1, "K2mesh": k2}, []
+    # K1 and K2 at one position's shard of the main path's first chunk,
+    # as ChunkTransfer(mesh=) hands it over: a quarter of the rows and
+    # their validity mask
+    xs, ys, C, B, _ = main_path_chunk(inputs["train"])
+    step = -(-len(xs) // MESH_D)
+    x1, y1 = np.ascontiguousarray(xs[:step]), np.ascontiguousarray(ys[:step])
+    warm = main_path_warm_chunk(torch, inputs["train"], cache_cfg)
+    xraw, yraw, _ = warm[-1]()
+
+    def shard(x, y):
+        return lambda: (x, y, torch.ones(len(y), dtype=torch.bool,
+                                         device=y.device))
+    cases = [("K1mesh", f"a mesh position's shard of main-path chunk 0 "
+              f"(1 of {MESH_D})", C, B, None,
+              shard(torch.from_numpy(x1).cuda(),
+                    torch.from_numpy(y1).cuda())),
+             ("K2mesh", f"a mesh position's shard of main-path warm chunk 0 "
+              f"(1 of {MESH_D})", warm[2], warm[3], warm[4],
+              shard(xraw[:step].contiguous(), yraw[:step].contiguous()))]
+    return {"K1mesh": k1, "K2mesh": k2}, cases
+
+
+# ---------------------------------------------------------------------------
 # host_jobs: the batch jobs of queue 1 item 3 and the feedback fold
 # ---------------------------------------------------------------------------
 
@@ -5766,6 +6130,13 @@ def main() -> int:
     dag_launches, dag_case = dag_paths(torch, histogram, card)
     launches.update(dag_launches)
     phase_done("dag_paths")
+    # every streamed job, the predictor and the DAG on [cuda:0] * 4 (the
+    # phase sets the counts to 0 before each run it reads)
+    mesh_launches, mesh_cases = mesh_jobs(
+        torch, histogram, card, torch.device("cuda", 0),
+        mesh_inputs(train_dir, test_dir, shared))
+    launches.update(mesh_launches)
+    phase_done("mesh_jobs")
     mt_launches, mt_case = host_jobs(torch, histogram, card)
     launches.update(mt_launches)
     phase_done("host_jobs")
@@ -5774,8 +6145,8 @@ def main() -> int:
     wl_launches, wl_case = fleet_workload(torch, histogram, card)
     launches.update(wl_launches)
     phase_done("fleet_workload")
-    for case in [mi_case, ms_case] + text_cases + [dag_case, mt_case,
-                                                   wl_case]:
+    for case in [mi_case, ms_case] + text_cases + [dag_case] + mesh_cases \
+            + [mt_case, wl_case]:
         entries.append(histogram_entry(case))
     log(f"main-path launches: {launches}")
     log(f"phase seconds: {phases}")

@@ -273,20 +273,38 @@ def test_streamed_support_equals_resident(trans, mesh8, emit_trans_id,
         assert got == want == got_res == want_res, k
 
 
-def test_streamed_support_refuses_a_mesh(trans):
+def test_streamed_support_refuses_a_mesh(trans, mesh8, monkeypatch):
+    """The streamed support on a mesh (the name is kept from when the
+    port refused one): each chunk's rows shard over the 8 positions, the
+    candidates ride as a replicated broadcast argument, and every pass
+    writes the reference's bytes on ``mesh8`` and the port's one-device
+    streamed bytes, on 8 x 1 and on 4 x 2."""
+    from avenir_tpu_torch.ops import counting
+
+    sharded = []
+    resident = counting.sharded_reduce_resident
+
+    def spy(*a, **kw):
+        sharded.append(len(kw["broadcast"]))
+        return resident(*a, **kw)
+    monkeypatch.setattr(counting, "sharded_reduce_resident", spy)
     tmp, _, base = trans
-    for k in (1, 2):
-        props = dict(base, **{"fia.item.set.length": str(k),
-                              "pipeline.chunk.rows": "50"})
-        if k > 1:
-            props["fia.item.set.file.path"] = str(tmp / "mref1")
-        job = ta.FrequentItemsApriori(JobConfig(props), device="cpu")
-        if k == 1:
-            job.run(str(tmp / "trans"), str(tmp / "mref1"))
-            continue
-        with pytest.raises(NotImplementedError, match="one device"):
-            job.run(str(tmp / "trans"), str(tmp / "mref2"),
-                    mesh=pmesh.make_mesh([CPU] * 2))
+    stream = dict(base, **{"fia.emit.trans.id": "true",
+                           "fia.trans.id.output": "true",
+                           "pipeline.chunk.rows": "50"})
+    for shape in ((8, 1), (4, 2)):
+        pm = pmesh.make_mesh([CPU] * 8, data=shape[0], model=shape[1])
+        tag = f"sm{shape[0]}{shape[1]}"
+        for k in (1, 2, 3):
+            want, got = _pass_both(tmp, stream, k, "trans", f"{tag}{k}",
+                                   mesh8, pm)
+            _, one = _pass_both(tmp, stream, k, "trans", f"{tag}o{k}",
+                                mesh8, None)
+            assert got == want == one, (shape, k)
+            assert got, k
+    # 8 chunks a streamed pass (k = 2, 3) on each mesh, each with the
+    # candidates as its one broadcast argument
+    assert sharded == [1] * 32
 
 
 @pytest.mark.parametrize("nt,V,n_s,km1", [(300, 17, 40, 1), (5000, 9, 20, 2),

@@ -386,11 +386,14 @@ def test_cost_decisions_drive_the_scheduler(data, tmp_path, mesh1):
 # end-to-end byte parity
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("mesh", [None, MESH1], ids=["no_mesh", "mesh1"])
+@pytest.mark.parametrize("mesh", [None, MESH1, MESH8],
+                         ids=["no_mesh", "mesh1", "mesh8"])
 def test_canonical_pipeline_byte_parity(data, tmp_path, reference, mesh):
     """Every stage output of the full DAG equals the reference DAG's and
     the port's standalone chain with file handoff; ``publish`` equals
-    ``retrain``; the handoff count equals the reference's."""
+    ``retrain``; the handoff count equals the reference's.  On ``[cpu] *
+    8`` the fused group and every solo stage (``retrain``, ``validate``,
+    ``publish``) run on the eight positions."""
     ref_out, ref_msgs = reference
     alone = str(tmp_path / "alone")
     _port_standalone_chain(data, alone)
@@ -412,13 +415,26 @@ def test_canonical_pipeline_byte_parity(data, tmp_path, reference, mesh):
     assert triples and all(0.0 <= s <= 1.0 for _, _, s in triples)
 
 
-def test_solo_nb_stage_refuses_a_mesh_of_eight(data, tmp_path):
-    """The port's streamed NB has no multi-device form: a solo NB stage
-    on ``[cpu] * 8`` raises instead of running on one device."""
+def test_solo_nb_stage_refuses_a_mesh_of_eight(data, tmp_path, mesh8,
+                                               monkeypatch):
+    """A solo NB stage on ``[cpu] * 8`` (the name is kept from when the
+    port refused it): its streamed fold shards every 256-row chunk over
+    the eight positions and writes the reference's bytes on ``mesh8``."""
+    from avenir_tpu_torch.ops import counting
+
+    folds = []
+    resident = counting.sharded_reduce_resident
+
+    def spy(*a, **kw):
+        folds.append(kw["mesh"].size)
+        return resident(*a, **kw)
+    monkeypatch.setattr(counting, "sharded_reduce_resident", spy)
     props = _manifest(data, stages="bin,nb")
-    with pytest.raises(NotImplementedError, match="8 positions"):
-        _port(props, data, tmp_path / "wf", MESH8)
-    assert not os.path.exists(tmp_path / "wf" / "nb" / "part-r-00000")
+    _port(props, data, tmp_path / "wf", MESH8)
+    _jax(props, data, tmp_path / "ref", mesh8)
+    assert _outputs(tmp_path / "wf", "bin,nb") == _outputs(tmp_path / "ref",
+                                                           "bin,nb")
+    assert folds == [8] * 8                 # 2,000 rows in 256-row chunks
 
 
 # ---------------------------------------------------------------------------
@@ -496,7 +512,8 @@ def test_write_output_as_bare_file_and_shard(tmp_path):
 @pytest.mark.parametrize("mesh,stages,sidecar", [
     (MESH1, "bin,nb,mi,select,retrain", "_dag_scan_mi+nb.ckpt"),
     (MESH8, "bin,nb,mi,corr", "_dag_scan_corr+mi+nb.ckpt"),
-], ids=["one_device", "fused_group_cpu8"])
+    (MESH8, "bin,nb,mi,select,retrain", "_dag_scan_mi+nb.ckpt"),
+], ids=["one_device", "fused_group_cpu8", "fused_then_solo_cpu8"])
 def test_kill_inside_fused_scan_resume_skips_and_restarts_midscan(
         data, tmp_path, mesh1, mesh, stages, sidecar):
     """An injected worker death inside the fused group kills the
@@ -779,8 +796,12 @@ def test_registry_publish_builds_a_servable_entry(data, tmp_path):
                        mesh=MESH1)
     assert counters.get("Registry", "Published versions") == 1
     assert _read(tmp_path, "pub") == _read(tmp_path, "model")
-    with pytest.raises(NotImplementedError):
-        pub.run(str(tmp_path / "model"), str(tmp_path / "pub8"), mesh=MESH8)
+    # on a mesh of eight the registry is built over the mesh and
+    # publishes the same bytes
+    counters = pub.run(str(tmp_path / "model"), str(tmp_path / "pub8"),
+                       mesh=MESH8)
+    assert counters.get("Registry", "Published versions") == 1
+    assert _read(tmp_path, "pub8") == _read(tmp_path, "model")
 
 
 # ---------------------------------------------------------------------------

@@ -472,13 +472,39 @@ def test_streamed_trainer_falls_back_on_late_class_label(tmp_path):
     assert got.decode().count("classLabel:") == 7
 
 
-def test_streamed_trainer_refuses_a_mesh(chains):
+def test_streamed_trainer_refuses_a_mesh(chains, mesh8, tmp_path,
+                                        monkeypatch):
+    """The streamed trainer on a mesh (the name is kept from when the
+    port refused one): cold in 64-row chunks writing the pair cache, then
+    warm off it, each chunk's pairs sharded over the 8 positions (and
+    4 x 2); every model equals the reference's streamed run on ``mesh8``
+    and the port's one-device run."""
+    from avenir_tpu_torch.ops import counting
+
     tmp, _ = chains
-    job = tm.MarkovStateTransitionModel(JobConfig(dict(
-        TRAIN_PROPS, **{"pipeline.chunk.rows": "64"})), device="cpu")
-    with pytest.raises(NotImplementedError, match="one device"):
-        job.run(str(tmp / "train"), str(tmp / "nomesh"),
-                mesh=pmesh.make_mesh([CPU] * 2))
+    folds = []
+    resident = counting.sharded_reduce_resident
+
+    def spy(*a, **kw):
+        folds.append(kw["mesh"].size)
+        return resident(*a, **kw)
+    monkeypatch.setattr(counting, "sharded_reduce_resident", spy)
+    props = dict(TRAIN_PROPS, **{"pipeline.chunk.rows": "64"})
+    want, one, _, _ = _both("MarkovStateTransitionModel", props,
+                            tmp / "train", tmp_path / "one", mesh8)
+    assert folds == []
+    cached = dict(props, **{"ingest.cache.enable": "true",
+                            "ingest.cache.dir": str(tmp_path / "pc")})
+    for shape in ((8, 1), (4, 2), (8, 1)):      # cold, then twice warm
+        pm = pmesh.make_mesh([CPU] * 8, data=shape[0], model=shape[1])
+        out = tmp_path / f"m{len(folds)}"
+        tm.MarkovStateTransitionModel(JobConfig(dict(cached)),
+                                      device="cpu").run(
+            str(tmp / "train"), str(out), mesh=pm)
+        assert os.listdir(tmp_path / "pc")
+        assert _read(out) == want == one, shape
+    # 400 rows in 64-row chunks: 7 folds a run, each over 8 positions
+    assert folds == [8] * 21
 
 
 # ---------------------------------------------------------------------------

@@ -231,23 +231,31 @@ def test_cap_overflow_falls_back_standalone_and_stays_identical(tmp_path):
 
 
 def test_standalone_fallback_on_a_larger_mesh_raises_not_implemented(
-        tmp_path):
-    """A withdrawn job re-runs standalone with the workflow's mesh; the
-    port's streamed paths run on one device (ROADMAP queue 1 item 6), so
-    on 8 positions the re-run raises NotImplementedError, which surfaces
-    as the workflow's error after the other jobs wrote their outputs."""
+        tmp_path, mesh8):
+    """A withdrawn job re-runs standalone with the workflow's mesh (the
+    name is kept from when the port refused one): on 8 positions NB and MI
+    withdraw at the cap overflow and re-run on the mesh, and every output
+    equals the reference's workflow on ``mesh8`` and each job run alone on
+    one device."""
     in_dir = _late_colors(tmp_path)
     pipe = {"pipeline.chunk.rows": "128", "pipeline.prefetch.depth": "2"}
+    jids = ["nb", "mi", "mst", "stats"]
     msgs = []
-    with pytest.raises(NotImplementedError):
-        _fused(_manifest(tmp_path, pipe, ["nb", "mi", "mst", "stats"]),
-               in_dir, tmp_path / "fused", mesh=MESHES[8],
-               log=msgs.append)
-    assert any("failed standalone: NotImplementedError" in m
-               for m in msgs), msgs
-    for jid in ("mst", "stats"):
-        assert _read(tmp_path / "fused" / jid) == _standalone(
-            tmp_path, in_dir, pipe, jid, tmp_path / f"alone_{jid}")
+    _fused(_manifest(tmp_path, pipe, jids), in_dir, tmp_path / "fused",
+           mesh=MESHES[8], log=msgs.append)
+    withdrawn = sorted(m.split("'")[1] for m in msgs if "standalone" in m)
+    assert withdrawn == ["mi", "nb"], msgs
+    assert not any("failed" in m for m in msgs), msgs
+    jmsgs = []
+    jms.run_multi(JaxConfig(_manifest(tmp_path, pipe, jids)), in_dir,
+                  str(tmp_path / "ref"), jax_resolver, mesh=mesh8,
+                  log=jmsgs.append)
+    assert msgs == jmsgs
+    got = _outputs(tmp_path / "fused", jids)
+    assert got == _outputs(tmp_path / "ref", jids)
+    for jid in jids:
+        assert got[jid] == _standalone(tmp_path, in_dir, pipe, jid,
+                                       tmp_path / f"alone_{jid}"), jid
 
 
 def test_non_withdrawal_encode_error_spares_healthy_jobs(tmp_path):

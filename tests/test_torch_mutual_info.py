@@ -207,12 +207,30 @@ def test_streamed_falls_back_on_a_late_class_or_negative_bin(tmp_path, mesh8):
         assert got == want, tag
 
 
-def test_streamed_path_refuses_a_mesh(hosp):
-    job = tmi.MutualInformation(JobConfig(_props(**{
-        "pipeline.chunk.rows": "500"})), device="cpu")
-    with pytest.raises(NotImplementedError, match="one device"):
-        job.run(str(hosp / "in"), str(hosp / "refused"),
-                mesh=pmesh.make_mesh([CPU] * 2))
+def test_streamed_path_refuses_a_mesh(hosp, mesh8, monkeypatch):
+    """The streamed MI on a mesh (the name is kept from when the port
+    refused one): cold in 500-row chunks writing the ingest cache, then
+    warm off it, each chunk sharded over the 8 positions (and 4 x 2);
+    both equal the reference's bytes on ``mesh8``."""
+    from avenir_tpu_torch.ops import counting
+
+    folds = []
+    resident = counting.sharded_reduce_resident
+
+    def spy(*a, **kw):
+        folds.append(kw["mesh"].size)
+        return resident(*a, **kw)
+    monkeypatch.setattr(counting, "sharded_reduce_resident", spy)
+    over = {"pipeline.chunk.rows": "500", "ingest.cache.enable": "true",
+            "ingest.cache.dir": str(hosp / "meshcache")}
+    for shape in ((8, 1), (4, 2)):              # cold, then warm
+        pm = pmesh.make_mesh([CPU] * 8, data=shape[0], model=shape[1])
+        want, got = _both(hosp, f"mesh{shape[0]}", mesh8, pm, jax_props={},
+                          **over)
+        assert got == want, shape
+    assert os.listdir(hosp / "meshcache")
+    # 1,500 rows in 500-row chunks: 3 folds a run over 8 positions
+    assert folds == [8] * 6
 
 
 def test_mi_local_matches_reference_with_mask():

@@ -263,15 +263,29 @@ def test_tree_carried_across_packages(reference_levels, start):
     assert (dec.read_bytes(), _read(tmp / f"rb{start}")) == want[start]
 
 
-def test_streamed_level_refuses_a_mesh(reference_levels):
+def test_streamed_level_refuses_a_mesh(reference_levels, monkeypatch):
+    """The streamed level pass on a mesh (the name is kept from when the
+    port refused one): pass 1's count folds 100-row chunks over the 8
+    positions (and 4 x 2), and every level's decision file and records
+    equal the reference's on ``mesh8``."""
+    from avenir_tpu_torch.ops import counting
+
     tmp, want = reference_levels
-    (tmp / "refuse.json").write_bytes(want[0][0])
-    job = tt.DecisionTreeBuilder(JobConfig(_dtb_props(tmp, **{
-        "decision.file.path": str(tmp / "refuse.json"),
-        "pipeline.chunk.rows": "100"})), device="cpu")
-    with pytest.raises(NotImplementedError, match="one device"):
-        job.run(str(tmp / "ref0"), str(tmp / "refused"),
-                mesh=pmesh.make_mesh([CPU] * 2))
+    for lvl, (dec, _) in want.items():
+        (tmp / f"ref{lvl}.json").write_bytes(dec)
+    folds = []
+    resident = counting.sharded_reduce_resident
+
+    def spy(*a, **kw):
+        folds.append(kw["mesh"].size)
+        return resident(*a, **kw)
+    monkeypatch.setattr(counting, "sharded_reduce_resident", spy)
+    for shape in ((8, 1), (4, 2)):
+        pm = pmesh.make_mesh([CPU] * 8, data=shape[0], model=shape[1])
+        got = _port_levels(tmp, f"smesh{shape[0]}", 0, mesh=pm,
+                           **{"pipeline.chunk.rows": "100"})
+        assert got == want, shape
+    assert folds and set(folds) == {8}
 
 
 @pytest.mark.parametrize("over", [
