@@ -18,7 +18,12 @@ the fleet observability aggregator: ``python -m avenir_tpu_torch fleetobs
 (fleetobs.aggregator); and the fleet router: ``python -m
 avenir_tpu_torch router -Drouter.backends=host:p1,host:p2``
 (serve.fleet.router).  ``router`` and ``fleetobs`` move bytes and read
-feeds: they import no torch and refuse ``--device``.
+feeds: they import no torch and refuse ``--device``.  The static
+analysis of the package's own source: ``python -m avenir_tpu_torch
+analyze [--strict] [--json report.json] [--rules a,b] [--list]
+[--no-cache] [--baseline findings.json] [--update-baseline] [--dynamic]
+[--seeds N] [--device cpu|cuda]`` (analysis.cli; ``--dynamic`` runs the
+fold certificate on ``cuda:0`` unless ``--device cpu``).
 
 The same invocation, ``.properties`` files, schema JSONs and in/out
 directory layout as the reference package's ``python -m avenir_tpu``; job
@@ -466,6 +471,11 @@ def main(argv: Optional[list] = None) -> int:
               "<dir> [--trace-id X] [--out f.json]\n"
               "       python -m avenir_tpu_torch router "
               "-Drouter.backends=host:p1,host:p2 [-Drouter.port=N]\n"
+              "       python -m avenir_tpu_torch analyze [--strict] "
+              "[--json report.json] [--rules a,b] [--list]\n"
+              "                                          [--dynamic] "
+              "[--seeds N] [--device cpu|cuda] [--baseline findings.json] "
+              "[--update-baseline] [--no-cache]\n"
               "AVENIR_MESH=<data>x<model> runs a job, multi, dag and serve "
               "on a device mesh: data x model grid over every visible card "
               "(data*model == card count); with --device cpu, the CPU named "
@@ -474,6 +484,12 @@ def main(argv: Optional[list] = None) -> int:
               "known jobs:\n  " + "\n  ".join(sorted(JOBS)), file=sys.stderr)
         return 2
     job_name, rest = argv[0], argv[1:]
+    if job_name == "analyze":
+        # the static analysis of the package's own source (analysis.cli):
+        # the rule catalog, text or JSON findings, the --strict gate, and
+        # the --dynamic fold certificate on --device
+        from .analysis.cli import analyze_main
+        return analyze_main(rest)
     if job_name == "serve":
         # the online prediction server (serve.server)
         from .serve.server import serve_main

@@ -252,6 +252,13 @@ BUILTIN_STAGES: Dict[str, type] = {
     "RegistryPublish": RegistryPublish,
 }
 
+#: drivers exporting a shared-scan FoldSpec that are deliberately NOT
+#: usable as DAG stages, each with a reason.  The ``foldspec-dag`` rule
+#: (``analysis/rules_drivers.py``) requires every other FoldSpec exporter
+#: to be DAG-registrable (in ``cli.JOBS`` with the standard
+#: ``run(in, out, mesh)`` driver surface), and fails on a stale entry.
+NON_DAG_STAGES: Dict[str, str] = {}
+
 
 # ---------------------------------------------------------------------------
 # manifest loading + validation

@@ -54,6 +54,44 @@ class TornArtifactError(RuntimeError):
             pass        # the black box must never mask the real error
 
 
+#: truncate-mode write sites (``module.py:qualname``) that deliberately
+#: do NOT go through the atomic publish layer (``OutputWriter`` /
+#: ``atomic_write_text`` / ``atomic_write_bytes``), each with the reason
+#: the torn-on-crash shape is acceptable there.  The ``io-atomic-write``
+#: rule (``analysis/rules_io.py``) fails on any ``open(..., "w")`` outside
+#: the atomic primitives that is not listed, and on a stale entry.
+NON_ATOMIC_WRITES: Dict[str, str] = {
+    "core/checkpoint.py:StreamCheckpointer.save":
+        "atomic by construction: pickles into a same-directory mkstemp "
+        "file and lands it with os.replace (a binary payload, which "
+        "atomic_write_text's text surface does not take); a crash "
+        "mid-save leaves the previous generation whole",
+    "core/checkpoint.py:WorkflowCheckpointer.record":
+        "atomic by construction, the same temp + os.replace shape as "
+        "StreamCheckpointer.save",
+    "core/checkpoint.py:OffsetCheckpointer.save":
+        "atomic by construction, the same temp + os.replace shape as "
+        "StreamCheckpointer.save (the stream-offset sidecar)",
+    "core/obs.py:Tracer.export_jsonl":
+        "a diagnostic trace export, not a job artifact: no reader "
+        "validates it, and re-running with --trace remakes it",
+    "core/obs.py:Tracer.export_chrome_trace":
+        "a diagnostic trace export, the same contract as export_jsonl",
+    "core/resilience.py:RowQuarantine._write":
+        "the quarantine audit sidecar: the first open truncates a stale "
+        "sidecar of an earlier run, later batches append; an audit "
+        "trail, not a consumed artifact",
+    "datagen.py:main":
+        "the seeded dataset generator (input-side tooling): generating "
+        "again is the recovery, and the ingest layer validates inputs",
+    "runbook.py:_edit_file":
+        "rewrites a runbook script inside its scratch copy, which every "
+        "run makes afresh from the repo's source; nothing else reads it",
+    "runbook.py:port_runbook":
+        "writes the rewritten run.sh/run.py into the same scratch copy "
+        "as _edit_file, made afresh on every run",
+}
+
 _REQUIRE_SUCCESS = False
 
 

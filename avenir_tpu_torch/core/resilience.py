@@ -23,15 +23,16 @@ Config surface:
   quarantine off (a malformed row then fails the chunked path)
 - ``ingest.quarantine.path`` -- the sidecar (default ``<out>.quarantine``)
 
-The reference's ``NON_RETRYABLE`` registry feeds a lint of the JAX suite
-and is not copied.
+:data:`NON_RETRYABLE` lists the raw I/O sites on the ingest path that
+deliberately run outside :func:`with_retries`, each with a reason; the
+``io-retry`` rule (``python -m avenir_tpu_torch analyze``) reads it.
 """
 
 from __future__ import annotations
 
 import random
 import time
-from typing import Callable, Optional, Tuple, Type
+from typing import Callable, Dict, Optional, Tuple, Type
 
 from . import sanitizer
 from .metrics import Counters
@@ -146,6 +147,93 @@ def with_retries(fn: Callable, *args, op: str = "io",
                              error=f"{type(exc).__name__}: {exc}"):
                 time.sleep(delay)
             attempt += 1
+
+
+#: raw ``open``/``subprocess`` call sites on the ingest path that
+#: deliberately do NOT go through :func:`with_retries`, keyed
+#: ``module.py:<enclosing qualname>`` with a written reason.  The
+#: ``io-retry`` rule (``analysis/rules_io.py``) fails when an ingest-path
+#: raw call is neither wrapped nor listed here, and when an entry no
+#: longer names an unwrapped raw call site (a stale entry).
+NON_RETRYABLE: Dict[str, str] = {
+    "core/io.py:_read_lines_files":
+        "model, schema and config artifact reads at job setup (the file "
+        "side of read_lines): a missing or unreadable model is a "
+        "fail-fast user error; the bulk ingest reads its input through "
+        "native._read_part and pipeline._open_text, which retry",
+    "core/io.py:read_field_matrix":
+        "the monolithic loader of small side inputs, the same fail-fast "
+        "contract as read_lines; streamed input retries in _open_text",
+    "core/io.py:OutputWriter.__init__":
+        "the output side (the staged temp part file): a failed emit "
+        "fails the job after compute, and re-running (or --resume) is "
+        "the recovery; a mid-write retry could duplicate part content",
+    "core/io.py:OutputWriter.close":
+        "the output side's _SUCCESS marker, the same contract as the "
+        "part-file writes",
+    "core/io.py:OutputWriter._tear":
+        "the torn_write fault point only: it simulates the crash the "
+        "manifest check must catch, and a retry would undo the injection",
+    "core/io.py:OutputWriter._update_manifest":
+        "the output side's _MANIFEST (written through atomic_write_text), "
+        "the same fail-fast contract as the parts it lists",
+    "core/io.py:atomic_write_text":
+        "the atomic single-file publish (temp file, fsync, replace): a "
+        "failed write must fail the producing job loudly, not retry into "
+        "a half-regenerated artifact",
+    "core/io.py:atomic_write_bytes":
+        "the binary twin of atomic_write_text (the analyzer's parse-cache "
+        "sidecar): the same publish contract",
+    "core/io.py:_sha1_file":
+        "the manifest's checksum read when an artifact is loaded: a "
+        "mismatch must surface as TornArtifactError, not be retried into "
+        "another answer",
+    "core/io.py:load_manifest":
+        "the _MANIFEST read when an artifact is loaded: an unreadable "
+        "manifest IS the torn-artifact signal, not a transient",
+    "core/config.py:load_job_config":
+        "the -Dconf.path properties load at job start: a wrong path is a "
+        "user error that no retry repairs",
+    "core/multiscan.py:load_manifest":
+        "a shared-scan job's conf.path load at setup, the same fail-fast "
+        "contract as load_job_config",
+    "core/binning.py:DatasetEncoder._native_specs":
+        "the one-line schema sniff before the native encode: the bulk "
+        "read of the same file that follows retries (native._read_part), "
+        "so a transient fault surfaces there",
+    "core/checkpoint.py:StreamCheckpointer.save":
+        "the checkpoint sidecar write (temp file + os.replace, so the "
+        "previous generation stays valid): a failed save must not stall "
+        "the stream in a retry ladder",
+    "core/checkpoint.py:_load_payload":
+        "the resume-time sidecar read: an unreadable sidecar surfaces as "
+        "CheckpointCorrupt so the generation walk (newest, older, cold) "
+        "degrades; a retry cannot repair corrupt bytes",
+    "core/checkpoint.py:_maybe_corrupt_sidecar":
+        "the ckpt_corrupt fault point only: it truncates the sidecar the "
+        "generation fallback must then survive",
+    "core/checkpoint.py:input_fingerprint":
+        "the input's head hash at checkpoint save and load, next to the "
+        "retried bulk read of the same file",
+    "core/checkpoint.py:WorkflowCheckpointer.record":
+        "the DAG's stage-completion sidecar (temp file + os.replace): a "
+        "failed record must fail the workflow loudly, since resume "
+        "depends on it, rather than stall between stages",
+    "core/checkpoint.py:OffsetCheckpointer.save":
+        "the feedback consumer's stream-offset sidecar (temp file + "
+        "os.replace): a failed save must not stall the consumer; the "
+        "previous generation stays valid and unacked entries redeliver",
+    "core/resilience.py:RowQuarantine._write":
+        "the quarantine sidecar: a failed write raises and fails the job "
+        "rather than drop quarantined rows, and a retry could write a "
+        "batch twice",
+    "models/streaming.py:_redis_client":
+        "client construction only: redis-py connects per command, and "
+        "each transport method wraps its command in with_retries",
+    "models/streaming.py:ReinforcementLearnerTopology.run":
+        "the topology's properties file read at submit time: a missing "
+        "file is a user error that no retry repairs",
+}
 
 
 class ErrorBudgetExceeded(RuntimeError):

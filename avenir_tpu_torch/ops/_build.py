@@ -5,7 +5,9 @@ into ``build/lib<name>-<digest>.so`` inside the package, where ``digest``
 covers the source and the flags, so an edited source is rebuilt and a
 current build is reused.  Nothing is built at import: the first call that
 needs a kernel builds it.  ``build()`` starts one ``nvcc`` per source, all
-at once, and waits for every one of them.
+at once, and waits for every one of them.  Each start runs under
+``core.resilience.with_retries``, as the native C library's compile does:
+a transient failure to start a process backs off and tries again.
 """
 
 from __future__ import annotations
@@ -52,10 +54,19 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def _nvcc_start(cmd: list) -> subprocess.Popen:
+    """Start one ``nvcc`` (run under ``with_retries``: a transient OSError
+    starting the process backs off and tries again)."""
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
 def build(names: Optional[Iterable[str]] = None) -> None:
     """Compile every named source (default: all) that has no current
     build, one ``nvcc`` process each, all started together.  Raises with
     the compiler's output if any of them fails."""
+    from ..core.resilience import with_retries
+
     names = list(sources() if names is None else names)
     with _lock:
         jobs = []
@@ -68,9 +79,8 @@ def build(names: Optional[Iterable[str]] = None) -> None:
                 tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
                 cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                        str(CSRC_DIR / f"{name}.cu")]
-                jobs.append((name, so, tmp, subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                    text=True)))
+                jobs.append((name, so, tmp, with_retries(
+                    _nvcc_start, cmd, op="cuda.compile")))
         finally:
             failures = []
             for name, so, tmp, proc in jobs:

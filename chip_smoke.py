@@ -205,7 +205,15 @@ path on the card and again on the CPU:
    NB text training, the DAG's NB and MI folds, every NB fold of
    ``mesh_jobs``, the multitenant training, the workload bootstraps);
    each prints its host-clock times and a ``torch.profiler`` device-busy
-   and idle share.
+   and idle share;
+22. ``analyze``: ``python -m avenir_tpu_torch analyze`` over the port's
+   own source in subprocesses: ``--strict --no-cache --json`` (exit 0,
+   17 rules, no finding), then the sidecar's prime,
+   ``--list`` (17 ids) and ``--dynamic --seeds 1`` on cuda:0 (the fold
+   certificate over fold-purity, merge-closure and carry-portability,
+   every report clean) at once, then a warm ``--strict`` off the
+   ``.avenir-analyze-torch/`` sidecar (cached, no file parsed, at most
+   1 s in process); the cold, warm and dynamic seconds.
 
 Kernel counts (and the native encoder's call count) are set to 0 just
 before each path and read just after.
@@ -222,6 +230,7 @@ Any failure raises and the script exits non-zero; without a CUDA device it
 exits 2 before doing anything.  Work files go to ``build/chip_smoke/``.
 """
 
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -5994,6 +6003,96 @@ def fleet_workload(torch, histogram, card) -> dict:
     return {"K1wl": k1}, case
 
 
+# ---------------------------------------------------------------------------
+# analyze: the static analysis of the port's own source, and its dynamic leg
+# ---------------------------------------------------------------------------
+
+ANALYZE_RULES = 17
+ANALYZE_DYNAMIC_RULES = "fold-purity,merge-closure,carry-portability"
+
+
+def analyze_cli(args, timeout: float = 300.0, python=()) -> tuple:
+    """``python -m avenir_tpu_torch analyze <args>`` in a subprocess from
+    the repo's root (``python``: interpreter options); returns (exit code,
+    stdout, stderr, seconds)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *python, "-m", "avenir_tpu_torch",
+                           "analyze", *args], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    return (proc.returncode, proc.stdout, proc.stderr,
+            time.perf_counter() - t0)
+
+
+def analyze_paths(card) -> dict:
+    """The catalog over the port's package, cold (``--no-cache``) and
+    warm off the ``.avenir-analyze-torch/`` sidecar; ``--list``; and the
+    fold certificate (``--dynamic``) on cuda:0.  The card's machine has no
+    jax, so a clean run here also shows the analyzer imports none."""
+    from avenir_tpu_torch.analysis import cache as analysis_cache
+
+    out = os.path.join(WORK, "analyze")
+    os.makedirs(out, exist_ok=True)
+    cold_json = os.path.join(out, "cold.json")
+    # -X importtime lists every module the run imports: none of jax or of
+    # the JAX package, whether or not this machine has them
+    rc, _o, err, cold_s = analyze_cli(["--strict", "--no-cache", "--json",
+                                       cold_json], python=("-X", "importtime"))
+    assert rc == 0, f"analyze --strict --no-cache exited {rc}:\n{err}"
+    imported = [ln.rsplit("|", 1)[1].strip() for ln in err.splitlines()
+                if ln.startswith("import time:") and "|" in ln]
+    bad = [m for m in imported if m.split(".")[0] in ("jax", "avenir_tpu")]
+    assert len(imported) > 100 and not bad, bad
+    cold = json.load(open(cold_json))
+    assert len(cold["rules"]) == ANALYZE_RULES, cold["rules"]
+    assert cold["total_findings"] == 0, cold["findings"]
+    slowest = sorted(cold["rules"], key=lambda r: -r["ms"])[:3]
+    log(f"analyze cold: --strict --no-cache rc 0, {len(cold['rules'])} "
+        f"rules, {cold['files']} files, 0 findings; {cold_s:.3f} s command, "
+        f"{cold['duration_ms'] / 1e3:.3f} s in process; slowest rules "
+        f"{[(r['rule'], r['ms']) for r in slowest]} [{card}]")
+
+    # the sidecar's prime, --list and the dynamic leg, at once
+    dyn_json = os.path.join(out, "dynamic.json")
+    jobs = {"prime": ["--strict", "--json", os.path.join(out, "prime.json")],
+            "list": ["--list"],
+            "dynamic": ["--dynamic", "--seeds", "1", "--rules",
+                        ANALYZE_DYNAMIC_RULES, "--json", dyn_json]}
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        done = {k: pool.submit(analyze_cli, a) for k, a in jobs.items()}
+        res = {k: f.result() for k, f in done.items()}
+    for name, (rc, _o, err, _s) in res.items():
+        assert rc == 0, f"analyze {name} exited {rc}:\n{err}"
+    ids = [ln.split()[0] for ln in res["list"][1].splitlines() if ln.strip()]
+    assert len(ids) == ANALYZE_RULES and {
+        "torch-hot-path", "torch-bare-capture"} <= set(ids), ids
+    dyn = json.load(open(dyn_json))
+    reports = dyn["dynamic"]
+    assert reports and not any(r["failed"] for r in reports), reports
+    dyn_s = res["dynamic"][3]
+    log(f"analyze --list: {len(ids)} ids; --dynamic --seeds 1 on cuda:0: "
+        f"{len(reports)}/{len(reports)} reports clean, {dyn_s:.3f} s command "
+        f"(prime {res['prime'][3]:.3f} s, beside it) [{card}]")
+
+    # warm: the command, then in process (the sidecar replays, no parse)
+    warm_json = os.path.join(out, "warm.json")
+    rc, _o, err, warm_s = analyze_cli(["--strict", "--json", warm_json])
+    assert rc == 0, f"warm analyze exited {rc}:\n{err}"
+    warm = json.load(open(warm_json))
+    assert warm["cached"] is True and warm["total_findings"] == 0, warm
+    t0 = time.perf_counter()
+    findings, report = analysis_cache.cached_package_run()
+    warm_in = time.perf_counter() - t0
+    assert report["cached"] is True and findings == [], report
+    assert report["cache_stats"]["parsed"] == 0, report["cache_stats"]
+    assert warm_in <= 1.0, f"warm analyze took {warm_in:.3f} s in process"
+    log(f"analyze warm: cached, 0 files parsed; {warm_s:.3f} s command, "
+        f"{warm_in:.3f} s in process [{card}]")
+    return {"cold_s": cold_s, "warm_s": warm_s, "warm_in_s": warm_in,
+            "dynamic_s": dyn_s}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6145,6 +6244,10 @@ def main() -> int:
     wl_launches, wl_case = fleet_workload(torch, histogram, card)
     launches.update(wl_launches)
     phase_done("fleet_workload")
+    # the static analysis and the fold certificate (subprocesses; they
+    # launch no kernel of this process)
+    analyze_paths(card)
+    phase_done("analyze")
     for case in [mi_case, ms_case] + text_cases + [dag_case] + mesh_cases \
             + [mt_case, wl_case]:
         entries.append(histogram_entry(case))

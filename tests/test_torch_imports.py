@@ -63,7 +63,11 @@ def test_importing_every_module_leaves_jax_out():
         "serve.fleet.backend", "serve.fleet.control", "serve.fleet.lease",
         "serve.fleet.router", "serve.fleet.watch", "workload.driver",
         "workload.generators", "workload.runner", "workload.scenario",
-        "workload.verdict")} <= names
+        "workload.verdict", "analysis", "analysis.cache", "analysis.cli",
+        "analysis.engine", "analysis.registries", "analysis.rules_algebra",
+        "analysis.rules_concurrency", "analysis.rules_config",
+        "analysis.rules_drivers", "analysis.rules_io", "analysis.rules_serve",
+        "analysis.rules_torch")} <= names
 
 
 TORCH_FREE = ("avenir_tpu_torch.serve.slo", "avenir_tpu_torch.serve.frontend",
