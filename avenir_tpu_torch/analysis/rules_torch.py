@@ -54,6 +54,9 @@ HOT_PATHS: Dict[str, Tuple[str, ...]] = {
     # captured by GraphedCall (serve/engine.py NaiveBayesAdapter._compiled)
     "models/bayesian.py": ("BayesianPredictor._score_batch",
                            "BayesianPredictor._score_prepared_f32"),
+    # captured by GraphedCall (serve/engine.py
+    # MarkovClassifierAdapter._compiled)
+    "models/markov.py": ("_mmc_pair_log_odds",),
     # captured by GraphedCall (stream/posterior.py PosteriorStore._decide_fn)
     "stream/posterior.py": ("PosteriorStore._decide_fn", "_ucb_decide",
                             "_thompson_decide"),

@@ -43,8 +43,10 @@ into ``<dir>``.
 reference's jobs do: on a card, a data x model grid over every visible
 card (data x model must equal their count); with ``--device cpu``, the
 CPU named data x model times (the counterpart of the reference's virtual
-host devices; every position computes on the one CPU).  Unset, they run
-on the one device of ``--device``.
+host devices; every position computes on the one CPU).  Unset, a host
+with several cards runs them on every card along the data axis, the
+reference's default mesh, unless ``--device cuda:N`` or ``--device cpu``
+names one device; on one card they run on it alone.
 
 ``--resume`` sets ``checkpoint.resume=true``: a streaming job restarts
 from its sidecar checkpoint when one exists (core.checkpoint).
@@ -156,6 +158,12 @@ def resolve(name: str) -> tuple:
                      + "\n  ".join(sorted(JOBS)))
 
 
+def register(fqcn: str, module: str, cls: str, prefix: str = "") -> None:
+    """Add a job to ``JOBS``: ``cls`` in ``models.<module>``, its config
+    keys under ``prefix``."""
+    JOBS[fqcn] = (module, cls, prefix)
+
+
 def job_class(name: str):
     """The job class registered under ``name`` (short or FQCN)."""
     module, clsname, _ = resolve(name)
@@ -181,17 +189,24 @@ def job_resolver(device=None) -> Callable:
 
 
 def cli_mesh(device=None):
-    """The mesh a command runs on: ``parallel.mesh.get_mesh(device)`` when
-    ``AVENIR_MESH`` is set, else None (the one device of ``--device``)."""
+    """The mesh a command runs on, ``parallel.mesh.get_mesh(device)``:
+    the ``AVENIR_MESH`` grid when it is set; unset, every visible card on
+    the data axis when ``--device`` names no one device (absent, or
+    ``cuda`` without an index) and more than one card is visible, as the
+    reference's default mesh.  None otherwise (one card, ``cuda:N``,
+    ``cpu``): the command runs on the one device of ``--device``."""
+    from .parallel.mesh import every_card, get_mesh
     if not os.environ.get("AVENIR_MESH"):
-        return None
-    from .parallel.mesh import get_mesh
+        import torch
+        if not (every_card(device) and torch.cuda.is_available()
+                and torch.cuda.device_count() > 1):
+            return None
     return get_mesh(device)
 
 
 def run_mesh(device=None):
-    """``multi``'s and ``dag``'s mesh: ``cli_mesh`` when ``AVENIR_MESH``
-    is set, else the one device of ``--device``."""
+    """``multi``'s and ``dag``'s mesh: ``cli_mesh`` where it gives one,
+    else the one device of ``--device``."""
     from .device import resolve_device
     from .parallel.mesh import make_mesh
     return cli_mesh(device) or make_mesh([resolve_device(device)])

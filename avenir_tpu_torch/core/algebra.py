@@ -577,9 +577,9 @@ def run_dynamic(seeds: Sequence[int] = DEFAULT_SEEDS,
                 log: Optional[Callable[[str], None]] = None,
                 mesh=None) -> List[AlgebraReport]:
     """The whole certificate: every registered FoldSpec exporter on
-    ``mesh`` (default ``parallel.mesh.get_mesh()``, ``cuda:0``) plus the
-    snapshot and histogram merges; every report (a caller fails on any
-    ``failed``)."""
+    ``mesh`` (default ``parallel.mesh.get_mesh()``, every visible card)
+    plus the snapshot and histogram merges; every report (a caller fails
+    on any ``failed``)."""
     from ..parallel.mesh import get_mesh
 
     def say(msg):

@@ -92,6 +92,8 @@ class EncodedDataset:
       categorical).
     - ``y``: int32 [n] class-attribute vocab index.
     - ``num_bins``: per-column bin counts (count-table extents).
+    - ``ids_raw``: the id column, a list of str or the native ingest's
+      S-bytes array, decoded by ``ids`` on first access.
     """
 
     schema: FeatureSchema
@@ -104,6 +106,18 @@ class EncodedDataset:
     binned_mask: np.ndarray          # bool [F]: column is binned
     vocabs: Dict[int, Vocab]         # per feature ordinal (categorical cols)
     class_vocab: Vocab
+    ids_raw: object = None           # List[str] or S-bytes ndarray (lazy)
+
+    @property
+    def ids(self) -> List[str]:
+        """Row ids as Python strings, decoded from the native ingest's
+        bytes column on first access (the training path never pays for
+        it)."""
+        if self.ids_raw is None:
+            self.ids_raw = []
+        elif isinstance(self.ids_raw, np.ndarray):
+            self.ids_raw = [s.decode() for s in self.ids_raw.tolist()]
+        return self.ids_raw
 
     @property
     def n_rows(self) -> int:
@@ -198,9 +212,17 @@ class DatasetEncoder:
     def encode(self, records) -> EncodedDataset:
         """Encode records (a 2-D string ndarray or an iterable of field
         lists) into the columnar form, one numpy pass per schema column."""
-        return self._assemble(*self._encode_columns(records))
+        bulk = isinstance(records, np.ndarray) and records.ndim == 2
+        if not (bulk or isinstance(records, list)):
+            records = [list(r) for r in records]
+        ids = []
+        if self.id_field is not None and len(records):
+            o = self.id_field.ordinal
+            ids = [str(s) for s in (records[:, o] if bulk
+                                    else [r[o] for r in records])]
+        return self._assemble(*self._encode_columns(records), ids)
 
-    def _assemble(self, x, values, y) -> EncodedDataset:
+    def _assemble(self, x, values, y, ids=None) -> EncodedDataset:
         """Negative-bin shift, bin extents, dataset packing."""
         ffields = self.feature_fields
         n = x.shape[0]
@@ -231,7 +253,7 @@ class DatasetEncoder:
             schema=self.schema, feature_fields=ffields, x=x, values=values,
             y=y, num_bins=num_bins, bin_offset=bin_offset,
             binned_mask=binned_mask, vocabs=self.vocabs,
-            class_vocab=self.class_vocab)
+            class_vocab=self.class_vocab, ids_raw=ids)
 
     # -- the native C encode --------------------------------------------
 
@@ -252,8 +274,8 @@ class DatasetEncoder:
 
     def _specs_for_cols(self, n_cols: int):
         """``(specs, n_cols)`` for the C encode of ``n_cols``-column
-        input, or None on a schema misfit.  Row ids are never parsed: the
-        port's dataset keeps none."""
+        input, or None on a schema misfit.  Only the one-shot encode
+        parses the row ids; the chunked encodes keep none."""
         from .. import native
 
         specs = []
@@ -304,13 +326,14 @@ class DatasetEncoder:
         if sp is None:
             return None
         specs, n_cols = sp
+        id_ord = self.id_field.ordinal if self.id_field is not None else -1
         res = native.encode_schema(path, specs, n_cols,
                                    len(self.feature_fields), True,
-                                   id_ordinal=-1, delim=delim)
+                                   id_ordinal=id_ord, delim=delim)
         if res is None:
             return None
         _, x, values, y = self._remap_native(res)
-        return self._assemble(x, values, y)
+        return self._assemble(x, values, y, res[4])
 
     def encode_buffer_chunk(self, chunk: bytes, delim: str = ","):
         """The C encode of one raw byte chunk with the shared

@@ -20,6 +20,11 @@ class JobConfig:
         self.props: Dict[str, str] = dict(props or {})
         self.prefix = prefix
 
+    @classmethod
+    def from_file(cls, path: str, prefix: str = "") -> "JobConfig":
+        with open(path, "r") as fh:
+            return cls(parse_properties(fh.read()), prefix)
+
     def _raw(self, key: str):
         if self.prefix:
             v = self.props.get(f"{self.prefix}.{key}", self._MISSING)

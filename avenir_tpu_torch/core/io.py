@@ -480,6 +480,10 @@ class OutputWriter:
             raise TypeError("text writer: use write")
         self._fh.write(data)
 
+    def write_all(self, lines: Iterable[str]) -> None:
+        for line in lines:
+            self.write(line)
+
     def _tear(self) -> None:
         """The ``torn_write`` fault point: the crash of an in-place writer
         mid-write.  Half the staged bytes land under the final name, with

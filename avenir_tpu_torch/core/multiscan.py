@@ -32,13 +32,13 @@ Three layers, as the reference's:
 The encode and the copy run on the prefetch worker and the folds on the
 calling thread, both on the device's current (default) CUDA stream, so a
 fold is queued after its copy.  The engine runs on a ``device`` or a
-``mesh`` (default ``parallel.mesh.get_mesh()``, ``cuda:0``); on a mesh of
-several positions every chunk pads to the position count and each position
-folds its rows (``ChunkFold(mesh=)``).  The reference pads every chunk to a
-fixed capacity, and the Markov spec's variable-length pair streams to
-power-of-two buckets, so XLA compiles one shape; the port runs eagerly and
-does not pad on one device, so ``FoldSpec.fixed_capacity`` is kept (the
-Markov spec sets it) and ignored.
+``mesh`` (default ``parallel.mesh.get_mesh()``, every visible card); on a
+mesh of several positions every chunk pads to the position count and each
+position folds its rows (``ChunkFold(mesh=)``).  The reference pads every
+chunk to a fixed capacity, and the Markov spec's variable-length pair
+streams to power-of-two buckets, so XLA compiles one shape; the port runs
+eagerly and does not pad on one device, so ``FoldSpec.fixed_capacity`` is
+kept (the Markov spec sets it) and ignored.
 
 ``python -m avenir_tpu_torch multi`` drives this from a properties manifest
 (``multi.jobs=...`` with per-job class, conf and output keys; see

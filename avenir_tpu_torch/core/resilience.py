@@ -105,6 +105,10 @@ _POLICY = RetryPolicy()
 _COUNTERS = Counters()
 
 
+def get_policy() -> RetryPolicy:
+    return _POLICY
+
+
 def set_policy(policy: RetryPolicy) -> RetryPolicy:
     global _POLICY
     _POLICY = policy
@@ -191,6 +195,9 @@ NON_RETRYABLE: Dict[str, str] = {
     "core/io.py:load_manifest":
         "the _MANIFEST read when an artifact is loaded: an unreadable "
         "manifest IS the torn-artifact signal, not a transient",
+    "core/config.py:JobConfig.from_file":
+        "a properties file loaded by path: a wrong path is a user error "
+        "that no retry repairs",
     "core/config.py:load_job_config":
         "the -Dconf.path properties load at job start: a wrong path is a "
         "user error that no retry repairs",

@@ -70,8 +70,19 @@ class FeatureField:
     def is_integer(self) -> bool:
         return self.dataType == "int"
 
+    def is_double(self) -> bool:
+        return self.dataType == "double"
+
+    def is_numeric(self) -> bool:
+        return self.dataType in ("int", "double")
+
     def is_bucket_width_defined(self) -> bool:
         return self.bucketWidth is not None and self.bucketWidth > 0
+
+    def is_class_attr(self) -> bool:
+        # the explicit flag wins; otherwise "neither feature nor id", as in
+        # chombo
+        return bool(self.classAttr) or (not self.feature and not self.id)
 
     def num_bins(self) -> int:
         """Static bin count for the dense count tensors.
@@ -108,6 +119,9 @@ class FeatureSchema:
         from .io import read_lines
         return cls.from_json("\n".join(read_lines(path)))
 
+    def get_fields(self) -> List[FeatureField]:
+        return self.fields
+
     def feature_fields(self) -> List[FeatureField]:
         return [f for f in self.fields if f.is_feature()]
 
@@ -131,6 +145,15 @@ class FeatureSchema:
             if f.ordinal == ordinal:
                 return f
         raise KeyError(f"no field with ordinal {ordinal}")
+
+    def field_by_name(self, name: str) -> FeatureField:
+        for f in self.fields:
+            if f.name == name:
+                return f
+        raise KeyError(f"no field named {name}")
+
+    def max_ordinal(self) -> int:
+        return max(f.ordinal for f in self.fields)
 
 
 @dataclass

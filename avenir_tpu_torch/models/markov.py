@@ -653,7 +653,8 @@ class MarkovModelClassifier:
         the encoded ``[n, Lmax]`` sequence matrix with -1 up to a serving
         bucket, so the scorer sees a fixed set of shapes; padding adds
         exact ``+0.0`` at the end of the ordered sum, so it cannot move a
-        score."""
+        score.  ``score_fn`` (a serving bucket's scorer) stands for
+        ``_mmc_pair_log_odds`` and takes the pair tensors on the host."""
         self._prepare()
         if not usable:
             return []
@@ -668,11 +669,15 @@ class MarkovModelClassifier:
                 axis=0)
         frm, to = _transition_pairs(seq)
         valid = (frm >= 0) & (to >= 0)
-        fn = score_fn if score_fn is not None else _mmc_pair_log_odds
-        dev = self.device
-        total = fn(torch.from_numpy(np.ascontiguousarray(frm)).to(dev),
-                   torch.from_numpy(np.ascontiguousarray(to)).to(dev),
-                   torch.from_numpy(valid).to(dev), self._lo)
+        pairs = [torch.from_numpy(np.ascontiguousarray(a))
+                 for a in (frm, to, valid)]
+        if score_fn is None:
+            total = _mmc_pair_log_odds(
+                *(t.to(self.device) for t in pairs), self._lo)
+        else:
+            # a serving scorer takes the pairs from the host: on a card it
+            # is a CUDA graph, which copies them in itself
+            total = score_fn(*pairs, self._lo)
         return total.cpu().numpy()[:n].tolist()
 
     def classify_records(self, records: List[List[str]], counters: Counters,

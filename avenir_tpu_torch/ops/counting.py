@@ -20,20 +20,17 @@ out of range, or whose row is masked, adds nothing.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 
-def count_table(sizes: Sequence[int], indices: Sequence[torch.Tensor],
-                weights: Optional[torch.Tensor] = None,
-                mask: Optional[torch.Tensor] = None,
-                dtype: torch.dtype = torch.int32) -> torch.Tensor:
-    """Dense count tensor ``C[sizes]`` with ``C[idx...] += w`` per element
-    (``index_add_`` over the raveled key).  ``indices`` broadcast against
-    each other; out-of-range or masked elements add nothing."""
-    sizes = tuple(int(s) for s in sizes)
+def _raveled_keys(sizes: Sequence[int], indices: Sequence[torch.Tensor],
+                  mask: Optional[torch.Tensor]):
+    """``(flat, valid)``: every element's row-major raveled key over
+    ``sizes`` (0 where invalid) and whether it counts, in range on every
+    axis and not masked.  ``indices`` and ``mask`` broadcast together."""
     idx = torch.broadcast_tensors(*[torch.as_tensor(i).to(torch.int64)
                                     for i in indices])
     shape = idx[0].shape
@@ -44,17 +41,54 @@ def count_table(sizes: Sequence[int], indices: Sequence[torch.Tensor],
         flat = flat * size + i
     if mask is not None:
         valid &= torch.as_tensor(mask, device=valid.device).expand(shape)
+    return torch.where(valid, flat, 0), valid
+
+
+def count_table(sizes: Sequence[int], indices: Sequence[torch.Tensor],
+                weights: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None,
+                dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """Dense count tensor ``C[sizes]`` with ``C[idx...] += w`` per element
+    (``index_add_`` over the raveled key).  ``indices`` broadcast against
+    each other; out-of-range or masked elements add nothing."""
+    sizes = tuple(int(s) for s in sizes)
+    flat, valid = _raveled_keys(sizes, indices, mask)
     if weights is None:
         w = valid.to(dtype)
     else:
         w = torch.where(valid, torch.as_tensor(weights, device=valid.device)
-                        .to(dtype).expand(shape),
+                        .to(dtype).expand(valid.shape),
                         torch.zeros((), dtype=dtype, device=valid.device))
-    flat = torch.where(valid, flat, 0)
     total = int(np.prod(sizes)) if sizes else 1
     out = torch.zeros(total, dtype=dtype, device=valid.device)
     out.index_add_(0, flat.reshape(-1), w.reshape(-1))
     return out.reshape(sizes)
+
+
+def moment_table(sizes: Sequence[int], indices: Sequence[torch.Tensor],
+                 values: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None,
+                 dtype: torch.dtype = torch.float64
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(count, sum, sum-of-squares) tables for Gaussian parameter
+    estimation (the reference's (1, v, v^2) tuple emission,
+    bayesian/BayesianDistribution.java:156-171).  One validity pass and
+    one scatter: the three channels ride a trailing axis of one
+    ``index_add_``.  Counts are int64 (exact below 2^53 a cell), the sums
+    ``dtype``, float64 as under the reference's x64; everything lies on
+    the device of ``indices``."""
+    sizes = tuple(int(s) for s in sizes)
+    flat, valid = _raveled_keys(sizes, indices, mask)
+    dev = valid.device
+    vals = torch.as_tensor(values, device=dev).to(dtype).expand(valid.shape)
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    w = torch.stack([valid.to(dtype), torch.where(valid, vals, zero),
+                     torch.where(valid, vals * vals, zero)], dim=-1)
+    total = int(np.prod(sizes)) if sizes else 1
+    out = torch.zeros((total, 3), dtype=dtype, device=dev)
+    out.index_add_(0, flat.reshape(-1), w.reshape(-1, 3))
+    out = out.reshape(sizes + (3,))
+    return out[..., 0].to(torch.int64), out[..., 1], out[..., 2]
 
 
 def bin_raw(xraw: torch.Tensor, widths: Sequence[int]) -> torch.Tensor:

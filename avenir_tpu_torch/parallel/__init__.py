@@ -4,6 +4,7 @@ counterpart of ``avenir_tpu/parallel``."""
 from .mesh import (  # noqa: F401
     Mesh,
     all_gather,
+    data_axis_size,
     get_mesh,
     make_mesh,
     pad_rows,

@@ -111,16 +111,21 @@ def make_mesh(devices: Optional[Sequence] = None, data: Optional[int] = None,
 
 
 def get_mesh(device=None) -> Mesh:
-    """The default mesh: ``AVENIR_MESH=<data>x<model>`` when set, else the
-    one device ``device`` (``cuda:0`` by default).  On CUDA the set form
-    spans every visible card (data x model must equal the card count); on
-    the CPU (``device='cpu'``) it names the CPU data x model times, the
-    counterpart of the reference's virtual host devices.  Raises without
-    a card unless the CPU is asked for."""
+    """The default mesh: ``AVENIR_MESH=<data>x<model>`` when set, else
+    every visible card on the data axis (``make_mesh()``), as the
+    reference's ``get_mesh`` does.  ``device`` narrows the unset form: a
+    card with an index (``cuda:2``) or the CPU gives a mesh of that one
+    device; ``None`` or ``cuda`` without an index takes every card.  On
+    CUDA the set form spans every visible card (data x model must equal
+    the card count); on the CPU (``device='cpu'``) it names the CPU data x
+    model times, the counterpart of the reference's virtual host devices.
+    Raises without a card unless the CPU is asked for."""
     from ..device import resolve_device
     dev = resolve_device(device)
     spec = os.environ.get("AVENIR_MESH")
     if not spec:
+        if dev.type == "cuda" and every_card(device):
+            return make_mesh()
         return make_mesh([dev])
     try:
         data_s, model_s = spec.lower().split("x")
@@ -136,6 +141,20 @@ def get_mesh(device=None) -> Mesh:
                       f"({torch.cuda.device_count()})")
         raise ValueError(f"bad AVENIR_MESH={spec!r}; expected "
                          f"<data>x<model> with {count}") from e
+
+
+def every_card(device=None) -> bool:
+    """True when ``device`` asks for no one device: ``None``, or ``cuda``
+    without an index.  ``cuda:N`` and ``cpu`` name one device."""
+    if device is None:
+        return True
+    dev = torch.device(device)
+    return dev.type == "cuda" and dev.index is None
+
+
+def data_axis_size(mesh: Optional[Mesh] = None) -> int:
+    mesh = mesh or get_mesh()
+    return mesh.shape["data"]
 
 
 def pad_rows(arr: np.ndarray, multiple: int,

@@ -587,11 +587,12 @@ class NearestNeighborAdapter(ModelAdapter):
 class MarkovClassifierAdapter(ModelAdapter):
     """Wraps ``MarkovModelClassifier``: its log-ratio table lives on the
     adapter's device, and the scorer (the batch job's own
-    ``_mmc_pair_log_odds``) is bucketed on both axes: rows by powers of
-    two, sequence lengths by the ``seq.buckets`` config list (default
-    "16,64") with power-of-two fallback above the largest.  The ordered
-    log-odds sum makes the padding invisible, so each response is the
-    batch classifier's line byte for byte."""
+    ``_mmc_pair_log_odds``, a CUDA graph a bucket pair on a card) is
+    bucketed on both axes: rows by powers of two, sequence lengths by the
+    ``seq.buckets`` config list (default "16,64") with power-of-two
+    fallback above the largest.  The ordered log-odds sum makes the
+    padding invisible, so each response is the batch classifier's line
+    byte for byte."""
 
     KIND = "markovClassifier"
 
@@ -625,21 +626,26 @@ class MarkovClassifierAdapter(ModelAdapter):
         return pow2_bucket(length)
 
     def _compiled(self, bucket: int, len_bucket: int):
-        from ..models.markov import _mmc_pair_log_odds
+        # the reference's compiled program a (row, length) bucket pair: on
+        # a card a CUDA graph (the gather and the ordered sum's one add a
+        # pair column replayed as one launch), built through
+        # profiled_build and shared like the NB scorer; eager on the CPU
+        def build():
+            from ..models.markov import _mmc_pair_log_odds
+            fn = _mmc_pair_log_odds
+            if self.device.type == "cuda":
+                fn = GraphedCall(fn, self.device)
+            return telemetry.profiled_build(
+                fn, f"serve.markov.score.b{bucket}.l{len_bucket}")
         return self.cache.get(
-            ("markov", self._shape_sig, bucket, len_bucket),
-            lambda: telemetry.profiled_build(
-                _mmc_pair_log_odds,
-                f"serve.markov.score.b{bucket}.l{len_bucket}"))
+            ("markov", self._shape_sig, bucket, len_bucket,
+             str(self.device)), build)
 
     def warm(self, bucket: int) -> None:
         for lb in self.seq_buckets:
-            fn = self._compiled(bucket, lb)
-            frm = torch.full((bucket, lb - 1), -1, dtype=torch.int32,
-                             device=self.device)
-            valid = torch.zeros((bucket, lb - 1), dtype=torch.bool,
-                                device=self.device)
-            fn(frm, frm, valid, *self.tensors()).cpu()
+            frm = torch.full((bucket, lb - 1), -1, dtype=torch.int32)
+            valid = torch.zeros((bucket, lb - 1), dtype=torch.bool)
+            self._compiled(bucket, lb)(frm, frm, valid, *self.tensors())
 
     def predict_lines(self, lines: List[str]) -> List[Optional[str]]:
         clf = self.classifier

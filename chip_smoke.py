@@ -34,11 +34,15 @@ path on the card and again on the CPU:
    ``--resume`` after an ``h2d@9`` fault and a ``worker_death@8`` (and a
    sidecar carried card to CPU and back), a checkpointed run's rate, and row
    quarantine of 300 malformed rows under ``ingest.error.budget=0.01``
-   (model and sidecar, card against CPU);
+   (model and sidecar, card against CPU); the CPU scores the test set's
+   50,000 distinct rows (which it repeats eight times), held against each
+   repeat of the card's lines, and both prob-only outputs and the float32
+   parity check run over those rows;
 2. the kNN classification job at the width of the repo's kNN benchmark
    (16,384 training and 16,384 test rows of 256 numeric features,
    ``output.top.matches=16``, kernel K3 and its segment merge), then
-   top-16 voting, through ``avenir_tpu_torch.cli.main``;
+   top-16 voting, through ``avenir_tpu_torch.cli.main``; the CPU runs the
+   first 2,048 test rows against every training row;
 3. the ``resource/knn_classify/run.sh`` sequence at its 120-row size;
 4. ``mesh``: the multi-device engines on meshes that name cuda:0 up to
    four times (every hop and launch of the four-device program; no bytes
@@ -84,12 +88,18 @@ path on the card and again on the CPU:
    the family at a real size from vectorized generators of the same
    chains: the trainer streamed over 125,000 sequences (cold, then warm
    off the pair cache), the classifier at float64 and float32 on 100,000,
-   the HMM builder on 200,000 tagged rows and Viterbi on 100,000;
+   the HMM builder on 200,000 tagged rows and Viterbi on 100,000 (the CPU
+   runs the classifier and Viterbi on their first 20,000 rows, whose
+   lines must be the head of the card's);
 10. ``serve_markov``: ``python -m avenir_tpu_torch serve`` with the
    churn_markov model as a ``markovClassifier`` in f32 and f64 variants,
    16 concurrent single-row clients and batch requests of 1-64 rows, each
    response byte-identical to the batch classifier's line, no scorer
-   built after warmup;
+   built after warmup; then in process under ``torch.profiler`` (device
+   events a batch, one CUDA graph replay a batch and no kernel launch
+   from the host), and the scorer's graph against its eager chain at row
+   buckets 1, 8 and 64 and length buckets 16 and 64 (equal bits, call
+   times);
 11. ``mi_corr``: ``resource/hosp_readmit_mi``, ``resource/churn_cramer``
    and ``resource/correlation_suite``'s two correlation legs through the
    command line, then bench.py:840's shared-scan cell (400,000 churn rows,
@@ -157,7 +167,7 @@ path on the card and again on the CPU:
 19. ``host_jobs``: the class_balance, event_burst, event_seq_gsp,
    bandit_variants and price_optimize runbooks through the port
    (``avenir_tpu_torch.runbook``: rewritten scratch copies in
-   subprocesses, six at once) with ``--device cuda`` (their jobs run on
+   subprocesses, six at once, the longest first) with ``--device cuda`` (their jobs run on
    the host: a CPU leg would run the same code again); the runbooks
    below on the card and on the CPU, every file equal;
    ``BanditFeedbackAggregator`` over 500,000 events on the card and on
@@ -208,10 +218,10 @@ path on the card and again on the CPU:
    and idle share;
 22. ``analyze``: ``python -m avenir_tpu_torch analyze`` over the port's
    own source in subprocesses: ``--strict --no-cache --json`` (exit 0,
-   17 rules, no finding), then the sidecar's prime,
+   17 rules, no finding), the sidecar's prime,
    ``--list`` (17 ids) and ``--dynamic --seeds 1`` on cuda:0 (the fold
    certificate over fold-purity, merge-closure and carry-portability,
-   every report clean) at once, then a warm ``--strict`` off the
+   every report clean), all four at once, then a warm ``--strict`` off the
    ``.avenir-analyze-torch/`` sidecar (cached, no file parsed, at most
    1 s in process); the cold, warm and dynamic seconds.
 
@@ -269,6 +279,7 @@ NB_CACHE_CFG = dict(NB_CFG, **{"ingest.cache.enable": "true",
                                "ingest.cache.dir":
                                    os.path.join(WORK, "ingestcache")})
 KNN_ROWS, KNN_F, KNN_K = 16_384, 256, 16
+KNN_CPU_TEST = 2_048       # the CPU's test rows, against every training row
 I32_MIN, I32_MAX = -2 ** 31, 2 ** 31 - 1
 # K2's int32-range case: small, odd and the largest widths, and enough bins
 # (a 128 KB table, one block's) that quotients up to 2,047 are counted
@@ -1169,12 +1180,13 @@ def warm_breakdown(torch, train_dir: str, cache_cfg: dict, card: str) -> None:
     report_device(by_kind, wall_s, "histogram kernel", card)
 
 
-def profile_device(torch, fn, kernels: dict):
+def profile_device(torch, fn, kernels: dict, calls=None):
     """Run ``fn`` once under ``torch.profiler``; device time by kind
     (``kernels`` maps a kind to a substring of the kernel's name) plus
     host-to-device copies and the rest, and the wall time.  Only
     device-side events count: a CPU op's row repeats the device time of
-    the kernels it launched."""
+    the kernels it launched.  ``calls`` (a substring of a CUDA runtime
+    call's name -> 0) gets the number of such calls the host made."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1190,6 +1202,9 @@ def profile_device(torch, fn, kernels: dict):
                     "other device work": [0.0, 0]})
     others = []
     for e in prof.key_averages():
+        if calls is not None and e.device_type == DeviceType.CPU:
+            for name in calls:
+                calls[name] += e.count if name in e.key else 0
         us = getattr(e, "self_device_time_total", 0) or 0
         if not us or e.device_type == DeviceType.CPU:
             continue
@@ -1252,10 +1267,10 @@ def nb_paths(torch, histogram, train_dir, test_dir, card) -> dict:
                                     str(prob_only).lower()})
         return BayesianPredictor(JobConfig(cfg, "bp"), device=device)
 
-    def score(model, precision, device, out, prob_only=False):
+    def score(model, precision, device, out, prob_only=False, src=test_dir):
         job = predictor(model, precision, device, prob_only)
         t = time.perf_counter()
-        counters = job.run(test_dir, out)
+        counters = job.run(src, out)
         return counters, time.perf_counter() - t
 
     def w(name):
@@ -1296,34 +1311,44 @@ def nb_paths(torch, histogram, train_dir, test_dir, card) -> dict:
         raise AssertionError("warm or cache-writing model differs from the "
                              "no-cache model")
 
-    # -- scoring on the card ---------------------------------------------
+    # -- scoring on the card; the prob-only outputs over the test set's
+    # distinct rows (its first BASE_ROWS, which it repeats) -------------
+    reps = n_test // BASE_ROWS
+    with open(os.path.join(test_dir, "part-00000"), "rb") as fh:
+        distinct = write_part(w("test_distinct"), b"".join(
+            next(fh) for _ in range(BASE_ROWS)))
     _, score64_s = score(w("model_cuda"), "float64", "cuda", w("pred64_cuda"))
     _, score32_s = score(w("model_cuda"), "float32", "cuda", w("pred32_cuda"))
     for prec in ("float64", "float32"):
-        score(w("model_cuda"), prec, "cuda", w(f"prob{prec}_cuda"), True)
+        score(w("model_cuda"), prec, "cuda", w(f"prob{prec}_cuda"), True,
+              src=distinct)
 
-    # -- the same jobs on the CPU; outputs must agree ------------------------
+    # -- the same jobs on the CPU; outputs must agree.  The CPU scores the
+    # distinct rows, and every repeat of the card's lines must equal them --
     _, train_cpu_s = train("cpu", w("model_cpu"))
     _, score64_cpu_s = score(w("model_cpu"), "float64", "cpu",
-                             w("pred64_cpu"))
+                             w("pred64_cpu"), src=distinct)
     if read_bytes(w("model_cpu")) != cold:
         raise AssertionError("model file differs between cuda and cpu")
     p64 = read_bytes(w("pred64_cuda"))
-    if p64 != read_bytes(w("pred64_cpu")):
+    if p64 != read_bytes(w("pred64_cpu")) * reps:
         raise AssertionError("float64 predictions differ between cuda and cpu")
     if p64.count(b"\n") != n_test:
         raise AssertionError("prediction count is not the scored row count")
     for prec in ("float64", "float32"):
-        score(w("model_cpu"), prec, "cpu", w(f"prob{prec}_cpu"), True)
+        score(w("model_cpu"), prec, "cpu", w(f"prob{prec}_cpu"), True,
+              src=distinct)
         got = read_bytes(w(f"prob{prec}_cuda"))
         if got != read_bytes(w(f"prob{prec}_cpu")) or \
-                got.count(b"\n") != n_test:
+                got.count(b"\n") != BASE_ROWS:
             raise AssertionError(f"{prec} prob-only output differs between "
                                  f"cuda and cpu")
 
-    records = [split_line(l) for l in read_lines(test_dir)]
-    _, tables, probs64, _, _ = predictor(w("model_cpu"), "float64",
-                                         "cpu").score(records)
+    # float32 against float64 over the distinct test rows, both on the card
+    # (its float64 lines are the CPU's, above)
+    records = [split_line(l) for l in read_lines(distinct)]
+    _, tables, probs64, _, _ = predictor(w("model_cuda"), "float64",
+                                         "cuda").score(records)
     ds, _, probs32, _, _ = predictor(w("model_cuda"), "float32",
                                      "cuda").score(records)
     post, prior, gauss_post, gauss_prior, class_prior, is_cont = tables
@@ -1331,7 +1356,7 @@ def nb_paths(torch, histogram, train_dir, test_dir, card) -> dict:
                                              gauss_post, gauss_prior, is_cont)
     viol = BayesianPredictor.f32_score_parity_violations(
         probs64, probs32, lfp, lfpo, class_prior, ln_healthy=math.log(1e-250))
-    log(f"float32 (cuda) vs float64 (cpu) parity: {viol}")
+    log(f"float32 vs float64 parity (cuda): {viol}")
     if viol["healthy"] or viol["tail"] or not viol["n_healthy"]:
         raise AssertionError(f"float32 scoring parity contract broken: {viol}")
     scorer_cost(torch, ds, tables, card)
@@ -1350,9 +1375,11 @@ def nb_paths(torch, histogram, train_dir, test_dir, card) -> dict:
     log(f"NB score float32 (cuda): {n_test / score32_s:.0f} rows/s "
         f"({score32_s:.3f} s) [{card}]")
     log(f"NB train (cpu): {TRAIN_ROWS / train_cpu_s:.0f} rows/s; score "
-        f"float64 (cpu): {n_test / score64_cpu_s:.0f} rows/s")
-    log("NB model (cold, cache-writing, warm), float64 predictions and both "
-        "prob-only outputs: byte-identical cuda vs cpu")
+        f"float64 (cpu, the {BASE_ROWS} distinct test rows): "
+        f"{BASE_ROWS / score64_cpu_s:.0f} rows/s")
+    log(f"NB model (cold, cache-writing, warm), float64 predictions (each of "
+        f"the card's {reps} repeats of the distinct test rows) and both "
+        f"prob-only outputs (the distinct rows): byte-identical cuda vs cpu")
     warm_breakdown(torch, train_dir, cache_cfg, card)
     return launches
 
@@ -1617,14 +1644,15 @@ def pair_rows(path):
 
 
 def compare_pairs(torch, cuda_out, cpu_out, feats, label) -> set:
-    """The pair files of the card and the CPU: equal, or per test row the
-    same neighbors up to the reference's one-unit rounding contract
-    (values within one unit, each index set carrying float64-oracle
-    distances within one unit of the oracle's own k smallest).  Returns the
-    test ids whose lines differ."""
+    """The pair files of the card and the CPU, over the test rows the CPU
+    scored: equal, or per test row the same neighbors up to the
+    reference's one-unit rounding contract (values within one unit, each
+    index set carrying float64-oracle distances within one unit of the
+    oracle's own k smallest).  Returns the test ids whose lines differ."""
     a, b = pair_rows(cuda_out), pair_rows(cpu_out)
-    if a.keys() != b.keys():
+    if not b or not b.keys() <= a.keys():
         raise AssertionError(f"{label}: test rows differ")
+    a = {t: a[t] for t in b}
     differ = {t for t in a if a[t] != b[t]}
     if len(differ) > max(1, len(a) // 100):
         raise AssertionError(f"{label}: {len(differ)} of {len(a)} test rows "
@@ -1651,8 +1679,9 @@ def compare_pairs(torch, cuda_out, cpu_out, feats, label) -> set:
 
 def knn_paths(torch, topk, card) -> tuple:
     """The kNN job at full width through the port's command line, on the
-    card and on the CPU, then top-16 voting; then the knn_classify
-    runbook.  Returns the main-path launches ``{"K3": n, "K3merge": n}``
+    card and on the CPU (the CPU over the first ``KNN_CPU_TEST`` test rows,
+    against all the training rows), then top-16 voting; then the
+    knn_classify runbook.  Returns the main-path launches ``{"K3": n, "K3merge": n}``
     and the job's data (for the serving phase)."""
     d, inp, sim, vote, feats = write_knn_data()
 
@@ -1676,14 +1705,21 @@ def knn_paths(torch, topk, card) -> tuple:
                              f"{fused} fused-engine calls")
     if launches["K3merge"] < 1:
         raise AssertionError("the kNN job's K3 call merged no segments")
-    text_cpu, dist_cpu_s = job("SameTypeSimilarity", sim, inp,
+    inp_cpu = os.path.join(d, "inp_cpu")
+    os.makedirs(inp_cpu)
+    shutil.copy(os.path.join(inp, "tr-00000"), inp_cpu)
+    with open(os.path.join(inp, "te-00000"), "rb") as src, \
+            open(os.path.join(inp_cpu, "te-00000"), "wb") as dst:
+        dst.write(b"".join(next(src) for _ in range(KNN_CPU_TEST)))
+    text_cpu, dist_cpu_s = job("SameTypeSimilarity", sim, inp_cpu,
                                os.path.join(d, "simi_cpu"), "cpu")
-    if counter(text_cpu, "Basic", "Pairs emitted") != KNN_ROWS * KNN_K:
+    if counter(text_cpu, "Basic", "Pairs emitted") != KNN_CPU_TEST * KNN_K:
         raise AssertionError("the distance job emitted the wrong pair count")
     differ = compare_pairs(torch, os.path.join(d, "simi_cuda"),
                            os.path.join(d, "simi_cpu"), feats, "pair files")
-    log(f"kNN pair files cuda vs cpu: {len(differ)} of {KNN_ROWS} test rows "
-        f"differ, each within the one-unit oracle-confirmed contract")
+    log(f"kNN pair files cuda vs cpu: {len(differ)} of the {KNN_CPU_TEST} "
+        f"test rows the CPU scored differ, each within the one-unit "
+        f"oracle-confirmed contract")
 
     _, vote_s = job("NearestNeighbor", vote, os.path.join(d, "simi_cuda"),
                     os.path.join(d, "pred_cuda"), "cuda")
@@ -1691,19 +1727,20 @@ def knn_paths(torch, topk, card) -> tuple:
         os.path.join(d, "pred_cpu"), "cpu")
     pa = read_bytes(os.path.join(d, "pred_cuda")).decode().splitlines()
     pb = read_bytes(os.path.join(d, "pred_cpu")).decode().splitlines()
-    bad = [x for x, y in zip(pa, pb) if x != y
-           and x.split(",")[0] not in differ]
-    if len(pa) != KNN_ROWS or len(pb) != KNN_ROWS or bad:
+    by_id = {x.split(",")[0]: x for x in pa}
+    bad = [y for y in pb if by_id.get(y.split(",")[0]) != y
+           and y.split(",")[0] not in differ]
+    if len(pa) != KNN_ROWS or len(pb) != KNN_CPU_TEST or bad:
         raise AssertionError(f"kNN predictions differ outside the rows "
                              f"whose pair lines differed: {bad[:3]}")
-    n_pred_diff = sum(x != y for x, y in zip(pa, pb))
+    n_pred_diff = sum(by_id.get(y.split(",")[0]) != y for y in pb)
     log(f"kNN predictions cuda vs cpu: byte-identical except "
         f"{n_pred_diff} rows, all among the {len(differ)} rows whose pair "
         f"lines differed")
     log(f"kNN distance job (cuda): {2 * KNN_ROWS / dist_s:.0f} rows/s "
         f"({dist_s:.3f} s for {KNN_ROWS} + {KNN_ROWS} rows, F={KNN_F}, "
-        f"top {KNN_K}) [{card}]; (cpu): {2 * KNN_ROWS / dist_cpu_s:.0f} "
-        f"rows/s")
+        f"top {KNN_K}) [{card}]; (cpu, {KNN_CPU_TEST} test rows): "
+        f"{(KNN_ROWS + KNN_CPU_TEST) / dist_cpu_s:.0f} rows/s")
     log(f"kNN voting job (cuda): {KNN_ROWS / vote_s:.0f} test rows/s "
         f"({vote_s:.3f} s) [{card}]")
 
@@ -2455,6 +2492,9 @@ APRIORI_CPU_ROWS = 25_000           # the card-against-CPU comparison's rows
 NL = b"\n"
 MARKOV_SEQS, MARKOV_CHUNK = 125_000, 65_536
 MARKOV_SCORED, HMM_TAGGED, HMM_DECODED = 100_000, 200_000, 100_000
+# the CPU's rows of the classifier's and Viterbi's inputs (their lines are
+# per row: the CPU's must be the head of the card's)
+MARKOV_CPU_ROWS = 20_000
 
 
 @contextlib.contextmanager
@@ -2915,13 +2955,18 @@ def markov_paths(torch, card) -> dict:
     scored = write_part(os.path.join(w, "scored"), seqs[:cut])
     tagged = write_part(os.path.join(w, "tagged"),
                         write_hmm_rows(HMM_TAGGED, 23, True))
-    obs = write_part(os.path.join(w, "obs"),
-                     write_hmm_rows(HMM_DECODED, 67, False))
+    obs_rows = write_hmm_rows(HMM_DECODED, 67, False)
+    obs = write_part(os.path.join(w, "obs"), obs_rows)
+    heads = {}
+    for name, data in (("scored", seqs[:cut]), ("obs", obs_rows)):
+        lines = data.splitlines(keepends=True)[:MARKOV_CPU_ROWS]
+        heads[name] = write_part(os.path.join(w, f"{name}_head"),
+                                 b"".join(lines))
     log(f"markov data: {MARKOV_SEQS} sequences, {HMM_TAGGED} tagged and "
         f"{HMM_DECODED} observation rows written in "
         f"{time.perf_counter() - t:.3f} s")
 
-    def steps(d: str, cache: bool):
+    def steps(d: str, cache: bool, scored: str, obs: str):
         """(label, argv, output) of the real-size runs writing under
         ``d``; the trainer with the pair cache when ``cache``."""
         model, hmm = os.path.join(d, "model"), os.path.join(d, "hmm")
@@ -2955,9 +3000,10 @@ def markov_paths(torch, card) -> dict:
                          os.path.join(d, "dec")], os.path.join(d, "dec"))]
 
     secs, got = {"cuda": {}, "cpu": {}}, {"cuda": {}, "cpu": {}}
-    card_steps = steps(os.path.join(w, "cuda"), cache=True)
+    card_steps = steps(os.path.join(w, "cuda"), True, scored, obs)
     for dev, todo in (("cuda", card_steps),
-                      ("cpu", steps(os.path.join(w, "cpu"), cache=False))):
+                      ("cpu", steps(os.path.join(w, "cpu"), False,
+                                    heads["scored"], heads["obs"]))):
         for label, argv, out in todo:
             t = time.perf_counter()
             text = run_job(argv + ["--device", dev])
@@ -2969,12 +3015,15 @@ def markov_paths(torch, card) -> dict:
     if got["cuda"]["trainer warm"] != got["cuda"]["trainer cold"]:
         raise AssertionError("the warm trainer's model differs from the "
                              "cold one")
-    bad = [label for label in got["cpu"]
-           if got["cpu"][label] != got["cuda"][label]]
+    per_row = ("classifier f64", "classifier f32", "Viterbi")
+    bad = [label for label, cpu in got["cpu"].items()
+           if not cpu or (not got["cuda"][label].startswith(cpu)
+                          if label in per_row else cpu != got["cuda"][label])]
     if bad:
         raise AssertionError(f"Markov {bad}: card and CPU outputs differ")
-    log("markov real size on cuda:0 and on the CPU, every output "
-        "byte-equal: " + "; ".join(
+    log(f"markov real size on cuda:0 and on the CPU, every output "
+        f"byte-equal (the classifier's and Viterbi's CPU lines, of their "
+        f"first {MARKOV_CPU_ROWS} rows, the head of the card's): " + "; ".join(
             f"{label} cuda {secs['cuda'][label]:.3f} s"
             + (f" cpu {secs['cpu'][label]:.3f} s"
                if label in secs["cpu"] else "")
@@ -3117,12 +3166,16 @@ def serve_markov(torch, card, arts) -> None:
         f"batch classifier (f32 and f64); scorer builds {builds0} at warmup, "
         f"{builds1 - builds0} after [{card}]")
     serve_markov_profiled(torch, conf, test, batch, card)
+    markov_graphs(torch, mmc, card)
 
 
 def serve_markov_profiled(torch, conf, test, batch, card) -> None:
     """The single-row traffic against an in-process server on cuda:0
-    under ``torch.profiler``: device busy time and idle share, every
-    replica's table on the card."""
+    under ``torch.profiler``: device events and busy time a batch, the
+    idle share, every replica's table on the card, and the scorer's
+    launches from the host: one CUDA graph replay a batch, no kernel
+    launch (before the graphs, run AW: 7,025 other device events over 103
+    batches, 166.9 rows/s)."""
     from avenir_tpu_torch.core.config import load_job_config
     from avenir_tpu_torch.serve import PredictionServer
 
@@ -3141,14 +3194,91 @@ def serve_markov_profiled(torch, conf, test, batch, card) -> None:
                    for (v, i), o in zip(items, outs)):
                 raise AssertionError("in-process serve responses differ")
 
+        def batches():
+            return srv.pool.merged_counters("seg").get("Serve", {}).get(
+                "Batches", 0)
+
+        b0 = batches()
+        calls = {"cudaGraphLaunch": 0, "LaunchKernel": 0}
         by_kind, wall_s = profile_device(torch, traffic,
-                                         {"log-odds gather": "index"})
+                                         {"log-odds gather": "index"}, calls)
+        n_batches = batches() - b0
+        n_events = sum(v[1] for v in by_kind.values())
         log(f"serve_markov in process ({n_rep} replicas, tables on cuda:0): "
-            f"{len(items)} single-row requests, {wall_s:.3f} s "
-            f"({len(items) / wall_s:.1f} rows/s) under the profiler")
+            f"{len(items)} single-row requests in {n_batches} batches, "
+            f"{wall_s:.3f} s ({len(items) / wall_s:.1f} rows/s) under the "
+            f"profiler; {n_events} device events, "
+            f"{n_events / max(n_batches, 1):.1f} per batch; from the host "
+            f"{calls['cudaGraphLaunch']} graph replays and "
+            f"{calls['LaunchKernel']} kernel launches (run AW, eager: 7,025 "
+            f"other device events over 103 batches, 166.9 rows/s) [{card}]")
         report_device(by_kind, wall_s, "log-odds gather", card)
+        if calls["cudaGraphLaunch"] != n_batches or calls["LaunchKernel"]:
+            raise AssertionError(
+                f"the Markov server's {n_batches} batches made "
+                f"{calls['cudaGraphLaunch']} graph replays and "
+                f"{calls['LaunchKernel']} kernel launches, not one replay "
+                f"a batch")
     finally:
         srv.stop()
+
+
+def markov_graphs(torch, mmc: str, card: str) -> None:
+    """The Markov server's scorer (``MarkovClassifierAdapter._compiled``,
+    a CUDA graph a row and length bucket on the card) against the eager
+    ``_mmc_pair_log_odds`` on the same pairs, f32 and f64, at row buckets
+    1, 8 and 64 and length buckets 16 and 64: equal bits; each one's call
+    time, in turns; no scorer built twice."""
+    import numpy as np
+
+    from avenir_tpu_torch.core.config import JobConfig, load_job_config
+    from avenir_tpu_torch.core.metrics import Counters
+    from avenir_tpu_torch.models.markov import _mmc_pair_log_odds
+    from avenir_tpu_torch.serve.engine import MarkovClassifierAdapter
+
+    rng = np.random.default_rng(9)
+    props = load_job_config({"conf.path": mmc}).props
+    for prec in ("float32", "float64"):
+        counters = Counters()
+        ad = MarkovClassifierAdapter(JobConfig(dict(
+            props, **{"mmc.score.precision": prec})), counters,
+            device="cuda")
+        lo = ad.tensors()[0]
+        S = lo.shape[0]
+        for b in (1, 8, 64):
+            for lb in ad.seq_buckets:
+                n_pairs = int(rng.integers(1, lb))
+                frm = np.full((b, lb - 1), -1, np.int32)
+                to = np.full((b, lb - 1), -1, np.int32)
+                frm[:, :n_pairs] = rng.integers(0, S, (b, n_pairs))
+                to[:, :n_pairs] = rng.integers(0, S, (b, n_pairs))
+                pairs = [torch.from_numpy(a) for a in
+                         (frm, to, (frm >= 0) & (to >= 0))]
+                graph = ad._compiled(b, lb)
+
+                def eager():
+                    return _mmc_pair_log_odds(
+                        *(t.cuda() for t in pairs), lo).cpu()
+
+                def graphed():
+                    return graph(*pairs, lo)
+
+                if not torch.equal(eager(), graphed()):
+                    raise AssertionError(f"the Markov {prec} scorer's graph "
+                                         f"differs at bucket {b} x {lb}")
+                ms = {}
+                for name, fn in (("eager", eager), ("graph", graphed),
+                                 ("graph", graphed), ("eager", eager)):
+                    ms.setdefault(name, []).append(time_ms(fn, 20))
+                fmt = lambda xs: "/".join(f"{x:.4f}" for x in xs)  # noqa: E731
+                log(f"Markov serving scorer {prec} at bucket {b} x length "
+                    f"{lb}: graph equals the eager chain; call ms eager "
+                    f"{fmt(ms['eager'])}, graph {fmt(ms['graph'])} [{card}]")
+        builds = counters.get("Serve", "Scorer compilations")
+        if builds != 3 * len(ad.seq_buckets):
+            raise AssertionError(f"the Markov {prec} adapter built {builds} "
+                                 f"scorers for {3 * len(ad.seq_buckets)} "
+                                 f"bucket pairs")
 
 
 # ---------------------------------------------------------------------------
@@ -4373,6 +4503,11 @@ def dag_paths(torch, histogram, card) -> tuple:
     cuda0 = torch.device("cuda", 0)
     rb, secs, logs, k1 = {}, {}, {}, {}
     for dev in ("cuda", "cpu"):
+        if dev == "cpu":     # the card leg's seeded data, not made again
+            for part in ("train", "test"):
+                shutil.copytree(
+                    os.path.join(w, "runbook_cuda", "work", part),
+                    os.path.join(w, "runbook_cpu", "work", part))
         histogram.reset_launch_counts()
         t = time.perf_counter()
         rb[dev], logs[dev] = workflow_runbook(
@@ -4879,6 +5014,12 @@ HOST_RUNBOOKS = ("class_balance", "event_burst", "event_seq_gsp",
 #: runbooks whose jobs never touch the device: one leg, the card's
 HOST_ONLY = HOST_RUNBOOKS[:5]
 HOST_PARALLEL = 6
+#: the runbooks by the seconds of their legs on the card's host, longest
+#: first (multitenant 26-27 s, disease_rules 21-23, class_balance 21.5,
+#: the rest 10-12): started in this order, the pool's tail stays short
+HOST_LONGEST_FIRST = ("multitenant", "disease_rules", "class_balance",
+                      "marketing_plan", "bandit_variants", "event_burst",
+                      "price_optimize", "event_seq_gsp")
 FEEDBACK_EVENTS, FEEDBACK_TENANTS, FEEDBACK_ARMS = 500_000, 64, 8
 
 
@@ -5028,7 +5169,8 @@ def host_jobs(torch, histogram, card):
 
     # the subprocesses spend most of their time starting an interpreter and
     # importing torch, so HOST_PARALLEL of them run at once
-    legs = [(name, dev) for name in HOST_RUNBOOKS for dev in ("cuda", "cpu")
+    legs = [(name, dev) for name in HOST_LONGEST_FIRST
+            for dev in ("cuda", "cpu")
             if dev == "cuda" or name not in HOST_ONLY]
     t = time.perf_counter()
     with ThreadPoolExecutor(HOST_PARALLEL) as pool:
@@ -6035,11 +6177,25 @@ def analyze_paths(card) -> dict:
     out = os.path.join(WORK, "analyze")
     os.makedirs(out, exist_ok=True)
     cold_json = os.path.join(out, "cold.json")
-    # -X importtime lists every module the run imports: none of jax or of
-    # the JAX package, whether or not this machine has them
-    rc, _o, err, cold_s = analyze_cli(["--strict", "--no-cache", "--json",
-                                       cold_json], python=("-X", "importtime"))
-    assert rc == 0, f"analyze --strict --no-cache exited {rc}:\n{err}"
+    dyn_json = os.path.join(out, "dynamic.json")
+    # the cold run beside the sidecar's prime, --list and the dynamic leg,
+    # all at once; -X importtime lists every module the cold run imports:
+    # none of jax or of the JAX package, whether or not this machine has
+    # them
+    jobs = {"cold": (["--strict", "--no-cache", "--json", cold_json],
+                     ("-X", "importtime")),
+            "prime": (["--strict", "--json", os.path.join(out,
+                                                          "prime.json")], ()),
+            "list": (["--list"], ()),
+            "dynamic": (["--dynamic", "--seeds", "1", "--rules",
+                         ANALYZE_DYNAMIC_RULES, "--json", dyn_json], ())}
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        done = {k: pool.submit(analyze_cli, a, python=py)
+                for k, (a, py) in jobs.items()}
+        res = {k: f.result() for k, f in done.items()}
+    for name, (rc, _o, err, _s) in res.items():
+        assert rc == 0, f"analyze {name} exited {rc}:\n{err}"
+    _rc, _o, err, cold_s = res["cold"]
     imported = [ln.rsplit("|", 1)[1].strip() for ln in err.splitlines()
                 if ln.startswith("import time:") and "|" in ln]
     bad = [m for m in imported if m.split(".")[0] in ("jax", "avenir_tpu")]
@@ -6050,20 +6206,9 @@ def analyze_paths(card) -> dict:
     slowest = sorted(cold["rules"], key=lambda r: -r["ms"])[:3]
     log(f"analyze cold: --strict --no-cache rc 0, {len(cold['rules'])} "
         f"rules, {cold['files']} files, 0 findings; {cold_s:.3f} s command, "
-        f"{cold['duration_ms'] / 1e3:.3f} s in process; slowest rules "
+        f"{cold['duration_ms'] / 1e3:.3f} s in process (beside the three "
+        f"below); slowest rules "
         f"{[(r['rule'], r['ms']) for r in slowest]} [{card}]")
-
-    # the sidecar's prime, --list and the dynamic leg, at once
-    dyn_json = os.path.join(out, "dynamic.json")
-    jobs = {"prime": ["--strict", "--json", os.path.join(out, "prime.json")],
-            "list": ["--list"],
-            "dynamic": ["--dynamic", "--seeds", "1", "--rules",
-                        ANALYZE_DYNAMIC_RULES, "--json", dyn_json]}
-    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-        done = {k: pool.submit(analyze_cli, a) for k, a in jobs.items()}
-        res = {k: f.result() for k, f in done.items()}
-    for name, (rc, _o, err, _s) in res.items():
-        assert rc == 0, f"analyze {name} exited {rc}:\n{err}"
     ids = [ln.split()[0] for ln in res["list"][1].splitlines() if ln.strip()]
     assert len(ids) == ANALYZE_RULES and {
         "torch-hot-path", "torch-bare-capture"} <= set(ids), ids
@@ -6112,6 +6257,11 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; {triton_info}")
     log(f"card: {card}")
+    # the reference's default mesh: every visible card, so none on one card
+    from avenir_tpu_torch.cli import cli_mesh
+    if (cli_mesh() is None) != (torch.cuda.device_count() == 1):
+        raise AssertionError(f"default mesh {cli_mesh()} on "
+                             f"{torch.cuda.device_count()} card(s)")
     if (torch.backends.cuda.matmul.allow_tf32
             or torch.get_float32_matmul_precision() != "highest"):
         raise AssertionError("TF32 matmul is on; the distance engine needs "

@@ -62,13 +62,14 @@ def test_make_mesh_shapes_repeats_and_errors(monkeypatch):
 
 
 @pytest.mark.parametrize("spec,shape", [
-    (None, (1, 1)), ("4x1", (4, 1)), ("2x2", (2, 2)), ("1X4", (1, 4)),
+    (None, (4, 1)), ("4x1", (4, 1)), ("2x2", (2, 2)), ("1X4", (1, 4)),
     ("2by2", None), ("3x2", None), ("x4", None), ("2x2x1", None)])
 def test_avenir_mesh_parsing(spec, shape, monkeypatch):
-    """``AVENIR_MESH=<data>x<model>`` over the visible cards, with the
-    reference's error for a spec that does not parse or does not fit
-    (here 4 cards; the reference's own parser over its 8 CPU devices
-    refuses the same malformed specs)."""
+    """``AVENIR_MESH=<data>x<model>`` over the visible cards (unset,
+    every card on the data axis), with the reference's error for a spec
+    that does not parse or does not fit (here 4 cards; the reference's
+    own parser over its 8 CPU devices refuses the same malformed
+    specs)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     if spec is None:
@@ -85,9 +86,9 @@ def test_avenir_mesh_parsing(spec, shape, monkeypatch):
         return
     m = pmesh.get_mesh()
     assert (m.shape["data"], m.shape["model"]) == shape
-    want = ([torch.device("cuda", 0)] if spec is None
-            else [torch.device("cuda", i) for i in range(4)])
-    assert list(m.devices.flat) == want
+    # unset, every visible card on the data axis, as the reference's
+    assert list(m.devices.flat) == [torch.device("cuda", i)
+                                    for i in range(4)]
 
 
 def test_get_mesh_needs_a_card(monkeypatch):
