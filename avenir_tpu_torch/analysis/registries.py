@@ -199,6 +199,9 @@ FOLD_IMPURE_ALLOWED: Dict[str, str] = {
     "core/sanitizer.py:make_lock:global:_STATE":
         "the lock sanitizer's on/off flag read when a lock is made; "
         "tracked and plain locks behave the same for data",
+    "core/pipeline.py:drive_prefetched:time.perf_counter_ns":
+        "the clock of the consumer's ingest.wait span, read only while "
+        "the tracer is on: no chunk, carry or output line reads it",
 }
 
 #: merge-closure opt-outs: class names exporting ``state_dict`` whose

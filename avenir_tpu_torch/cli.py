@@ -51,7 +51,8 @@ names one device; on one card they run on it alone.
 ``--resume`` sets ``checkpoint.resume=true``: a streaming job restarts
 from its sidecar checkpoint when one exists (core.checkpoint).
 ``--trace <out.json>`` turns the tracer on and writes its spans as
-Chrome/Perfetto trace JSON when the job ends (core.obs).  Before the job
+Chrome/Perfetto trace JSON when the job ends (core.obs), with the work
+before the job's ``run`` as its ``cli.prepare`` span.  Before the job
 is built, the resilience keys are applied: ``sanitize.locks``
 (core.sanitizer), ``retry.*`` (core.resilience), ``fault.inject.plan``
 (core.faultinject), ``io.require.success`` (core.io) and ``flight.*``
@@ -65,6 +66,7 @@ import importlib
 import inspect
 import os
 import sys
+import time
 from typing import Callable, Dict, Optional
 
 from .core.config import load_job_config, parse_cli_args
@@ -457,6 +459,7 @@ def dag_main(argv) -> int:
 
 
 def main(argv: Optional[list] = None) -> int:
+    t_main = time.perf_counter_ns()
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
         print("usage: python -m avenir_tpu_torch <JobClass> "
@@ -559,6 +562,7 @@ def main(argv: Optional[list] = None) -> int:
     # no mesh, as the reference's
     on_mesh = ({"mesh": mesh} if mesh is not None and "mesh" in
                inspect.signature(job.run).parameters else {})
+    obs.record_prepare(t_main)
     try:
         with profiled(profile_dir):
             result = job.run(positional[0], positional[1], **on_mesh)

@@ -57,6 +57,29 @@ def _rows_hint(chunk: bytes) -> Optional[int]:
     return n if chunk.endswith(b"\n") else n + 1
 
 
+def _chunk_ends(buf: bytes, chunk_rows: Optional[int],
+                chunk_bytes: int) -> List[int]:
+    """The end offset of every chunk of ``buf``: past every
+    ``chunk_rows``-th line end (``pipeline.row_chunk_ends``), or past the
+    first line end at or after each ``chunk_bytes`` step."""
+    from .pipeline import row_chunk_ends
+
+    if not buf:
+        return []
+    if chunk_rows is not None:
+        return row_chunk_ends(buf, max(int(chunk_rows), 1))
+    step = max(int(chunk_bytes), 1)
+    ends, pos = [], 0
+    while pos < len(buf):
+        end = min(pos + step, len(buf))
+        if end < len(buf):
+            nl = buf.find(b"\n", end)
+            end = len(buf) if nl < 0 else nl + 1
+        ends.append(end)
+        pos = end
+    return ends
+
+
 class Vocab:
     """Stable string->index mapping for one categorical column."""
 
@@ -397,7 +420,14 @@ class DatasetEncoder:
         Workers run only the native call, which releases the GIL; fault
         points fire at submission, and vocabulary merge, salvage and
         quarantine run here in chunk order, so the output and the
-        vocabulary order are the serial scan's."""
+        vocabulary order are the serial scan's.
+
+        Spans: ``ingest.read`` (the first line's look and the whole
+        read), ``ingest.split`` (the chunk boundaries), and an
+        ``ingest.parse`` per chunk around the native call with its
+        vocabulary remap or salvage, on the thread that runs them; with
+        a pool, one on the worker around the native call and one here
+        around the remap."""
         from .io import is_plain_delim
         from .obs import get_tracer
         from . import pipeline
@@ -406,59 +436,56 @@ class DatasetEncoder:
         tracer = get_tracer()
         if not is_plain_delim(delim):
             raise ChunkedEncodeUnsupported("regex delimiter")
-        # a non-positive chunk size would loop forever on empty chunks
-        chunk_bytes = max(int(chunk_bytes), 1)
-        sp = self._native_specs(path, delim)
+        with tracer.span("ingest.read", path=path):
+            sp = self._native_specs(path, delim)
+            buf = native._read_buffer(path) if sp is not None else b""
         if sp is None:
             raise ChunkedEncodeUnsupported("native encode unavailable")
         specs, n_cols = sp
-        with tracer.span("ingest.read", path=path):
-            buf = native._read_buffer(path)
-        row_ends = None
-        if chunk_rows is not None:
-            row_ends = (pipeline.row_chunk_ends(buf, max(int(chunk_rows), 1))
-                        if buf else [])
+        with tracer.span("ingest.split", bytes=len(buf)):
+            ends = _chunk_ends(buf, chunk_rows, chunk_bytes)
         n_feat = len(self.feature_fields)
         parse_threads = max(int(parse_threads), 1)
+        # the pool's workers record their spans under the span that was
+        # open where the scan started
+        parent = tracer.current_span_id()
 
         def _chunks():
             # produced on the consumer's thread (the pool calls next()
             # there), so the fault points keep their serial semantics
             pos = 0
-            idx = 0
-            while pos < len(buf):
-                if row_ends is not None:
-                    end = int(row_ends.pop(0))
-                else:
-                    end = min(pos + chunk_bytes, len(buf))
-                    if end < len(buf):
-                        nl = buf.find(b"\n", end)
-                        end = len(buf) if nl < 0 else nl + 1
+            for idx, end in enumerate(ends):
                 if end > start_offset:
                     yield idx, end, pipeline.chunk_faults(buf[pos:end], idx)
                 pos = end
-                idx += 1
 
-        def _parse(item):
-            # the native call alone, no shared Python state; the inner
-            # pthread fan-out is 1 when the pool is parallel, so the two
-            # levels do not oversubscribe the host
-            cidx, end, chunk = item
-            res = native.encode_schema_buffer(
+        def _native(chunk):
+            # the inner pthread fan-out is 1 when the pool is parallel, so
+            # the two levels do not oversubscribe the host
+            return native.encode_schema_buffer(
                 chunk, specs, n_cols, n_feat, True, id_ordinal=-1,
                 delim=delim, n_rows_hint=_rows_hint(chunk),
                 n_threads=1 if parse_threads > 1 else None)
-            return cidx, end, chunk, res
+
+        def _parse(item):
+            # a pool worker: the native call alone, no shared Python state
+            cidx, end, chunk = item
+            with tracer.span("ingest.parse", parent=parent, bytes=len(chunk),
+                             threads=parse_threads):
+                return cidx, end, chunk, _native(chunk)
 
         if parse_threads > 1:
             from .parparse import OrderedParsePool
             parsed = OrderedParsePool(_parse, parse_threads).map(_chunks())
         else:
-            parsed = map(_parse, _chunks())
+            parsed = _chunks()
         try:
-            for cidx, end, chunk, res in parsed:
+            for item in parsed:
+                cidx, end, chunk = item[:3]
+                # the vocabulary merge or salvage runs here, in chunk order
                 with tracer.span("ingest.parse", bytes=len(chunk),
                                  threads=parse_threads):
+                    res = item[3] if parse_threads > 1 else _native(chunk)
                     if res is None:
                         if salvage is None:
                             raise ChunkedEncodeUnsupported(
@@ -484,23 +511,12 @@ class DatasetEncoder:
         and encoding one column at a time."""
         from .. import native
         from .io import is_plain_delim
-        from .pipeline import row_chunk_ends, split_field_lines
+        from .pipeline import split_field_lines
 
         if not is_plain_delim(delim):
             raise ChunkedEncodeUnsupported("regex delimiter")
         buf = native._read_buffer(path)
-        if chunk_rows is not None:
-            ends = row_chunk_ends(buf, max(int(chunk_rows), 1)) if buf else []
-        else:
-            step = max(int(chunk_bytes), 1)
-            ends, pos = [], 0
-            while pos < len(buf):
-                end = min(pos + step, len(buf))
-                if end < len(buf):
-                    nl = buf.find(b"\n", end)
-                    end = len(buf) if nl < 0 else nl + 1
-                ends.append(end)
-                pos = end
+        ends = _chunk_ends(buf, chunk_rows, chunk_bytes)
         F = len(self.feature_fields)
         pos = 0
         for end in ends:

@@ -54,6 +54,7 @@ from __future__ import annotations
 
 import bisect
 import functools
+import gc
 import itertools
 import json
 import os
@@ -251,6 +252,10 @@ class Tracer:
         self.enabled = bool(enabled)
         self.sample_rate = float(sample_rate)
         self._buf: deque = deque(maxlen=max(int(buffer_spans), 1))
+        # records made where the lock may already be held (a collector
+        # pass can start inside any allocation): moved into the ring
+        # buffer by the next call that takes the lock
+        self._handoff: deque = deque()
         self._ids = itertools.count(1)
         self._tls = threading.local()
         self._lock = threading.Lock()
@@ -304,7 +309,14 @@ class Tracer:
         # iterating it, and a concurrent append during that iteration
         # would raise "deque mutated during iteration"
         with self._lock:
+            self._drain()
             self._buf.append(rec)
+            self._total += 1
+
+    def _drain(self) -> None:
+        """Move handed-off records into the ring buffer (lock held)."""
+        while self._handoff:
+            self._buf.append(self._handoff.popleft())
             self._total += 1
 
     # -- thread parenting --------------------------------------------------
@@ -362,6 +374,7 @@ class Tracer:
     # -- inspection --------------------------------------------------------
     def records(self) -> List[object]:
         with self._lock:
+            self._drain()
             return list(self._buf)
 
     def spans(self, name: Optional[str] = None) -> List[Span]:
@@ -401,6 +414,7 @@ class Tracer:
         rotated out of the ring buffer between calls (the flusher's
         interval bounds it)."""
         with self._lock:
+            self._drain()
             new = self._total - since_total
             if new <= 0:
                 return [], self._total, 0
@@ -410,12 +424,14 @@ class Tracer:
 
     def clear(self) -> None:
         with self._lock:
+            self._handoff.clear()
             self._buf.clear()
             self._active = 0
             self._total = 0
 
     def stats(self) -> Dict[str, Any]:
         with self._lock:
+            self._drain()
             return {"enabled": self.enabled, "active_spans": self._active,
                     "spans_recorded": self._total,
                     "buffered": len(self._buf),
@@ -457,8 +473,16 @@ class Tracer:
     def export_chrome_trace(self, path: str) -> int:
         """Write the buffer as Chrome ``trace_event`` JSON (complete "X"
         events + counter "C" events + thread-name metadata), loadable in
-        ``chrome://tracing`` / Perfetto.  Returns the event count."""
+        ``chrome://tracing`` / Perfetto.  Returns the event count.
+
+        ``baseTimeNanoseconds`` is the wall-clock anchor of the events'
+        ``ts`` (``wall_epoch_unix_ns``): ``base + ts * 1000`` is an
+        event's Unix time in ns.  ``torch.profiler`` writes its traces
+        (``--profile-dir``) with the same key and meaning, so the two
+        files of one run lie on one timeline once each is shifted by its
+        own base."""
         recs = self.records()
+        base_ns = self.wall_epoch_unix_ns()
         pid = os.getpid()
         events: List[dict] = []
         tid_map: Dict[int, int] = {}
@@ -487,7 +511,8 @@ class Tracer:
             events.append(ev)
         events.sort(key=lambda e: e.get("ts", -1.0))
         with open(path, "w") as fh:
-            json.dump({"traceEvents": events, "displayTimeUnit": "ms"}, fh)
+            json.dump({"traceEvents": events, "displayTimeUnit": "ms",
+                       "baseTimeNanoseconds": base_ns}, fh)
         return len(events)
 
 
@@ -864,7 +889,47 @@ def get_tracer() -> Tracer:
 def set_tracer(tracer: Tracer) -> Tracer:
     global _GLOBAL_TRACER
     _GLOBAL_TRACER = tracer
+    _sync_gc_hook()
     return tracer
+
+
+_gc_t0 = [0]
+
+
+def _gc_hook(phase: str, info: dict) -> None:
+    """``gc.callbacks`` entry: one ``host.gc`` span per generation 1 and
+    2 collection, on the thread that triggered it, parented to that
+    thread's open span.  A pass can start inside any allocation, also
+    one made while the tracer's lock is held, so the record is handed
+    off instead of appended (``Tracer._drain``).  Generation 0 runs every
+    few hundred allocations and is left out: it would flood a serving
+    trace's ring buffer."""
+    if info.get("generation", 0) < 1:
+        return
+    if phase == "start":
+        _gc_t0[0] = time.perf_counter_ns()
+        return
+    tr = _GLOBAL_TRACER
+    t0 = _gc_t0[0]
+    if not tr.enabled or not t0:
+        return
+    _gc_t0[0] = 0
+    th = threading.current_thread()
+    tr._handoff.append(Span(
+        "host.gc", next(tr._ids), tr.current_span_id(), th.ident, th.name,
+        t0, time.perf_counter_ns() - t0,
+        {"generation": info["generation"],
+         "collected": info.get("collected", 0)}))
+
+
+def _sync_gc_hook() -> None:
+    """Install the collector hook while the global tracer is enabled,
+    and remove it when it is not."""
+    on = _GLOBAL_TRACER.enabled
+    if on and _gc_hook not in gc.callbacks:
+        gc.callbacks.append(_gc_hook)
+    elif not on and _gc_hook in gc.callbacks:
+        gc.callbacks.remove(_gc_hook)
 
 
 def new_trace_context(trace_id: Optional[str] = None,
@@ -899,6 +964,7 @@ def configure(enabled: Optional[bool] = None,
             tr.enabled = bool(enabled)
         if sample_rate is not None:
             tr.sample_rate = float(sample_rate)
+    _sync_gc_hook()
     return tr
 
 
@@ -917,17 +983,35 @@ def histogram_buckets_from_config(config) -> int:
     return n
 
 
+def record_prepare(t0_ns: int) -> None:
+    """Record ``cli.prepare``, a job's set-up before its ``run`` (config,
+    obs and resilience settings, mesh, the job's constructor), from
+    ``t0_ns`` to now, once the tracer is configured.  It becomes the
+    first child of the ``job:<ClassName>`` span that the next
+    :func:`traced_run` opens on this thread, whose id it reserves."""
+    tr = _GLOBAL_TRACER
+    if not tr.enabled:
+        return
+    job_id = next(tr._ids)
+    tr.record_span("cli.prepare", t0_ns, time.perf_counter_ns() - t0_ns,
+                   parent=job_id)
+    tr._tls.job_span_id = job_id
+
+
 def traced_run(fn: Callable) -> Callable:
     """Decorator for job drivers' ``run()``: wraps the call in one
     top-level ``job:<ClassName>`` span (a no-op while tracing is
-    disabled).  ``tests/test_obs_coverage.py`` asserts every registered
-    driver carries it, so new drivers cannot silently opt out."""
+    disabled), under the id :func:`record_prepare` reserved, if any.
+    ``tests/test_obs_coverage.py`` asserts every registered driver
+    carries it, so new drivers cannot silently opt out."""
     @functools.wraps(fn)
     def run(self, *args, **kwargs):
         tracer = _GLOBAL_TRACER
         if not tracer.enabled:
             return fn(self, *args, **kwargs)
-        with tracer.span("job:" + type(self).__name__):
+        job_id = getattr(tracer._tls, "job_span_id", None)
+        tracer._tls.job_span_id = None
+        with tracer.span("job:" + type(self).__name__, span_id=job_id):
             return fn(self, *args, **kwargs)
     run.__obs_traced__ = True
     return run

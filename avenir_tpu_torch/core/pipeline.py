@@ -289,7 +289,8 @@ def drive_prefetched(chunks: Iterable, produce: Callable, consume: Callable,
     without relaying its error (an injected ``worker_death``) is
     reported instead of blocking forever; on the way out the worker is
     told to stop and drained until it ends.  The worker's spans parent
-    to ``parent`` (and join trace ``trace``)."""
+    to ``parent`` (and join trace ``trace``); each of the consumer's
+    waits for a chunk is an ``ingest.wait`` span."""
     tracer = tracer or get_tracer()
     if depth <= 0:
         for item in chunks:
@@ -321,19 +322,26 @@ def drive_prefetched(chunks: Iterable, produce: Callable, consume: Callable,
     t.start()
     try:
         while True:
-            try:
-                item = q.get(timeout=0.1)
-            except queue.Empty:
-                if not t.is_alive():
-                    if worker_exc[0] is not None:
-                        raise worker_exc[0]
-                    raise RuntimeError("prefetch worker died without "
-                                       "signaling an error")
-                continue
+            # the consumer's wait for its next chunk, an ``ingest.wait``
+            # span (no clock read while the tracer is off)
+            t_wait = time.perf_counter_ns() if tracer.enabled else 0
+            while True:
+                try:
+                    item = q.get(timeout=0.1)
+                    break
+                except queue.Empty:
+                    if not t.is_alive():
+                        if worker_exc[0] is not None:
+                            raise worker_exc[0]
+                        raise RuntimeError("prefetch worker died without "
+                                           "signaling an error")
             if item is _DONE:
                 break
             if isinstance(item, _PrefetchError):
                 raise item.exc
+            if t_wait:
+                tracer.record_span("ingest.wait", t_wait,
+                                   time.perf_counter_ns() - t_wait)
             tracer.gauge("ingest.prefetch.queue.depth", q.qsize())
             consume(item)
     finally:

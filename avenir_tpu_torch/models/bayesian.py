@@ -27,7 +27,8 @@ resilience layer: the sidecar checkpoint every
 per-row salvage of a rejected chunk (core.resilience), the retried read
 and the fault points (core.faultinject), and the reference's spans
 (``job:BayesianDistribution``, ``phase:train``/``load``/``emit``,
-``ingest.*``, ``checkpoint.save``; core.obs).  With
+``ingest.*``, ``checkpoint.save``; core.obs), and ``model.lines``
+around the streamed model's text.  With
 ``telemetry.drift.baseline.path`` naming an earlier model, training also
 sets the reference's ``drift.<feature>`` gauges and ``Drift`` counters
 (core.telemetry).
@@ -639,33 +640,36 @@ class BayesianDistribution:
     def _streamed_model_lines(self, enc: DatasetEncoder,
                               st: _NBStreamState, total, counters: Counters,
                               delim: str) -> List[str]:
-        """Model lines from a streamed count fold."""
-        counters.set("Ingest", "Chunks", st.n_chunks)
-        ffields = enc.feature_fields
-        F = len(ffields)
-        n_class = len(enc.class_vocab)
-        counts = np.asarray(total)[:n_class]
-        moments = {j: m[:, :n_class] for j, m in st.mom_acc.items()}
+        """Model lines from a streamed count fold, a ``model.lines``
+        span."""
+        with get_tracer().span("model.lines"):
+            counters.set("Ingest", "Chunks", st.n_chunks)
+            ffields = enc.feature_fields
+            F = len(ffields)
+            n_class = len(enc.class_vocab)
+            counts = np.asarray(total)[:n_class]
+            moments = {j: m[:, :n_class] for j, m in st.mom_acc.items()}
 
-        num_bins = []
-        for j, f in enumerate(ffields):
-            if f.is_categorical():
-                num_bins.append(len(enc.vocabs[f.ordinal]))
-            elif f.is_bucket_width_defined():
-                num_bins.append(max(st.declared[j], int(st.num_bins_seen[j])))
-            else:
-                num_bins.append(0)
-        ds_meta = EncodedDataset(
-            schema=enc.schema, feature_fields=ffields,
-            x=np.zeros((0, F), np.int32), values=np.zeros((0, F)),
-            y=np.zeros(0, np.int32), num_bins=num_bins,
-            bin_offset=np.zeros(F, np.int32),
-            binned_mask=np.array([f.is_categorical()
-                                  or f.is_bucket_width_defined()
-                                  for f in ffields], dtype=bool),
-            vocabs=enc.vocabs, class_vocab=enc.class_vocab)
-        return self._emit_model_lines(ds_meta, counts, moments, delim,
-                                      counters)
+            num_bins = []
+            for j, f in enumerate(ffields):
+                if f.is_categorical():
+                    num_bins.append(len(enc.vocabs[f.ordinal]))
+                elif f.is_bucket_width_defined():
+                    num_bins.append(max(st.declared[j],
+                                        int(st.num_bins_seen[j])))
+                else:
+                    num_bins.append(0)
+            ds_meta = EncodedDataset(
+                schema=enc.schema, feature_fields=ffields,
+                x=np.zeros((0, F), np.int32), values=np.zeros((0, F)),
+                y=np.zeros(0, np.int32), num_bins=num_bins,
+                bin_offset=np.zeros(F, np.int32),
+                binned_mask=np.array([f.is_categorical()
+                                      or f.is_bucket_width_defined()
+                                      for f in ffields], dtype=bool),
+                vocabs=enc.vocabs, class_vocab=enc.class_vocab)
+            return self._emit_model_lines(ds_meta, counts, moments, delim,
+                                          counters)
 
     def fold_spec(self, out_path: str):
         """This trainer's shared-scan ``core.multiscan.FoldSpec``; None in

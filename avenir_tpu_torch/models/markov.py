@@ -12,7 +12,10 @@ config keys, input layouts and output bytes:
   ``pipeline.chunk.rows`` the pairs stream through
   ``core.pipeline.streaming_fold``, on the device or over the mesh (and
   through the pair cache of ``core.ingestcache`` when
-  ``ingest.cache.enable`` is on).
+  ``ingest.cache.enable`` is on).  On both paths the read is an
+  ``ingest.read`` span, the line split, class labels and encode an
+  ``ingest.parse`` and the count an ``ingest.fold`` (the chunked path's
+  reads and folds are ``core.pipeline``'s).
 - ``MarkovModelClassifier`` sums ``log(P_c0[from, to] / P_c1[from, to])``
   over each sequence and thresholds it.  The reference takes the log of
   the model's own tables on the device, so its bits are XLA's: glibc's
@@ -215,32 +218,36 @@ class MarkovStateTransitionModel:
             counts, class_labels = counted
         else:
             with tracer.span("phase:train"):
-                records = [split_line(l, delim_regex)
-                           for l in read_lines(in_path)]
-                # rows too short to hold a transition are skipped
-                records = [r for r in records if len(r) >= eff_skip + 2]
-                class_labels = []
-                cls_idx = np.zeros(len(records), dtype=np.int32)
-                if class_ord >= 0:
-                    seen: Dict[str, int] = {}
-                    for i, r in enumerate(records):
-                        lbl = r[class_ord]
-                        if lbl not in seen:
-                            seen[lbl] = len(seen)
-                            class_labels.append(lbl)
-                        cls_idx[i] = seen[lbl]
-                seq, _ = encode_sequences(records, eff_skip, vocab)
+                with tracer.span("ingest.read", path=in_path):
+                    lines = list(read_lines(in_path))
+                with tracer.span("ingest.parse", rows=len(lines)):
+                    records = [split_line(l, delim_regex) for l in lines]
+                    # rows too short to hold a transition are skipped
+                    records = [r for r in records if len(r) >= eff_skip + 2]
+                    class_labels = []
+                    cls_idx = np.zeros(len(records), dtype=np.int32)
+                    if class_ord >= 0:
+                        seen: Dict[str, int] = {}
+                        for i, r in enumerate(records):
+                            lbl = r[class_ord]
+                            if lbl not in seen:
+                                seen[lbl] = len(seen)
+                                class_labels.append(lbl)
+                            cls_idx[i] = seen[lbl]
+                    seq, _ = encode_sequences(records, eff_skip, vocab)
                 if seq.shape[1] < 2:
                     counts = (np.zeros((len(class_labels), S, S),
                                        dtype=np.int64)
                               if class_ord >= 0
                               else np.zeros((S, S), dtype=np.int64))
                 else:
-                    frm, to = _transition_pairs(seq)
-                    counts = _count(
-                        _markov_local, frm, to, cls_idx, device=self.device,
-                        mesh=mesh, static_args=(len(class_labels)
-                                                if class_ord >= 0 else 0, S))
+                    with tracer.span("ingest.fold"):
+                        frm, to = _transition_pairs(seq)
+                        counts = _count(
+                            _markov_local, frm, to, cls_idx,
+                            device=self.device, mesh=mesh,
+                            static_args=(len(class_labels)
+                                         if class_ord >= 0 else 0, S))
 
         with tracer.span("phase:emit"):
             write_output(out_path, self._model_lines(
@@ -302,27 +309,30 @@ class MarkovStateTransitionModel:
         seen: Dict[str, int] = {}
         cap = [None]          # set after the first chunk is parsed
 
+        tracer = get_tracer()
+
         def parsed():
             for lines in pipeline.iter_line_chunks(in_path, chunk_rows):
-                records = [split_line(l, delim_regex) for l in lines]
-                records = [r for r in records if len(r) >= eff_skip + 2]
-                if not records:
-                    continue
-                cls_idx = np.zeros(len(records), dtype=np.int32)
-                if class_ord >= 0:
-                    for i, r in enumerate(records):
-                        lbl = r[class_ord]
-                        if lbl not in seen:
-                            seen[lbl] = len(seen)
-                            class_labels.append(lbl)
-                        cls_idx[i] = seen[lbl]
-                    if cap[0] is not None and len(class_labels) > cap[0]:
-                        raise ChunkedEncodeUnsupported("late class label")
-                seq, _ = encode_sequences(records, eff_skip, vocab)
-                if seq.shape[1] < 2:
-                    continue
-                frm, to = _transition_pairs(seq)
-                cls = np.repeat(cls_idx, frm.shape[1])
+                with tracer.span("ingest.parse", rows=len(lines)):
+                    records = [split_line(l, delim_regex) for l in lines]
+                    records = [r for r in records if len(r) >= eff_skip + 2]
+                    if not records:
+                        continue
+                    cls_idx = np.zeros(len(records), dtype=np.int32)
+                    if class_ord >= 0:
+                        for i, r in enumerate(records):
+                            lbl = r[class_ord]
+                            if lbl not in seen:
+                                seen[lbl] = len(seen)
+                                class_labels.append(lbl)
+                            cls_idx[i] = seen[lbl]
+                        if cap[0] is not None and len(class_labels) > cap[0]:
+                            raise ChunkedEncodeUnsupported("late class label")
+                    seq, _ = encode_sequences(records, eff_skip, vocab)
+                    if seq.shape[1] < 2:
+                        continue
+                    frm, to = _transition_pairs(seq)
+                    cls = np.repeat(cls_idx, frm.shape[1])
                 out = (frm.ravel(), to.ravel(), cls)
                 if builder is not None:
                     builder.add(*out)

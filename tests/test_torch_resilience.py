@@ -427,6 +427,12 @@ def _span_names(tracer):
     return sorted({s.name for s in tracer.spans()})
 
 
+#: the port's spans that the reference does not record: the job's set-up,
+#: the chunk split, the fold's waits, the model text and the collector
+PORT_ONLY_SPANS = {"cli.prepare", "ingest.split", "ingest.wait",
+                   "model.lines", "host.gc"}
+
+
 @pytest.mark.parametrize("extra", [
     {"checkpoint.interval.chunks": "3"},
     {"ingest.parse.threads": "4", "pipeline.prefetch.depth": "0"}],
@@ -438,9 +444,16 @@ def test_spans_match_reference_names(data, tmp_path, extra):
     jb.BayesianDistribution(JaxConfig(_props(data, **extra))).run(
         data["in"], str(tmp_path / "jax"))
     names = _span_names(obs.get_tracer())
-    assert names == _span_names(jobs.get_tracer())
+    assert sorted(set(names) - PORT_ONLY_SPANS) == _span_names(
+        jobs.get_tracer())
     for want in ("job:BayesianDistribution", "phase:train", "phase:emit",
                  "ingest.read", "ingest.parse", "ingest.h2d", "ingest.fold"):
+        assert want in names
+    # the port-only spans every such job records (``cli.prepare`` comes
+    # from the command line; ``host.gc`` from when the collector runs)
+    prefetch = extra.get("pipeline.prefetch.depth", "2") != "0"
+    for want in ("ingest.split", "model.lines") + (
+            ("ingest.wait",) if prefetch else ()):
         assert want in names
     assert ("checkpoint.save" in names) == ("checkpoint.interval.chunks"
                                             in extra)
