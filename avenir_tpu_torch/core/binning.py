@@ -13,10 +13,12 @@ Binning semantics (identical to the reference package):
   ``x``), for the trainers' Gaussian moments.
 
 The chunked encoder ``encode_path_chunks`` and the one-shot
-``encode_path`` run the native C parser (``avenir_tpu_torch/native``, a
-copy of the reference's): one pass per chunk parses, bins and encodes
-every schema column straight into the matrices.  Chunks are cut at line
-ends over the whole buffer (``pipeline.row_chunk_ends``), codes come from
+``encode_path`` run the native C parser (``avenir_tpu_torch/native``):
+one pass per chunk parses, bins and encodes every schema column straight
+into the matrices, sized by the chunk's line budget (``chunk_encode``;
+the one-shot encode with its id column and large byte chunks take the
+reference's copy).  Chunks are cut at line ends over the whole buffer
+(``pipeline.row_chunk_ends``), codes come from
 the shared vocabularies, so they are stable across chunks, and the
 vocabulary order is first-seen order over the whole input, whatever
 ``ingest.parse.threads`` is: the parse pool hands chunks back in order
@@ -48,9 +50,9 @@ class ChunkedEncodeUnsupported(Exception):
 
 def _rows_hint(chunk: bytes) -> Optional[int]:
     """The exact row count of a byte chunk when it is cheap to prove (no
-    blank lines), which lets the C parser skip its sizing pass; None
-    otherwise.  The newline count equals the parser's row count only
-    when no line is blank (the parser skips blank lines)."""
+    blank lines), which the ingest cache checks a recorded chunk
+    against; None otherwise.  The newline count equals the parser's row
+    count only when no line is blank (the parser skips blank lines)."""
     if b"\n\n" in chunk or chunk.startswith(b"\n"):
         return None
     n = chunk.count(b"\n")
@@ -317,27 +319,31 @@ class DatasetEncoder:
     def _remap_native(self, res):
         """Map the C parser's first-seen codes to the stable vocabulary
         ids (declared cardinality first, then first-seen, the order
-        ``Vocab.add`` gives); returns ``(n, x, values, y)``."""
+        ``Vocab.add`` gives); returns ``(n, x, values, y)``.  Codes that
+        already are the ids stay in place."""
         n, x, values, y, _, cat_uniques = res
         for j, f in enumerate(self.feature_fields):
             if f.is_categorical():
-                x[:, j] = self._cat_lut(self.vocabs[f.ordinal],
-                                        cat_uniques[f.ordinal])[x[:, j]]
-            elif not f.is_bucket_width_defined():
-                x[:, j] = -1
+                lut = self._cat_lut(self.vocabs[f.ordinal],
+                                    cat_uniques[f.ordinal])
+                if lut is not None:
+                    x[:, j] = lut[x[:, j]]
         if n:
-            y = self._cat_lut(self.class_vocab,
-                              cat_uniques[self.class_field.ordinal])[y]
+            lut = self._cat_lut(self.class_vocab,
+                                cat_uniques[self.class_field.ordinal])
+            if lut is not None:
+                y = lut[y]
         else:
             y = np.zeros(0, dtype=np.int32)
         return n, x, values, y
 
     @staticmethod
-    def _cat_lut(vocab: Vocab, uniques) -> np.ndarray:
-        lut = np.empty(max(len(uniques), 1), dtype=np.int32)
-        for k, u in enumerate(uniques):
-            lut[k] = vocab.add(u.decode())
-        return lut
+    def _cat_lut(vocab: Vocab, uniques) -> Optional[np.ndarray]:
+        """The code-to-id table of a chunk's first-seen ``uniques``, which
+        it adds to ``vocab``; None where the table is the identity."""
+        lut = np.array([vocab.add(u.decode()) for u in uniques],
+                       dtype=np.int32)
+        return None if np.array_equal(lut, np.arange(len(lut))) else lut
 
     def _encode_path_native(self, path: str,
                             delim: str) -> Optional[EncodedDataset]:
@@ -384,7 +390,7 @@ class DatasetEncoder:
                                native=True):
             res = native.encode_schema_buffer(
                 chunk, specs, n_cols, len(self.feature_fields), True,
-                id_ordinal=-1, delim=delim, n_rows_hint=_rows_hint(chunk))
+                id_ordinal=-1, delim=delim)
             if res is None:
                 return None
             n, x, values, y = self._remap_native(res)
@@ -445,6 +451,8 @@ class DatasetEncoder:
         with tracer.span("ingest.split", bytes=len(buf)):
             ends = _chunk_ends(buf, chunk_rows, chunk_bytes)
         n_feat = len(self.feature_fields)
+        row_capacity = (None if chunk_rows is None
+                        else max(int(chunk_rows), 1))
         parse_threads = max(int(parse_threads), 1)
         # the pool's workers record their spans under the span that was
         # open where the scan started
@@ -461,11 +469,12 @@ class DatasetEncoder:
 
         def _native(chunk):
             # the inner pthread fan-out is 1 when the pool is parallel, so
-            # the two levels do not oversubscribe the host
+            # the two levels do not oversubscribe the host; a row chunk's
+            # line budget sizes the one-pass encode's outputs
             return native.encode_schema_buffer(
                 chunk, specs, n_cols, n_feat, True, id_ordinal=-1,
-                delim=delim, n_rows_hint=_rows_hint(chunk),
-                n_threads=1 if parse_threads > 1 else None)
+                delim=delim, n_threads=1 if parse_threads > 1 else None,
+                row_capacity=row_capacity)
 
         def _parse(item):
             # a pool worker: the native call alone, no shared Python state

@@ -9,8 +9,16 @@ reference's native encode and as the port's numpy encoder, at
 inputs carry blank lines, a missing final newline and negative bins.
 Models trained through the port's CLI are byte-identical to the
 reference's.
+
+The port's one-pass chunk encode (``native/chunk_encode.c``), which every
+one-thread buffer without an id column takes, is held bit for bit
+against the reference's native encode and the numpy encoder on its own
+inputs too: CRLF ends, blank lines only, integer and other text in a
+float column, rejected rows and their salvage, a vocabulary past
+``max_uniq``, and a row capacity the rows overflow.
 """
 
+import ctypes
 import json
 import os
 
@@ -21,6 +29,8 @@ from avenir_tpu import native as jnative
 from avenir_tpu.core.binning import DatasetEncoder as JaxEncoder
 from avenir_tpu.core.binning import _rows_hint as jax_rows_hint
 from avenir_tpu.core.config import JobConfig as JaxConfig
+from avenir_tpu.core.resilience import RowQuarantine as JaxQuarantine
+from avenir_tpu.core.resilience import salvage_chunk as jax_salvage_chunk
 from avenir_tpu.core.schema import FeatureSchema as JaxSchema
 from avenir_tpu.models import bayesian as jb
 
@@ -32,6 +42,7 @@ from avenir_tpu_torch.core.config import JobConfig
 from avenir_tpu_torch.core.io import read_field_matrix
 from avenir_tpu_torch.core.parparse import (OrderedParsePool,
                                             parse_threads_from_config)
+from avenir_tpu_torch.core.resilience import RowQuarantine, salvage_chunk
 from avenir_tpu_torch.core.schema import FeatureSchema
 from avenir_tpu_torch.models import bayesian as tb
 
@@ -331,3 +342,304 @@ def test_one_shot_training_lines_identical(churn):
     want = jb.BayesianDistribution(JaxConfig(cfg)).train_lines(
         jenc.encode_path(path, ","), ",", jb.Counters())
     assert got == want
+
+
+# -- the one-pass chunk encode -------------------------------------------
+
+# text a float column must read as strtod does: integer text converts
+# exactly, the rest goes through strtod
+FLOAT_TEXT = ["-0", "+7", "007", " 12 ", "12\t", "0", "-3",
+              "123456789012345", "-999999999999999", "1234567890123456",
+              "12345678901234567", "3.25", "-0.5", "1e5", "2.5E-3", "inf",
+              "-inf", "nan"]
+
+
+def _float_text_rows(rows):
+    return [r[:3] + [FLOAT_TEXT[i % len(FLOAT_TEXT)]] + r[4:]
+            for i, r in enumerate(rows)]
+
+
+# the one pass's fast forms at their edges: 8- and 9-digit and 32-bit
+# boundary bins, keys of 8 bytes and more, a bucket width of 1
+EDGE_SCHEMA = {"fields": [dict(f, bucketWidth=1) if f["name"] == "visits"
+                          else f for f in SCHEMA["fields"]]}
+EDGE_TEXT = {
+    1: ["abcdefgh", "abcdefghi", "a", "red", "abcdefghijklmnop", "abcdefgi",
+        "green"],
+    2: ["-99999999", "99999999", "123456789", "-123456789", "2147483648",
+        "-2147483648", "2147483647", "-2147483649", "+5", " 3", "3 ", "0",
+        "-0", "007", "12345678", "-7", "6"],
+    4: ["0", "1", "-5", "59", "123456", "99999999", "-2147483648"],
+}
+
+
+def _edge_rows(rows):
+    out = []
+    for i, r in enumerate(rows):
+        r = list(r)
+        for col, texts in EDGE_TEXT.items():
+            r[col] = texts[(i * (col + 2)) % len(texts)]
+        r[3] = FLOAT_TEXT[i % len(FLOAT_TEXT)]
+        out.append(r)
+    return out
+
+
+@pytest.fixture(scope="module")
+def one_pass_inputs(inputs):
+    """Buffers of SCHEMA's six columns, each with the text the numpy
+    encoder reads as the same rows (CRLF ends read as LF ends)."""
+    out = {}
+    for name in ("plain", "blank", "no-final-newline",
+                 "blank-no-final-newline"):
+        with open(inputs[name], "rb") as fh:
+            out[name] = fh.read()
+    plain = out["plain"]
+    out["crlf"] = plain.replace(b"\n", b"\r\n")
+    out["leading-blank"] = b"\n" + plain
+    out["blank-only"] = b"\n\n\n"
+    out["float-text"] = _text(_float_text_rows(inputs["rows"])).encode()
+    out["edge-text"] = _text(_edge_rows(inputs["rows"])).encode()
+    return out
+
+
+@pytest.fixture(scope="module")
+def edge_schema(tmp_path_factory):
+    path = tmp_path_factory.mktemp("edge") / "schema.json"
+    path.write_text(json.dumps(EDGE_SCHEMA))
+    return str(path)
+
+
+def _specs(enc, n_cols=6):
+    specs, _ = enc._specs_for_cols(n_cols)
+    return specs
+
+
+def _float_cols(enc):
+    return [j for j, f in enumerate(enc.feature_fields)
+            if not (f.is_categorical() or f.is_bucket_width_defined())]
+
+
+def _assert_raw_equal(enc, got, want):
+    """The port's one pass against the reference's csv_encode: the same
+    rows, codes, uniques and value bits; the one pass writes -1 into a
+    float column's ``x`` itself, where csv_encode leaves 0 for the
+    caller's remap to fill."""
+    gn, gx, gv, gy, _, gu = got
+    wn, wx, wv, wy, _, wu = want
+    assert gn == wn == len(gx) == len(gv) == len(gy)
+    floats = _float_cols(enc)
+    assert (gx[:, floats] == -1).all() and (wx[:, floats] == 0).all()
+    wx = wx.copy()
+    wx[:, floats] = -1
+    np.testing.assert_array_equal(gx, wx)
+    np.testing.assert_array_equal(gy, wy)
+    np.testing.assert_array_equal(gv.view(np.int64), wv.view(np.int64))
+    assert gu == wu
+
+
+@pytest.mark.parametrize("name", ["plain", "blank", "no-final-newline",
+                                  "blank-no-final-newline", "crlf",
+                                  "leading-blank", "blank-only",
+                                  "float-text", "edge-text"])
+def test_one_pass_matches_reference_and_numpy(inputs, one_pass_inputs,
+                                              edge_schema, tmp_path, name):
+    buf = one_pass_inputs[name]
+    schema = edge_schema if name == "edge-text" else inputs["schema"]
+    enc, _ = _encoders(schema)
+    F = len(enc.feature_fields)
+    native.reset_call_counts()
+    got = native.encode_schema_buffer(buf, _specs(enc), 6, F, True)
+    assert native.ONE_PASS_CALLS == native.ENCODE_CALLS == 1
+    want = jnative.encode_schema_buffer(buf, _specs(enc), 6, F, True)
+    _assert_raw_equal(enc, got, want)
+    # the numpy encoder over the same rows, through the remap
+    path = tmp_path / "in.csv"
+    path.write_bytes(buf.replace(b"\r\n", b"\n"))
+    penc, _ = _encoders(schema)
+    plain = list(penc.plain_encode_path_chunks(str(path), ",",
+                                               chunk_bytes=1 << 30))
+    n, x, values, y = enc._remap_native(got)
+    _assert_chunks_equal([(x, values, y, n)], plain)
+    _assert_vocabs_equal(enc, penc)
+    if name == "blank-only":
+        assert n == 0 and x.shape == (0, F)
+    else:
+        assert n == len(inputs["rows"])
+        assert int(x[:, 1].min()) < 0           # negative bins, raw
+    if name == "float-text":
+        got_text = {t: values[i, 2] for i, t in
+                    enumerate(FLOAT_TEXT)}
+        assert np.signbit(got_text["-0"]) and got_text["-0"] == 0
+        assert got_text["12345678901234567"] == 12345678901234568.0
+
+
+def test_one_pass_vocabulary_overflow_retries(inputs, tmp_path):
+    """70,000 distinct colours pass ``max_uniq`` (65,536): the one pass
+    returns -3 and its one retry at 1 << 22 gives the reference's
+    answer."""
+    rows = [[f"id{i}", f"v{i}", str(i % 200 - 100), "1.5", str(i % 60),
+             "Y" if i % 3 else "N"] for i in range(70_000)]
+    buf = _text(rows).encode()
+    enc, _ = _encoders(inputs["schema"])
+    F = len(enc.feature_fields)
+    native.reset_call_counts()
+    got = native.encode_schema_buffer(buf, _specs(enc), 6, F, True)
+    assert native.ONE_PASS_CALLS == native.ENCODE_CALLS == 2
+    want = jnative.encode_schema_buffer(buf, _specs(enc), 6, F, True)
+    _assert_raw_equal(enc, got, want)
+    assert len(got[5][1]) == 70_000
+    path = tmp_path / "in.csv"
+    path.write_bytes(buf)
+    penc, _ = _encoders(inputs["schema"])
+    plain = list(penc.plain_encode_path_chunks(str(path), ",",
+                                               chunk_bytes=1 << 30))
+    n, x, values, y = enc._remap_native(got)
+    _assert_chunks_equal([(x, values, y, n)], plain)
+    _assert_vocabs_equal(enc, penc)
+
+
+# a line the native encoders reject, put into the churn input at line 500
+BAD_LINES = {
+    "unparseable": "x1,planA,12a,300,2,3,4,N",
+    "float-junk": "x1,planA,1200,300,2,3,4.5.1,N",
+    "short": "x1,planA,1200,300",
+    "long": "x1,planA,1200,300,2,3,4,N,extra",
+}
+
+
+@pytest.mark.parametrize("bad", sorted(BAD_LINES))
+def test_one_pass_rejects_and_salvages_as_reference(churn, tmp_path, bad):
+    lines = (churn / "in.csv").read_text().split("\n")
+    lines.insert(500, BAD_LINES[bad])
+    path = tmp_path / "in.csv"
+    path.write_text("\n".join(lines))
+    enc, jenc = _encoders(CHURN_SCHEMA)
+    specs = _specs(enc, 8)
+    F = len(enc.feature_fields)
+    buf = path.read_bytes()
+    native.reset_call_counts()
+    assert native.encode_schema_buffer(buf, specs, 8, F, True) is None
+    assert native.ONE_PASS_CALLS == 1
+    assert jnative.encode_schema_buffer(buf, specs, 8, F, True) is None
+    with pytest.raises(ChunkedEncodeUnsupported, match="native encode"):
+        list(enc.encode_path_chunks(str(path), ",", chunk_rows=300))
+    enc, jenc = _encoders(CHURN_SCHEMA)
+    q = RowQuarantine(str(tmp_path / "q"), "5")
+    jq = JaxQuarantine(str(tmp_path / "jq"), "5")
+    got = list(enc.encode_path_chunks(str(path), ",", chunk_rows=300,
+                                      salvage=salvage_chunk(enc, q, ",")))
+    want = [tuple(c) for c in jenc.encode_path_chunks(
+        str(path), ",", chunk_rows=300,
+        salvage=jax_salvage_chunk(jenc, jq, ","))]
+    _assert_chunks_equal(got, want)
+    _assert_vocabs_equal(enc, jenc)
+    # the row guard keeps a long row's schema fields, as the reference's
+    assert q.quarantined == jq.quarantined == (bad != "long")
+    if q.quarantined:
+        assert ((tmp_path / "q").read_text()
+                == (tmp_path / "jq").read_text())
+    assert sum(c[3] for c in got) == 2401 - q.quarantined
+
+
+@pytest.mark.parametrize("name", ["blank", "blank-no-final-newline"])
+@pytest.mark.parametrize("parse_threads", [1, 4])
+@pytest.mark.parametrize("chunking", [{"chunk_rows": 700},
+                                      {"chunk_bytes": 20000}],
+                         ids=["rows", "bytes"])
+def test_chunked_one_pass_matches_reference_and_numpy(
+        inputs, name, parse_threads, chunking):
+    """Every chunk takes the one pass at one and at four parse threads,
+    sized by its line budget or, for byte chunks, by its length."""
+    path = inputs[name]
+    enc, jenc = _encoders(inputs["schema"])
+    native.reset_call_counts()
+    got = list(enc.encode_path_chunks(path, ",", parse_threads=parse_threads,
+                                      **chunking))
+    assert native.ONE_PASS_CALLS == native.ENCODE_CALLS == len(got) > 3
+    want = [tuple(c) for c in jenc.encode_path_chunks(
+        path, ",", parse_threads=parse_threads, **chunking)]
+    _assert_chunks_equal(got, want)
+    _assert_vocabs_equal(enc, jenc)
+    penc, _ = _encoders(inputs["schema"])
+    plain = list(penc.plain_encode_path_chunks(path, ",", **chunking))
+    _assert_chunks_equal(got, plain)
+    _assert_vocabs_equal(enc, penc)
+
+
+def _c_args(enc, n_cols):
+    """``chunk_encode``'s column arrays for ``enc``'s specs."""
+    col_type, feat_idx, bucket_w = [0] * n_cols, [-1] * n_cols, [1] * n_cols
+    for o, role, fj, extra in _specs(enc, n_cols):
+        col_type[o], feat_idx[o] = role, fj
+        if role == native.BUCKET:
+            bucket_w[o] = extra
+    return ((ctypes.c_int * n_cols)(*col_type),
+            (ctypes.c_int * n_cols)(*feat_idx),
+            (ctypes.c_longlong * n_cols)(*bucket_w))
+
+
+@pytest.mark.parametrize("cap", [0, 1, 99])
+def test_capacity_overflow_writes_nothing_past_it(inputs, cap):
+    """Rows past the capacity return CHUNK_OVERFLOW before a cell past it
+    is written, and the encode returns None, as for rows it rejects;
+    the rows' own count as the capacity answers as the reference does."""
+    rows = inputs["rows"][:100]
+    buf = b"\n" + _text(rows).encode()
+    enc, _ = _encoders(inputs["schema"])
+    F = len(enc.feature_fields)
+    lib = native.get_lib()
+    x = np.full((cap + 8, F), -7, np.int32)
+    values = np.full((cap + 8, F), 7.25)
+    y = np.full(cap + 8, -7, np.int32)
+    uniq_start = np.empty((2, 1 << 16), np.int64)
+    uniq_len = np.empty((2, 1 << 16), np.int32)
+    n_uniq = np.empty(2, np.int32)
+    rc = lib.chunk_encode(buf, len(buf), b",", 6, *_c_args(enc, 6), F, cap,
+                          x.ctypes.data, values.ctypes.data, y.ctypes.data,
+                          uniq_start.ctypes.data, uniq_len.ctypes.data,
+                          n_uniq.ctypes.data, 1 << 16)
+    assert rc == native.CHUNK_OVERFLOW
+    assert (x[cap:] == -7).all() and (values[cap:] == 7.25).all()
+    assert (y[cap:] == -7).all()
+    native.reset_call_counts()
+    assert native.encode_schema_buffer(buf, _specs(enc), 6, F, True,
+                                       row_capacity=cap) is None
+    assert native.ONE_PASS_CALLS == 1
+    got = native.encode_schema_buffer(buf, _specs(enc), 6, F, True,
+                                      row_capacity=100)
+    want = jnative.encode_schema_buffer(buf, _specs(enc), 6, F, True)
+    _assert_raw_equal(enc, got, want)
+    assert got[0] == 100
+
+
+@pytest.fixture(scope="module")
+def churn_big(tmp_path_factory):
+    """150,000 churn rows: three 65,536-row chunks."""
+    from avenir_tpu_torch import datagen
+    d = tmp_path_factory.mktemp("churn_big")
+    assert datagen.main(["telecom_churn", "150000", "--seed", "31",
+                         "--out", str(d / "in.csv")]) == 0
+    return d
+
+
+@pytest.mark.parametrize("route", ["one-pass", "pthreads", "one-shot"])
+def test_one_pass_counter_counts_its_chunks(churn_big, tmp_path,
+                                            monkeypatch, route):
+    """A churn job at 65,536-row chunks makes one one-pass call a chunk;
+    a forced pthread buffer and the one-shot encode (id column) make
+    none."""
+    path = str(churn_big / "in.csv")
+    if route == "pthreads":
+        monkeypatch.setattr(native, "MT_MIN_BYTES", 1)
+        monkeypatch.setattr(native, "MT_THREADS", 3)
+    native.reset_call_counts()
+    if route == "one-shot":
+        enc, _ = _encoders(CHURN_SCHEMA)
+        assert enc.encode_path(path, ",").n_rows == 150_000
+        assert (native.ENCODE_CALLS, native.ONE_PASS_CALLS) == (1, 0)
+        return
+    assert cli_main(["BayesianDistribution", "-Dpipeline.chunk.rows=65536",
+                     f"-Dfeature.schema.file.path={CHURN_SCHEMA}", path,
+                     str(tmp_path / "model"), "--device", "cpu"]) == 0
+    assert native.ENCODE_CALLS == 3
+    assert native.ONE_PASS_CALLS == (3 if route == "one-pass" else 0)
