@@ -22,8 +22,28 @@ kernel raises instead of leaving every neighborhood unscored.
 
 Every job takes a ``device``; the distance job computes on it (or on the
 mesh passed to its ``run``), and jobs with no device work still resolve
-it, so that no entry point quietly runs on the CPU.  Not ported yet: tracing spans and the serving adapter
-(``NearestNeighborAdapter``).
+it, so that no entry point quietly runs on the CPU.  The serving adapter
+is ``serve.engine.NearestNeighborAdapter``.
+
+The distance job reads each set's part files as bytes and parses them
+by column with ``native.parse_csv_columns_buffer``: float64 numeric
+feature columns (the values ``float()`` gives), fixed-width bytes for
+the id, the class and categorical columns, whose codes it gives in
+first-seen order over the training rows, then the test rows.  Where
+that parser cannot take the input, or might read text that ``float()``
+refuses (a delimiter that is not one plain character, text that is not
+ASCII or holds a carriage return, a NUL, ``0x`` or ``(``, a ragged row,
+an unparseable number, a set with no rows, an input held in an artifact
+store) the job splits every line in Python instead; both readers give
+the same output bytes.
+
+Spans (``core.obs``): the distance job records ``ingest.read``,
+``ingest.parse``, ``knn.distance`` (the ``pairwise_distances`` call:
+the operands' upload, K3, K3m and the copy back) and ``knn.emit`` (the
+pair lines, built and written); the vote job ``ingest.read``,
+``ingest.parse`` (each pair line split and grouped by its test id, in
+one pass) and ``knn.vote`` (the decisions, the confusion counts and the
+prediction lines).
 """
 
 from __future__ import annotations
@@ -31,14 +51,14 @@ from __future__ import annotations
 import math
 import os
 from collections import defaultdict
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
 from ..core.config import JobConfig
 from ..core.io import _input_files, read_lines, split_line, write_output
 from ..core.metrics import ConfusionMatrix, CostBasedArbitrator, Counters
-from ..core.obs import traced_run
+from ..core.obs import get_tracer, traced_run
 from ..core.schema import FeatureSchema
 from ..device import resolve_device
 from ..ops.distance import pairwise_distances
@@ -69,35 +89,153 @@ class SameTypeSimilarity:
             config.must("feature.schema.file.path"))
         self.device = resolve_device(device)
 
-    def _encode(self, records: List[List[str]],
-                vocabs: Dict[int, Dict[str, int]]):
-        """Numeric columns range-normalized to [0,1] when min/max are
-        declared; categorical columns to vocab codes.  ``vocabs`` is SHARED
-        between the train and test encode calls so undeclared values get one
-        consistent code across both sets."""
+    def _assemble(self, n: int, numeric, categorical):
+        """The feature matrices of ``n`` rows from a column source:
+        ``numeric(field)`` gives a float64 column, ``categorical(field)``
+        its int32 codes.  Numeric columns are range-normalized to [0,1]
+        when min/max are declared.  Returns ``(num, cat, num_weights,
+        cat_weights)``."""
         num_cols, cat_cols = [], []
         num_w, cat_w = [], []
         for f in self.schema.feature_fields():
             w = float(f.extra.get("weight", 1.0))
             if f.is_categorical():
-                vocab = vocabs.setdefault(
-                    f.ordinal, {v: i for i, v in enumerate(f.cardinality or [])})
-                col = np.asarray(
-                    [vocab.setdefault(r[f.ordinal], len(vocab))
-                     for r in records], dtype=np.int32)
-                cat_cols.append(col)
+                cat_cols.append(categorical(f))
                 cat_w.append(w)
             else:
-                col = np.asarray([float(r[f.ordinal]) for r in records])
+                col = numeric(f)
                 if f.min is not None and f.max is not None and f.max > f.min:
                     col = (col - f.min) / (f.max - f.min)
                 num_cols.append(col)
                 num_w.append(w)
         num = (np.stack(num_cols, axis=1) if num_cols
-               else np.zeros((len(records), 0)))
+               else np.zeros((n, 0)))
         cat = (np.stack(cat_cols, axis=1) if cat_cols
-               else np.zeros((len(records), 0), dtype=np.int32))
+               else np.zeros((n, 0), dtype=np.int32))
         return num, cat, np.asarray(num_w), np.asarray(cat_w)
+
+    def _encode(self, records: List[List[str]],
+                vocabs: Dict[int, Dict[str, int]]):
+        """Split records encoded (``_assemble``): categorical columns to
+        vocab codes.  ``vocabs`` is SHARED between the train and test
+        encode calls so undeclared values get one consistent code across
+        both sets."""
+        def categorical(f):
+            vocab = vocabs.setdefault(
+                f.ordinal, {v: i for i, v in enumerate(f.cardinality or [])})
+            return np.asarray([vocab.setdefault(r[f.ordinal], len(vocab))
+                               for r in records], dtype=np.int32)
+
+        return self._assemble(
+            len(records),
+            lambda f: np.asarray([float(r[f.ordinal]) for r in records]),
+            categorical)
+
+    def _read_records(self, in_path: str, delim_regex: str, prefix: str,
+                      inter_set: bool, include_class: bool, cls_field):
+        """The Python reader: every line split, then ``_encode``.
+        Returns ``_Sets``."""
+        tracer = get_tracer()
+        with tracer.span("ingest.read", path=in_path):
+            files = [(os.path.basename(fp).startswith(prefix),
+                      list(read_lines(fp))) for fp in _input_files(in_path)]
+        with tracer.span("ingest.parse", native=False):
+            train_recs: List[List[str]] = []
+            test_recs: List[List[str]] = []
+            for is_base, lines in files:
+                for line in lines:
+                    rec = split_line(line, delim_regex)
+                    (train_recs if is_base or not inter_set else test_recs
+                     ).append(rec)
+            del files
+            if not inter_set:
+                test_recs = train_recs
+            vocabs: Dict[int, Dict[str, int]] = {}
+            tnum, tcat, num_w, cat_w = self._encode(train_recs, vocabs)
+            qnum, qcat, _, _ = self._encode(test_recs, vocabs)
+            id_ord = self.schema.id_field().ordinal
+            cls_ord = (cls_field.ordinal if include_class
+                       and cls_field is not None else None)
+
+            def strings(recs, o):
+                return None if o is None else [r[o] for r in recs]
+            return _Sets(tnum, tcat, qnum, qcat, num_w, cat_w,
+                         strings(train_recs, id_ord),
+                         strings(test_recs, id_ord),
+                         strings(train_recs, cls_ord),
+                         strings(test_recs, cls_ord))
+
+    def _read_columns(self, in_path: str, delim_regex: str, prefix: str,
+                      inter_set: bool, include_class: bool, cls_field):
+        """The columnar reader: each set's part files joined and parsed
+        by ``native.parse_csv_columns_buffer`` (FLOAT64 numeric feature
+        columns, BYTES for the id, the class and categorical columns),
+        categorical codes given in first-seen order over the training
+        rows, then the test rows, as ``_encode`` gives them.  Returns
+        ``_Sets``, or None where the Python reader must run: a delimiter
+        that is not one plain character, a set with no rows, an input
+        held in an artifact store, text that is not ASCII or holds a
+        carriage return, a NUL byte, ``0x`` or ``(``, a column the schema
+        reads as both a number and text, or what the native parser
+        refuses (a ragged row, an unparseable number)."""
+        from .. import native
+        from ..core.io import get_artifact_store, is_plain_delim
+
+        files = _input_files(in_path)
+        id_field = self.schema.id_field()
+        store = get_artifact_store()
+        if (not is_plain_delim(delim_regex) or id_field is None
+                or (store is not None
+                    and any(store.peek(fp) is not None for fp in files))):
+            return None
+        tracer = get_tracer()
+        with tracer.span("ingest.read", path=in_path):
+            parts: Tuple[List[bytes], List[bytes]] = ([], [])
+            for fp in files:
+                is_base = os.path.basename(fp).startswith(prefix)
+                with open(fp, "rb") as fh:
+                    parts[0 if is_base or not inter_set else 1].append(
+                        fh.read())
+        bufs = [b"\n".join(p) for p in parts[:2 if inter_set else 1]]
+        with tracer.span("ingest.parse", native=True,
+                         bytes=sum(len(b) for b in bufs)):
+            want = {id_field.ordinal: native.BYTES}
+            if include_class and cls_field is not None:
+                want[cls_field.ordinal] = native.BYTES
+            for f in self.schema.feature_fields():
+                kind = native.BYTES if f.is_categorical() else native.FLOAT64
+                if want.setdefault(f.ordinal, kind) != kind:
+                    return None
+            sets = []
+            for buf in bufs:
+                cols = _parse_columns(buf, delim_regex, want)
+                if cols is None:
+                    return None
+                sets.append(cols)
+            if not inter_set:
+                sets.append(sets[0])
+            (n_tr, tr), (n_te, te) = sets
+            codes = {}
+            for f in self.schema.feature_fields():
+                if f.is_categorical():
+                    codes[f.ordinal] = _first_seen_codes(
+                        {v: i for i, v in enumerate(f.cardinality or [])},
+                        tr[f.ordinal], te[f.ordinal])
+            tnum, tcat, num_w, cat_w = self._assemble(
+                n_tr, lambda f: tr[f.ordinal],
+                lambda f: codes[f.ordinal][0])
+            qnum, qcat, _, _ = self._assemble(
+                n_te, lambda f: te[f.ordinal],
+                lambda f: codes[f.ordinal][1])
+            cls_ord = (cls_field.ordinal if include_class
+                       and cls_field is not None else None)
+
+            def strings(cols, o):
+                return None if o is None else cols[o].astype(str).tolist()
+            return _Sets(tnum, tcat, qnum, qcat, num_w, cat_w,
+                         strings(tr, id_field.ordinal),
+                         strings(te, id_field.ordinal),
+                         strings(tr, cls_ord), strings(te, cls_ord))
 
     @traced_run
     def run(self, in_path: str, out_path: str, mesh=None) -> Counters:
@@ -105,6 +243,7 @@ class SameTypeSimilarity:
         distances run on that mesh instead of the job's device, with the
         same output bytes."""
         counters = Counters()
+        tracer = get_tracer()
         delim_regex = self.config.field_delim_regex()
         delim = self.config.field_delim_out()
         inter_set = self.config.get_boolean("inter.set.matching", True)
@@ -126,66 +265,115 @@ class SameTypeSimilarity:
             raise ValueError(f"unknown top-k method {topk_method!r}; "
                              "use 'exact', 'fused', 'sorted' or 'approx'")
 
-        train_recs: List[List[str]] = []
-        test_recs: List[List[str]] = []
-        for fp in _input_files(in_path):
-            is_base = os.path.basename(fp).startswith(prefix)
-            for line in read_lines(fp):
-                rec = split_line(line, delim_regex)
-                (train_recs if is_base or not inter_set else test_recs
-                 ).append(rec)
-        if not inter_set:
-            test_recs = train_recs
-        counters.set("Basic", "Training records", len(train_recs))
-        counters.set("Basic", "Test records", len(test_recs))
-
-        vocabs: Dict[int, Dict[str, int]] = {}
-        tnum, tcat, num_w, cat_w = self._encode(train_recs, vocabs)
-        qnum, qcat, _, _ = self._encode(test_recs, vocabs)
-
-        id_field = self.schema.id_field()
         cls_field = None
         try:
             cls_field = self.schema.class_attr_field()
         except ValueError:
             include_class = False
-        train_ids = [r[id_field.ordinal] for r in train_recs]
-        test_ids = [r[id_field.ordinal] for r in test_recs]
+        read = (self._read_columns(in_path, delim_regex, prefix, inter_set,
+                                   include_class, cls_field)
+                or self._read_records(in_path, delim_regex, prefix,
+                                      inter_set, include_class, cls_field))
+        n_train, n_test = len(read.train_ids), len(read.test_ids)
+        counters.set("Basic", "Training records", n_train)
+        counters.set("Basic", "Test records", n_test)
 
         # self-join: request one extra neighbor so the zero-distance
         # diagonal entry does not consume a top-k slot
         effective_k = (top_k + 1 if top_k and not inter_set else top_k)
         stats: dict = {}
-        dist, idx = pairwise_distances(
-            qnum, qcat, tnum, tcat, num_w, cat_w, algorithm=algorithm,
-            scale=scale, top_k=effective_k,
-            device=None if mesh is not None else self.device,
-            topk_method=topk_method, stats=stats, mesh=mesh)
+        with tracer.span("knn.distance", queries=n_test, candidates=n_train):
+            dist, idx = pairwise_distances(
+                read.qnum, read.qcat, read.tnum, read.tcat, read.num_w,
+                read.cat_w, algorithm=algorithm, scale=scale,
+                top_k=effective_k,
+                device=None if mesh is not None else self.device,
+                topk_method=topk_method, stats=stats, mesh=mesh)
         counters.set("Distance", "Fused engine calls",
                      int(stats["engine"] == "fused"))
         counters.set("Distance", "Re-resolved rows", stats["reresolved"])
 
-        lines: List[str] = []
-        for qi in range(len(test_recs)):
-            cols = (idx[qi] if idx is not None
-                    else range(len(train_recs)))
-            emitted = 0
-            for rank, ti in enumerate(cols):
-                ti = int(ti)
-                if not inter_set and ti == qi:
-                    continue   # self-join skips the diagonal
-                if top_k and emitted == top_k:
-                    break
-                d = int(dist[qi, rank] if idx is not None else dist[qi, ti])
-                parts = [train_ids[ti], test_ids[qi], str(d)]
-                if include_class and cls_field is not None:
-                    parts.append(train_recs[ti][cls_field.ordinal])
-                    parts.append(test_recs[qi][cls_field.ordinal])
-                lines.append(delim.join(parts))
-                emitted += 1
-        counters.set("Basic", "Pairs emitted", len(lines))
-        write_output(out_path, lines)
+        with tracer.span("knn.emit", queries=n_test):
+            with_class = read.train_cls is not None
+            # Python ints, row by row: no numpy scalar a pair
+            idx_rows = idx.tolist() if idx is not None else None
+            lines: List[str] = []
+            for qi in range(n_test):
+                drow = dist[qi].tolist()
+                cols = (idx_rows[qi] if idx_rows is not None
+                        else range(n_train))
+                emitted = 0
+                for rank, ti in enumerate(cols):
+                    if not inter_set and ti == qi:
+                        continue   # self-join skips the diagonal
+                    if top_k and emitted == top_k:
+                        break
+                    d = drow[rank] if idx_rows is not None else drow[ti]
+                    parts = [read.train_ids[ti], read.test_ids[qi], str(d)]
+                    if with_class:
+                        parts.append(read.train_cls[ti])
+                        parts.append(read.test_cls[qi])
+                    lines.append(delim.join(parts))
+                    emitted += 1
+            counters.set("Basic", "Pairs emitted", len(lines))
+            write_output(out_path, lines)
         return counters
+
+
+class _Sets(NamedTuple):
+    """What the distance job's readers give: both sets' feature matrices
+    (``_assemble``), the weights, and each row's id and class text (the
+    class None where the pair lines carry none)."""
+    tnum: np.ndarray
+    tcat: np.ndarray
+    qnum: np.ndarray
+    qcat: np.ndarray
+    num_w: np.ndarray
+    cat_w: np.ndarray
+    train_ids: List[str]
+    test_ids: List[str]
+    train_cls: Optional[List[str]]
+    test_cls: Optional[List[str]]
+
+
+def _parse_columns(buf: bytes, delim: str, want: Dict[int, int]):
+    """``(n_rows, {ordinal: array})`` of the file columns ``want`` names
+    (``native`` column kinds) from one set's bytes, or None where the
+    Python reader must run instead (see ``_read_columns``)."""
+    from .. import native
+    from ..core.pipeline import first_nonblank_line
+
+    # strtod also takes hexadecimal and "nan(...)" text, which float()
+    # refuses: such input goes to the Python reader, which raises
+    if (not buf.isascii() or b"\r" in buf or b"\0" in buf or b"0x" in buf
+            or b"0X" in buf or b"(" in buf):
+        return None
+    first = first_nonblank_line(buf)
+    if not first:
+        return None
+    n_cols = first.count(delim.encode()) + 1
+    if max(want) >= n_cols:
+        return None
+    col_types = [native.SKIP] * n_cols
+    for o, kind in want.items():
+        col_types[o] = kind
+    return native.parse_csv_columns_buffer(buf, col_types, delim)
+
+
+def _first_seen_codes(vocab: Dict[str, int], train: np.ndarray,
+                      test: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """int32 codes of a categorical column's training and test values
+    (fixed-width bytes): ``vocab`` (the declared values) extended by each
+    new value in first-seen order, training rows first, as
+    ``SameTypeSimilarity._encode``'s shared vocabulary gives them."""
+    both = np.concatenate([train, test])
+    uniq, first, inverse = np.unique(both, return_index=True,
+                                     return_inverse=True)
+    code = np.empty(len(uniq), np.int64)
+    for u in np.argsort(first, kind="stable"):
+        code[u] = vocab.setdefault(uniq[u].decode(), len(vocab))
+    codes = code[inverse.reshape(-1)].astype(np.int32)
+    return codes[:len(train)], codes[len(train):]
 
 
 # ---------------------------------------------------------------------------
@@ -438,15 +626,29 @@ class NearestNeighbor:
         # this job runs on the host, as the reference's does
         counters = Counters()
         delim_regex = self.config.field_delim_regex()
+
+        # mapper parse (NearestNeighbor.java:130-180); the grouping by
+        # test id runs in the same pass, so no split line outlives it
+        tracer = get_tracer()
+        with tracer.span("ingest.read", path=in_path):
+            lines = list(read_lines(in_path))
+        with tracer.span("ingest.parse", rows=len(lines)):
+            groups, test_class, test_regr = self._map(lines, delim_regex)
+        del lines
+        with tracer.span("knn.vote", groups=len(groups)):
+            self._vote(groups, test_class, test_regr, out_path, counters)
+        return counters
+
+    def _map(self, lines: List[str], delim_regex: str):
+        """The mapper: each pair line split and grouped by its test id.
+        Returns ``(groups, test_class, test_regr)``."""
         ccw = self.class_cond_weighted
         is_linreg = (self.prediction_mode == "regression"
                      and self.regression_method == "linearRegression")
-
-        # mapper parse (NearestNeighbor.java:130-180)
         groups: Dict[str, List[Tuple]] = defaultdict(list)
         test_class: Dict[str, str] = {}
         test_regr: Dict[str, float] = {}
-        for line in read_lines(in_path):
+        for line in lines:
             items = split_line(line, delim_regex)
             if ccw:
                 test_id, t_class, train_id = items[0], items[1], items[2]
@@ -470,7 +672,12 @@ class NearestNeighbor:
                     test_regr[test_id] = float(items[i + 1])
                 groups[test_id].append(
                     (dist, train_id, train_class, -1.0, r_in))
+        return groups, test_class, test_regr
 
+    def _vote(self, groups, test_class, test_regr, out_path: str,
+              counters: Counters) -> None:
+        """Each group's decision (``classify_group``), the confusion
+        counts in validation mode, and the prediction lines."""
         out: List[str] = []
         for test_id, neighbors in groups.items():
             line, predicted = self.classify_group(
@@ -483,4 +690,3 @@ class NearestNeighbor:
         if self.conf_matrix is not None:
             self.conf_matrix.to_counters(counters)
         write_output(out_path, out)
-        return counters

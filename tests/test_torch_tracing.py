@@ -271,3 +271,53 @@ def test_markov_trainer_ingest_spans(tmp_path, chunk_rows):
         assert n[name] == want, name
         assert all(_root(s, by_id).name == "job:MarkovStateTransitionModel"
                    for s in spans if s.name == name)
+
+
+KNN_SPANS = ("ingest.read", "ingest.parse", "knn.distance", "knn.emit")
+
+
+@pytest.mark.parametrize("columnar", [True, False],
+                         ids=["native", "python"])
+def test_knn_jobs_record_their_spans(tmp_path, monkeypatch, columnar):
+    """The distance job records ``ingest.read``, ``ingest.parse``,
+    ``knn.distance`` and ``knn.emit``, and the vote job ``ingest.read``,
+    ``ingest.parse`` and ``knn.vote``, each once and inside its own job
+    span, on the native reader and on the Python one."""
+    from avenir_tpu_torch.models import knn as tk
+
+    rows = datagen.gen_elearn(120, seed=3)
+    inp = tmp_path / "in"
+    inp.mkdir()
+    (inp / "tr-00000").write_text("\n".join(",".join(r) for r in rows[:100]))
+    (inp / "te-00000").write_text("\n".join(",".join(r) for r in rows[100:]))
+    schema = os.path.join(os.path.dirname(__file__), "..", "resource",
+                          "elearn_nb", "elearn.json")
+    if not columnar:
+        monkeypatch.setattr(tk.SameTypeSimilarity, "_read_columns",
+                            lambda self, *a: None)
+    tr = obs.configure(enabled=True)
+    tr.clear()
+    tk.SameTypeSimilarity(JobConfig({
+        "feature.schema.file.path": schema, "output.top.matches": "3"}),
+        device="cpu").run(str(inp), str(tmp_path / "sim"))
+    tk.NearestNeighbor(JobConfig({
+        "feature.schema.file.path": schema, "top.match.count": "3"}),
+        device="cpu").run(str(tmp_path / "sim"), str(tmp_path / "pred"))
+    spans = tr.spans()
+    by_id = {s.span_id: s for s in spans}
+    jobs = {"job:SameTypeSimilarity": KNN_SPANS,
+            "job:NearestNeighbor": ("ingest.read", "ingest.parse",
+                                    "knn.vote")}
+    for job, names in jobs.items():
+        (root,) = [s for s in spans if s.name == job]
+        inside = Counter(s.name for s in spans
+                         if s is not root and _root(s, by_id) is root)
+        for name in names:
+            assert inside[name] == 1, (job, name, inside)
+            (s,) = [s for s in spans
+                    if s.name == name and _root(s, by_id) is root]
+            assert root.t0_ns <= s.t0_ns
+            assert s.t0_ns + s.dur_ns <= root.t0_ns + root.dur_ns
+    parse = [s for s in spans if s.name == "ingest.parse"
+             and _root(s, by_id).name == "job:SameTypeSimilarity"]
+    assert parse[0].attrs["native"] is columnar
