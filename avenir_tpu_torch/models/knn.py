@@ -37,19 +37,34 @@ an unparseable number, a set with no rows, an input held in an artifact
 store) the job splits every line in Python instead; both readers give
 the same output bytes.
 
+The vote job, for a plain majority vote (classification without
+class-conditional weighting, class distribution, decision threshold or
+cost-based arbitration), reads the pair lines' bytes and parses the test
+id, the distance and the classes by column with the same parser, then
+decides every neighbourhood at once with array operations
+(``NearestNeighbor._vote_columns``), each decision the one
+``classify_group`` gives; ``COLUMNAR_VOTES`` counts those jobs.  Other
+settings, and input that parser cannot take or might read otherwise
+than ``int()`` (as above, and a distance wider than 18 bytes or a sign
+followed by blanks), take the per-group path: each line split and
+grouped by its test id, each group decided by ``classify_group``, as
+the serving adapter decides its few.
+
 Spans (``core.obs``): the distance job records ``ingest.read``,
 ``ingest.parse``, ``knn.distance`` (the ``pairwise_distances`` call:
 the operands' upload, K3, K3m and the copy back) and ``knn.emit`` (the
-pair lines, built and written); the vote job ``ingest.read``,
-``ingest.parse`` (each pair line split and grouped by its test id, in
-one pass) and ``knn.vote`` (the decisions, the confusion counts and the
-prediction lines).
+pair lines, built and written); the vote job ``ingest.read`` (the part
+files' bytes, or their lines on the per-group path), ``ingest.parse``
+(the column parse, or each line split and grouped; ``columnar`` says
+which reader the job took) and ``knn.vote`` (the decisions, the
+confusion counts and the prediction lines).
 """
 
 from __future__ import annotations
 
 import math
 import os
+import threading
 from collections import defaultdict
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -336,10 +351,12 @@ class _Sets(NamedTuple):
     test_cls: Optional[List[str]]
 
 
-def _parse_columns(buf: bytes, delim: str, want: Dict[int, int]):
+def _parse_columns(buf: bytes, delim: str, want: Dict[int, int],
+                   widths: Optional[List[int]] = None):
     """``(n_rows, {ordinal: array})`` of the file columns ``want`` names
     (``native`` column kinds) from one set's bytes, or None where the
-    Python reader must run instead (see ``_read_columns``)."""
+    Python reader must run instead (see ``_read_columns``); ``widths``
+    as ``native.parse_csv_columns_buffer`` fills it."""
     from .. import native
     from ..core.pipeline import first_nonblank_line
 
@@ -357,7 +374,7 @@ def _parse_columns(buf: bytes, delim: str, want: Dict[int, int]):
     col_types = [native.SKIP] * n_cols
     for o, kind in want.items():
         col_types[o] = kind
-    return native.parse_csv_columns_buffer(buf, col_types, delim)
+    return native.parse_csv_columns_buffer(buf, col_types, delim, widths)
 
 
 def _first_seen_codes(vocab: Dict[str, int], train: np.ndarray,
@@ -627,17 +644,80 @@ class NearestNeighbor:
         counters = Counters()
         delim_regex = self.config.field_delim_regex()
 
-        # mapper parse (NearestNeighbor.java:130-180); the grouping by
-        # test id runs in the same pass, so no split line outlives it
+        # mapper parse (NearestNeighbor.java:130-180): by column where the
+        # settings and the input allow, else each line split and grouped
+        # by its test id in one pass, so no split line outlives it
         tracer = get_tracer()
         with tracer.span("ingest.read", path=in_path):
-            lines = list(read_lines(in_path))
-        with tracer.span("ingest.parse", rows=len(lines)):
-            groups, test_class, test_regr = self._map(lines, delim_regex)
+            buf = self._read_bytes(in_path, delim_regex)
+            lines = list(read_lines(in_path)) if buf is None else None
+        with tracer.span("ingest.parse", columnar=False) as span:
+            cols = (None if buf is None
+                    else self._parse_pairs(buf, delim_regex))
+            del buf
+            if cols is None:
+                if lines is None:
+                    lines = list(read_lines(in_path))
+                rows = len(lines)
+                groups, test_class, test_regr = self._map(lines, delim_regex)
+            else:
+                rows = len(cols[1])
+            if hasattr(span, "attrs"):        # the tracer is on
+                span.attrs.update(columnar=cols is not None, rows=rows)
         del lines
+        if cols is not None:
+            with tracer.span("knn.vote"):
+                self._vote_columns(cols, out_path, counters)
+            _count_columnar_vote()
+            return counters
         with tracer.span("knn.vote", groups=len(groups)):
             self._vote(groups, test_class, test_regr, out_path, counters)
         return counters
+
+    def _read_bytes(self, in_path: str, delim_regex: str) -> Optional[bytes]:
+        """The input's part files joined by newlines, or None where the
+        vote cannot run by column: settings other than a plain majority
+        vote (regression, class-conditional weighting, a class
+        distribution in the output, a decision threshold, the cost-based
+        arbitrator, ``top.match.count`` under 1), a delimiter that is not
+        one plain character, or an input held in an artifact store."""
+        from ..core.io import get_artifact_store, is_plain_delim
+
+        store = get_artifact_store()
+        if (self.prediction_mode != "classification"
+                or self.class_cond_weighted or self.output_class_distr
+                or self.decision_threshold > 0 or self.use_cost_based
+                or self.top_match_count < 1
+                or not is_plain_delim(delim_regex)
+                or (store is not None and store.peek(in_path) is not None)):
+            return None
+        parts = []
+        for fp in _input_files(in_path):
+            with open(fp, "rb") as fh:
+                parts.append(fh.read())
+        return b"\n".join(parts)
+
+    def _parse_pairs(self, buf: bytes, delim: str):
+        """The pair lines' test id, distance, training class and (in
+        validation mode) test class by column (``_parse_columns``), or
+        None where the mapper must split the lines: what
+        ``_parse_columns`` refuses, a distance that is not integer text
+        or is wider than 18 bytes (``int()`` reads what an int64 would
+        overflow), or a sign with no digit after it but blanks, which
+        the native parser reads as 0 and ``int()`` refuses."""
+        from .. import native
+
+        for sign in (b"-", b"+"):
+            if sign in buf and (sign + b" " in buf or sign + b"\t" in buf):
+                return None
+        want = {1: native.BYTES, 2: native.INT64, 3: native.BYTES}
+        if self.validation:
+            want[4] = native.BYTES
+        widths: List[int] = []
+        got = _parse_columns(buf, delim, want, widths)
+        if got is None or widths[2] > 18:
+            return None
+        return got[1]
 
     def _map(self, lines: List[str], delim_regex: str):
         """The mapper: each pair line split and grouped by its test id.
@@ -690,3 +770,132 @@ class NearestNeighbor:
         if self.conf_matrix is not None:
             self.conf_matrix.to_counters(counters)
         write_output(out_path, out)
+
+    def _vote_columns(self, cols: Dict[int, np.ndarray], out_path: str,
+                      counters: Counters) -> None:
+        """``_vote`` over the parsed columns (``_parse_pairs``), every
+        group at once, with ``classify_group``'s decisions: groups are the
+        test ids in first-seen order; a group's rows sorted stably by
+        distance, its first ``top.match.count`` scored, each class's
+        scores summed in that order in float64, as the per-group dict
+        sums them; the winner is the largest sum above 0, ties to the
+        class seen first; the test class is the group's last line's."""
+        ids, dist, cls = cols[1], cols[2], cols[3]
+        n = len(ids)
+        # group codes in first-seen order, through the runs of equal ids
+        run = np.flatnonzero(np.r_[True, ids[1:] != ids[:-1]])
+        uniq, first, inv = np.unique(_keys(ids[run]), return_index=True,
+                                     return_inverse=True)
+        uniq = uniq.view(ids.dtype)
+        by_first = np.argsort(first)
+        code = np.empty(len(uniq), np.int64)
+        code[by_first] = np.arange(len(uniq))
+        grp = np.repeat(code[inv.reshape(-1)], np.diff(np.r_[run, n]))
+        order = _stable_order(grp, dist)
+        g = grp[order]
+        start = np.flatnonzero(np.r_[True, g[1:] != g[:-1]])
+        rank = np.arange(n) - np.repeat(start, np.diff(np.r_[start, n]))
+        top = rank < self.top_match_count
+        rows = order[top]
+        names, cls_code = _codes(cls[rows])
+        n_cls = len(names)
+        pair, seen, at_pair = np.unique(g[top] * n_cls + cls_code,
+                                        return_index=True,
+                                        return_inverse=True)
+        # bincount adds in row order, so each sum in rank order, in
+        # float64: the per-group dict's sums to the last bit
+        total = np.bincount(at_pair.reshape(-1), minlength=len(pair),
+                            weights=self.neighborhood.scores(dist[rows]))
+        label = np.append(names, b"")[_winners(pair, seen, total, n_cls)]
+        fields = [uniq[by_first]]
+        if self.validation:
+            fields.append(cols[4][_last_rows(order, start)])
+        fields.append(label)
+        if self.conf_matrix is not None:
+            _report_all(self.conf_matrix, label, fields[1])
+            self.conf_matrix.to_counters(counters)
+        # the lines as one fixed-width bytes array; the padding NULs go
+        # with one replace, as the text holds none (``_parse_columns``)
+        delim = self.config.field_delim_out().encode()
+        line = fields[0]
+        for f in fields[1:]:
+            line = np.char.add(np.char.add(line, delim), f)
+        text = np.char.add(line, b"\n").tobytes().replace(b"\0", b"")
+        write_output(out_path, text.decode().split("\n")[:-1])
+
+
+def _stable_order(grp: np.ndarray, dist: np.ndarray) -> np.ndarray:
+    """The rows by group, then by distance, ties in arrival order (as
+    Python's ``sorted``): the distance job's lines come so already, and
+    ``np.lexsort`` is stable."""
+    same = grp[1:] == grp[:-1]
+    if (grp[1:] >= grp[:-1]).all() and (dist[1:] >= dist[:-1])[same].all():
+        return np.arange(len(grp))
+    return np.lexsort((dist, grp))
+
+
+def _winners(pair: np.ndarray, seen: np.ndarray, total: np.ndarray,
+             n_cls: int) -> np.ndarray:
+    """Each group's class code (``pair`` is ``group * n_cls + class``,
+    sorted, each with the index of its first row, ``seen``, and its sum):
+    the largest sum, ties to the class seen first, as ``_classify``
+    reads the dict in insertion order; ``n_cls`` where no sum is above
+    0."""
+    grp = pair // n_cls
+    start = np.flatnonzero(np.r_[True, grp[1:] != grp[:-1]])
+    best = np.maximum.reduceat(total, start)
+    first = np.where(total == best[grp], seen, np.iinfo(np.int64).max)
+    lead = np.minimum.reduceat(first, start)
+    # ``seen`` holds each row index once: one lead a group
+    win = pair[first == lead[grp]] % n_cls
+    return np.where(best > 0, win, n_cls)
+
+
+def _last_rows(order: np.ndarray, start: np.ndarray) -> np.ndarray:
+    """Each group's last row in arrival order: ``order`` holds the rows
+    group by group, each group from its ``start``."""
+    return np.maximum.reduceat(order, start)
+
+
+def _keys(col: np.ndarray) -> np.ndarray:
+    """A fixed-width bytes column as unsigned integers where its width
+    is one of their sizes (equal values, equal integers, and faster to
+    sort), else the column itself."""
+    w = col.dtype.itemsize
+    return col.view(f"u{w}") if w in (1, 2, 4, 8) else col
+
+
+def _codes(col: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """A fixed-width bytes column's distinct values and each row's index
+    among them."""
+    keys = _keys(col)
+    values = np.unique(keys)
+    return values.view(col.dtype), np.searchsorted(values, keys)
+
+
+def _report_all(cm: ConfusionMatrix, predicted: np.ndarray,
+                actual: np.ndarray) -> None:
+    """``cm.report`` for every pair of predicted and actual class
+    (fixed-width bytes) at once."""
+    def equals(col, value):
+        return (col == value.encode() if isinstance(value, str)
+                else np.zeros(len(col), bool))
+    pred_pos = equals(predicted, cm.pos_class)
+    act_pos = equals(actual, cm.pos_class)
+    act_neg = equals(actual, cm.neg_class)
+    cm.true_pos += int((pred_pos & act_pos).sum())
+    cm.false_pos += int((pred_pos & ~act_pos).sum())
+    cm.true_neg += int((~pred_pos & act_neg).sum())
+    cm.false_neg += int((~pred_pos & ~act_neg).sum())
+
+
+COLUMNAR_VOTES = 0
+_COUNT_LOCK = threading.Lock()
+
+
+def _count_columnar_vote() -> None:
+    """Add one to ``COLUMNAR_VOTES``, a vote job that took the columnar
+    path, under a lock, as ``ops.topk`` counts its launches."""
+    global COLUMNAR_VOTES
+    with _COUNT_LOCK:
+        COLUMNAR_VOTES += 1

@@ -241,21 +241,26 @@ def parse_csv_columns(path: str, col_types, delim: str = ","
     return parse_csv_columns_buffer(_read_buffer(path), col_types, delim)
 
 
-def parse_csv_columns_buffer(buf: bytes, col_types, delim: str = ","
+def parse_csv_columns_buffer(buf: bytes, col_types, delim: str = ",",
+                             widths: Optional[List[int]] = None
                              ) -> Optional[Tuple[int, Dict[int, np.ndarray]]]:
     """:func:`parse_csv_columns` over an in-memory buffer: the per-chunk
     form the shared scan uses to take only the columns a job reads, with
     no field matrix (BYTES columns come back as fixed-width ``S``
-    arrays, FLOAT64 through C ``strtod``, the values ``float()`` gives)."""
+    arrays, FLOAT64 through C ``strtod``, the values ``float()`` gives).
+    A ``widths`` list, where given, is filled with each column's widest
+    field in bytes."""
     lib = get_lib()
     if len(delim) != 1:
         return None
     n_cols = len(col_types)
     bdelim = ctypes.c_char(delim.encode())
-    widths = (ctypes.c_int * n_cols)(*([0] * n_cols))
-    n_rows = lib.csv_scan(buf, len(buf), bdelim, n_cols, widths)
+    scan_w = (ctypes.c_int * n_cols)(*([0] * n_cols))
+    n_rows = lib.csv_scan(buf, len(buf), bdelim, n_cols, scan_w)
     if n_rows < 0:
         return None
+    if widths is not None:
+        widths[:] = list(scan_w)
     cols: Dict[int, np.ndarray] = {}
     outs = (ctypes.c_void_p * n_cols)(*([None] * n_cols))
     for j, t in enumerate(col_types):
@@ -264,13 +269,13 @@ def parse_csv_columns_buffer(buf: bytes, col_types, delim: str = ","
         elif t == FLOAT64:
             a = np.empty(n_rows, dtype=np.float64)
         elif t == BYTES:
-            a = np.empty(n_rows, dtype=f"S{max(int(widths[j]), 1)}")
+            a = np.empty(n_rows, dtype=f"S{max(int(scan_w[j]), 1)}")
         else:
             continue
         cols[j] = a
         outs[j] = a.ctypes.data
     rc = lib.csv_parse(buf, len(buf), bdelim, n_cols,
-                       (ctypes.c_int * n_cols)(*col_types), widths, outs,
+                       (ctypes.c_int * n_cols)(*col_types), scan_w, outs,
                        n_rows)
     if rc != 0:
         return None

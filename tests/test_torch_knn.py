@@ -165,6 +165,35 @@ def test_nearest_neighbor_matches_reference(tmp_path, knn_input, props):
     assert pc.as_dict() == jc.as_dict()
 
 
+def test_columnar_vote_matches_reference_at_the_cell_settings(tmp_path):
+    """The vote at the e-learning cell's settings (``top.match.count``
+    5, validation, kernel ``none``) over pair lines with ties in
+    distance, groups of 3 to 8 lines and interleaved test ids: the
+    port's columnar path against the JAX package."""
+    rng = np.random.default_rng(23)
+    groups = [[f"T{int(rng.integers(10 ** 6)):07d},Q{q:07d},"
+               f"{int(rng.integers(0, 6))},{'PF'[rng.integers(2)]},"
+               f"{'PF'[q % 2]}" for _ in range(int(rng.integers(3, 9)))]
+              for q in range(40)]
+    lines = []
+    while any(groups):
+        for g in groups:
+            if g and rng.random() < 0.5:
+                lines.append(g.pop(0))
+    write_output(str(tmp_path / "in"), lines)
+    cfg = {"feature.schema.file.path": os.path.join(
+        REPO, "resource", "elearn_nb", "elearn.json"),
+        "top.match.count": "5", "validation.mode": "true",
+        "kernel.function": "none"}
+    before = tknn.COLUMNAR_VOTES
+    jc, pc, _, _ = _pair(tmp_path, jknn.NearestNeighbor(JaxConfig(cfg)),
+                         tknn.NearestNeighbor(JobConfig(dict(cfg)),
+                                              device="cpu"),
+                         str(tmp_path / "in"), "vote")
+    assert tknn.COLUMNAR_VOTES - before == 1
+    assert pc.as_dict() == jc.as_dict()
+
+
 @pytest.mark.parametrize("method", ["average", "median", "linearRegression"])
 def test_nearest_neighbor_regression_matches_reference(tmp_path, method):
     rng = np.random.default_rng(4)

@@ -321,3 +321,44 @@ def test_knn_jobs_record_their_spans(tmp_path, monkeypatch, columnar):
     parse = [s for s in spans if s.name == "ingest.parse"
              and _root(s, by_id).name == "job:SameTypeSimilarity"]
     assert parse[0].attrs["native"] is columnar
+
+
+@pytest.mark.parametrize("settings,ragged,columnar", [
+    ({}, False, True),
+    ({"decision.threshold": "1.2", "class.attribute.values": "F,P"},
+     False, False),
+    ({}, True, False)], ids=["cell", "threshold", "ragged"])
+def test_vote_job_parse_span_names_its_reader(tmp_path, settings, ragged,
+                                              columnar):
+    """The vote job records ``ingest.read``, ``ingest.parse`` and
+    ``knn.vote`` once each inside its job span, on the columnar path
+    (the e-learning cell's settings) and on the per-group one (a
+    decision threshold; a ragged pair line); ``ingest.parse`` carries
+    ``columnar``, and ``COLUMNAR_VOTES`` counts the columnar job."""
+    from avenir_tpu_torch.models import knn as tk
+
+    lines = [f"T{i},Q{i // 5},{i % 7},{'PF'[i % 2]},{'PF'[i // 5 % 2]}"
+             for i in range(60)]
+    if ragged:
+        lines[11] += ",extra"
+    write_output(str(tmp_path / "sim"), lines)
+    schema = os.path.join(os.path.dirname(__file__), "..", "resource",
+                          "elearn_nb", "elearn.json")
+    tr = obs.configure(enabled=True)
+    tr.clear()
+    before = tk.COLUMNAR_VOTES
+    tk.NearestNeighbor(JobConfig(dict(settings, **{
+        "feature.schema.file.path": schema, "top.match.count": "5",
+        "validation.mode": "true", "kernel.function": "none"})),
+        device="cpu").run(str(tmp_path / "sim"), str(tmp_path / "pred"))
+    assert tk.COLUMNAR_VOTES - before == int(columnar)
+    spans = tr.spans()
+    by_id = {s.span_id: s for s in spans}
+    (root,) = [s for s in spans if s.name == "job:NearestNeighbor"]
+    inside = Counter(s.name for s in spans
+                     if s is not root and _root(s, by_id) is root)
+    for name in ("ingest.read", "ingest.parse", "knn.vote"):
+        assert inside[name] == 1, (name, inside)
+    (parse,) = [s for s in spans if s.name == "ingest.parse"]
+    assert parse.attrs["columnar"] is columnar
+    assert parse.attrs["rows"] == 60
