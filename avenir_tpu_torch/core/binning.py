@@ -12,19 +12,21 @@ Binning semantics (identical to the reference package):
 - numeric without ``bucketWidth`` -> raw value in a float column (-1 in
   ``x``), for the trainers' Gaussian moments.
 
-The chunked encoder ``encode_path_chunks`` and the one-shot
-``encode_path`` run the native C parser (``avenir_tpu_torch/native``):
-one pass per chunk parses, bins and encodes every schema column straight
-into the matrices, sized by the chunk's line budget (``chunk_encode``;
-the one-shot encode with its id column and large byte chunks take the
-reference's copy).  Chunks are cut at line ends over the whole buffer
-(``pipeline.row_chunk_ends``), codes come from
-the shared vocabularies, so they are stable across chunks, and the
-vocabulary order is first-seen order over the whole input, whatever
-``ingest.parse.threads`` is: the parse pool hands chunks back in order
-and every vocabulary merge runs on the caller's thread.  The chunked
-encoder also carries the resilience hooks: a resume offset, per-chunk
-fault points, and per-row salvage of a chunk the C parser rejects.
+The chunked encoder ``encode_path_chunks``, the shared scan's
+``encode_buffer_chunk`` and the one-shot ``encode_path`` run one native
+encode (``avenir_tpu_torch/native``'s ``chunk_encode``): one pass per
+buffer parses, bins and encodes every schema column straight into the
+matrices, and the one-shot encode's pass also copies out the id column.
+The chunked encoder takes its chunks from the port's one chunk reader,
+``pipeline.iter_byte_chunks_meta``, which reads the input, cuts it at
+line ends, skips to a resume offset and applies the per-chunk fault
+points; here remain the encode, the parse pool and the vocabulary remap.
+Codes come from the shared vocabularies, so they are stable across
+chunks, and the vocabulary order is first-seen order over the whole
+input, whatever ``ingest.parse.threads`` is: the parse pool, the only
+parallelism of the parse, hands chunks back in order and every
+vocabulary merge runs on the caller's thread.  A chunk the C parser
+rejects can be salvaged row by row.
 
 ``plain_encode_path_chunks`` is the numpy version of the chunked encoder
 (split lines, then one numpy pass per column), kept as the plain
@@ -57,29 +59,6 @@ def _rows_hint(chunk: bytes) -> Optional[int]:
         return None
     n = chunk.count(b"\n")
     return n if chunk.endswith(b"\n") else n + 1
-
-
-def _chunk_ends(buf: bytes, chunk_rows: Optional[int],
-                chunk_bytes: int) -> List[int]:
-    """The end offset of every chunk of ``buf``: past every
-    ``chunk_rows``-th line end (``pipeline.row_chunk_ends``), or past the
-    first line end at or after each ``chunk_bytes`` step."""
-    from .pipeline import row_chunk_ends
-
-    if not buf:
-        return []
-    if chunk_rows is not None:
-        return row_chunk_ends(buf, max(int(chunk_rows), 1))
-    step = max(int(chunk_bytes), 1)
-    ends, pos = [], 0
-    while pos < len(buf):
-        end = min(pos + step, len(buf))
-        if end < len(buf):
-            nl = buf.find(b"\n", end)
-            end = len(buf) if nl < 0 else nl + 1
-        ends.append(end)
-        pos = end
-    return ends
 
 
 class Vocab:
@@ -390,7 +369,7 @@ class DatasetEncoder:
                                native=True):
             res = native.encode_schema_buffer(
                 chunk, specs, n_cols, len(self.feature_fields), True,
-                id_ordinal=-1, delim=delim)
+                delim=delim)
             if res is None:
                 return None
             n, x, values, y = self._remap_native(res)
@@ -403,33 +382,32 @@ class DatasetEncoder:
                            with_offsets: bool = False,
                            salvage=None,
                            parse_threads: int = 1):
-        """Generator over C-encoded chunks of the input, cut at line
-        ends: yields ``(x, values, y, n_rows)`` per chunk with raw,
-        unshifted bucket bins (callers own the negative-bin guard) and
-        the shared vocabularies.  ``chunk_rows`` selects chunks of that
-        many lines (blank lines count toward a chunk's line budget but
-        not its rows); otherwise chunks are about ``chunk_bytes`` long.
-        Raises ``ChunkedEncodeUnsupported`` for a regex delimiter or input
-        the C parser rejects; callers then fall back to ``encode_path``.
+        """Generator over C-encoded chunks of the input: yields ``(x,
+        values, y, n_rows)`` per chunk with raw, unshifted bucket bins
+        (callers own the negative-bin guard) and the shared vocabularies.
+        The chunks are ``pipeline.iter_byte_chunks_meta``'s:
+        ``chunk_rows`` selects chunks of that many lines (blank lines
+        count toward a chunk's line budget but not its rows); otherwise
+        chunks are about ``chunk_bytes`` long.  Raises
+        ``ChunkedEncodeUnsupported`` for a regex delimiter or input the C
+        parser rejects; callers then fall back to ``encode_path``.
 
         ``start_offset`` (a checkpointed chunk-end byte offset) skips the
-        chunks already folded; boundaries derive from the whole buffer,
-        so the resumed chunking is the uninterrupted one.
-        ``with_offsets`` yields ``(x, values, y, n, chunk_index,
-        end_offset)`` for checkpoint tokens.  ``salvage``
+        chunks already folded, and each chunk passes the fault points, in
+        the reader.  ``with_offsets`` yields ``(x, values, y, n,
+        chunk_index, end_offset)`` for checkpoint tokens.  ``salvage``
         (``core.resilience.salvage_chunk``) replaces the whole-chunk
-        failure with per-row quarantine of the malformed rows.  Each
-        chunk passes the fault points (``pipeline.chunk_faults``).
+        failure with per-row quarantine of the malformed rows.
 
         ``parse_threads`` > 1 fans the per-chunk C encode across a
-        ``core.parparse.OrderedParsePool`` (``ingest.parse.threads``).
-        Workers run only the native call, which releases the GIL; fault
-        points fire at submission, and vocabulary merge, salvage and
-        quarantine run here in chunk order, so the output and the
-        vocabulary order are the serial scan's.
+        ``core.parparse.OrderedParsePool`` (``ingest.parse.threads``), the
+        only parallelism of the parse.  Workers run only the native call,
+        which releases the GIL; the reader runs on the consumer's thread,
+        and vocabulary merge, salvage and quarantine run here in chunk
+        order, so the output and the vocabulary order are the serial
+        scan's.
 
-        Spans: ``ingest.read`` (the first line's look and the whole
-        read), ``ingest.split`` (the chunk boundaries), and an
+        Spans: the reader's ``ingest.read`` and ``ingest.split``, and an
         ``ingest.parse`` per chunk around the native call with its
         vocabulary remap or salvage, on the thread that runs them; with
         a pool, one on the worker around the native call and one here
@@ -442,59 +420,44 @@ class DatasetEncoder:
         tracer = get_tracer()
         if not is_plain_delim(delim):
             raise ChunkedEncodeUnsupported("regex delimiter")
-        with tracer.span("ingest.read", path=path):
-            sp = self._native_specs(path, delim)
-            buf = native._read_buffer(path) if sp is not None else b""
+        sp = self._native_specs(path, delim)
         if sp is None:
             raise ChunkedEncodeUnsupported("native encode unavailable")
         specs, n_cols = sp
-        with tracer.span("ingest.split", bytes=len(buf)):
-            ends = _chunk_ends(buf, chunk_rows, chunk_bytes)
         n_feat = len(self.feature_fields)
         row_capacity = (None if chunk_rows is None
                         else max(int(chunk_rows), 1))
+        chunks = pipeline.iter_byte_chunks_meta(
+            path, row_capacity, start_offset, chunk_bytes=chunk_bytes)
         parse_threads = max(int(parse_threads), 1)
         # the pool's workers record their spans under the span that was
         # open where the scan started
         parent = tracer.current_span_id()
 
-        def _chunks():
-            # produced on the consumer's thread (the pool calls next()
-            # there), so the fault points keep their serial semantics
-            pos = 0
-            for idx, end in enumerate(ends):
-                if end > start_offset:
-                    yield idx, end, pipeline.chunk_faults(buf[pos:end], idx)
-                pos = end
-
         def _native(chunk):
-            # the inner pthread fan-out is 1 when the pool is parallel, so
-            # the two levels do not oversubscribe the host; a row chunk's
-            # line budget sizes the one-pass encode's outputs
+            # a row chunk's line budget sizes the encode's outputs
             return native.encode_schema_buffer(
-                chunk, specs, n_cols, n_feat, True, id_ordinal=-1,
-                delim=delim, n_threads=1 if parse_threads > 1 else None,
+                chunk, specs, n_cols, n_feat, True, delim=delim,
                 row_capacity=row_capacity)
 
         def _parse(item):
             # a pool worker: the native call alone, no shared Python state
-            cidx, end, chunk = item
-            with tracer.span("ingest.parse", parent=parent, bytes=len(chunk),
-                             threads=parse_threads):
-                return cidx, end, chunk, _native(chunk)
+            with tracer.span("ingest.parse", parent=parent,
+                             bytes=len(item[0]), threads=parse_threads):
+                return item, _native(item[0])
 
         if parse_threads > 1:
             from .parparse import OrderedParsePool
-            parsed = OrderedParsePool(_parse, parse_threads).map(_chunks())
+            parsed = OrderedParsePool(_parse, parse_threads).map(chunks)
         else:
-            parsed = _chunks()
+            parsed = ((item, None) for item in chunks)
         try:
-            for item in parsed:
-                cidx, end, chunk = item[:3]
+            for (chunk, cidx, end), res in parsed:
                 # the vocabulary merge or salvage runs here, in chunk order
                 with tracer.span("ingest.parse", bytes=len(chunk),
                                  threads=parse_threads):
-                    res = item[3] if parse_threads > 1 else _native(chunk)
+                    if parse_threads == 1:
+                        res = _native(chunk)
                     if res is None:
                         if salvage is None:
                             raise ChunkedEncodeUnsupported(
@@ -507,30 +470,25 @@ class DatasetEncoder:
                 else:
                     yield x, values, y, n
         finally:
-            closer = getattr(parsed, "close", None)
-            if closer is not None:
-                closer()
+            parsed.close()
+            chunks.close()
 
     def plain_encode_path_chunks(self, path: str, delim: str = ",",
                                  chunk_bytes: int = 48 << 20,
                                  chunk_rows: Optional[int] = None):
         """``encode_path_chunks`` in numpy, the plain version the tests
-        hold the C path against: the same chunks and the same
-        ``(x, values, y, n_rows)``, made by splitting each chunk's lines
-        and encoding one column at a time."""
-        from .. import native
+        hold the C path against: the same chunks, from the same reader,
+        and the same ``(x, values, y, n_rows)``, made by splitting each
+        chunk's lines and encoding one column at a time."""
         from .io import is_plain_delim
-        from .pipeline import split_field_lines
+        from .pipeline import iter_byte_chunks_meta, split_field_lines
 
         if not is_plain_delim(delim):
             raise ChunkedEncodeUnsupported("regex delimiter")
-        buf = native._read_buffer(path)
-        ends = _chunk_ends(buf, chunk_rows, chunk_bytes)
         F = len(self.feature_fields)
-        pos = 0
-        for end in ends:
-            lines = [l for l in buf[pos:end].decode().split("\n") if l]
-            pos = end
+        for chunk, _, _ in iter_byte_chunks_meta(path, chunk_rows,
+                                                 chunk_bytes=chunk_bytes):
+            lines = [l for l in chunk.decode().split("\n") if l]
             if not lines:
                 yield (np.zeros((0, F), np.int32), np.zeros((0, F)),
                        np.zeros(0, np.int32), 0)

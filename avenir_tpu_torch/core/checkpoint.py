@@ -5,9 +5,9 @@ Every ``checkpoint.interval.chunks`` folded chunks the trainer writes a
 sidecar holding
 
 - the byte offset of the checkpointed chunk's end (chunk boundaries are
-  deterministic, ``pipeline.row_chunk_ends`` over the whole buffer, so a
-  resumed run derives the same chunking and skips whole chunks up to the
-  offset),
+  deterministic, ``pipeline.iter_byte_chunks_meta``'s cut of the whole
+  buffer, so a resumed run derives the same chunking and skips whole
+  chunks up to the offset),
 - the fold carry copied to the host as a numpy array (never a live
   tensor: :func:`assert_portable_carry`, so a sidecar written by a CUDA
   run resumes on the CPU and the other way round),

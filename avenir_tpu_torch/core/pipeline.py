@@ -32,9 +32,10 @@ With a mesh of several positions (``streaming_fold(mesh=)``, built on
 ``ChunkTransfer(mesh=)`` and ``ChunkFold(mesh=)``) a chunk's rows pad to
 the position count, every position folds its share with its validity
 mask, and the shares are summed by the mesh's ``psum`` into the carry on
-the mesh's first device.  The shared scan (core.multiscan) reads the input
-as raw byte chunks (:func:`iter_byte_chunks_meta`, the boundaries of
-``row_chunk_ends``) and folds each job's chunk through its own
+the mesh's first device.  Every chunked scan reads its input as raw byte
+chunks through one reader, :func:`iter_byte_chunks_meta` (the read, the
+cut at line ends, the resume offset and the fault points); the shared
+scan (core.multiscan) folds each job's chunk through its own
 :class:`ChunkFold`, whose carry may be one table or a dict of them.
 
 Two pieces of the reference's module are not copied.  ``HostStager``
@@ -176,28 +177,53 @@ def row_chunk_ends(buf: bytes, chunk_rows: int) -> List[int]:
     return ends
 
 
-def iter_byte_chunks_meta(path: str, chunk_rows: int,
-                          start_offset: int = 0
+def _byte_chunk_ends(buf: bytes, chunk_bytes: int) -> List[int]:
+    """Byte offsets just past the first line end at or after each
+    ``chunk_bytes`` step of ``buf``, plus the buffer end."""
+    step = max(int(chunk_bytes), 1)
+    ends, pos = [], 0
+    while pos < len(buf):
+        end = min(pos + step, len(buf))
+        if end < len(buf):
+            nl = buf.find(b"\n", end)
+            end = len(buf) if nl < 0 else nl + 1
+        ends.append(end)
+        pos = end
+    return ends
+
+
+def iter_byte_chunks_meta(path: str, chunk_rows: Optional[int],
+                          start_offset: int = 0,
+                          chunk_bytes: int = 48 << 20
                           ) -> Iterator[Tuple[bytes, int, int]]:
-    """``(chunk, chunk_index, end_offset)`` triples split at
-    ``row_chunk_ends`` boundaries of the whole input, read once (host
-    memory O(file), as the native ingest; device memory O(chunk)).
-    ``start_offset``, a checkpointed chunk-end offset, skips the chunks
-    already folded: the boundaries derive from the whole buffer, so a
-    resumed scan sees the chunking of an uninterrupted one.  Each chunk
-    passes through :func:`chunk_faults`."""
+    """``(chunk, chunk_index, end_offset)`` triples of the whole input,
+    the one reader every chunked scan of the port cuts its chunks with
+    (the chunked encode, its numpy reference, the shared scan, the
+    bandit job).  The input is read once (host memory O(file), as the
+    native ingest; device memory O(chunk)), an ``ingest.read`` span, and
+    cut at line ends, an ``ingest.split`` span: past every
+    ``chunk_rows``-th line end (:func:`row_chunk_ends`), or, where
+    ``chunk_rows`` is None, past the first line end at or after each
+    ``chunk_bytes`` step.  ``start_offset``, a checkpointed chunk-end
+    offset, skips the chunks already folded: the boundaries derive from
+    the whole buffer, so a resumed scan sees the chunking of an
+    uninterrupted one.  Each chunk passes through :func:`chunk_faults`
+    when it is taken."""
     from ..native import _read_buffer
 
-    if chunk_rows <= 0:
+    if chunk_rows is not None and chunk_rows <= 0:
         raise ValueError(f"chunk_rows must be positive: {chunk_rows}")
     tracer = get_tracer()
     with tracer.span("ingest.read", path=path):
         buf = _read_buffer(path)
     if not buf:
         return
+    with tracer.span("ingest.split", bytes=len(buf)):
+        ends = (_byte_chunk_ends(buf, chunk_bytes) if chunk_rows is None
+                else row_chunk_ends(buf, chunk_rows))
     pos = 0
-    for idx, end in enumerate(row_chunk_ends(buf, chunk_rows)):
-        if end > pos and end > start_offset:
+    for idx, end in enumerate(ends):
+        if end > start_offset:
             yield chunk_faults(buf[pos:end], idx), idx, end
         pos = end
 

@@ -1,34 +1,33 @@
-"""The native CSV ingest: the port's copy of ``avenir_tpu/native``, and
-its one-pass chunk encode.
+"""The native CSV ingest: one schema encode and the column parser.
 
 Two C sources build into one library:
 
-- ``csv_ingest.c``, a verbatim copy of the reference's source, parses a
-  delimited byte buffer straight into the encoder's matrices: bucket bins
-  truncated toward zero, float values, and first-seen categorical codes,
-  with no Python string objects.  It runs the one-shot encode of a file
-  with its id column, every buffer of ``MT_MIN_BYTES`` or more that
-  takes the pthread fan-out (``csv_encode_mt``), and the column parser
-  ``csv_parse``.
-- ``chunk_encode.c`` (``chunk_encode``) does a buffer's whole encode in
-  one pass: every buffer that resolves to one thread and asks for no id
-  column takes it, so the chunks under ``MT_MIN_BYTES`` of
-  ``encode_path_chunks`` and of the shared scan's
-  ``encode_buffer_chunk``, and every chunk of the parse pool's workers.
-  Its contract: the caller passes a row capacity (a chunk's line
-  budget, else a bound from the buffer's length) and uninitialised
-  outputs; the pass writes every cell, skips blank lines and returns
-  the row count, or ``CHUNK_OVERFLOW`` (-6) before a row past the
-  capacity.
-  Integer text in a float column (a sign, 1 to 15 digits, trailing
-  blanks) converts exactly, bit for bit what ``strtod`` gives; other
-  text goes through ``strtod`` as before.  Its other codes are
-  ``csv_encode``'s: -2 unparseable, -3 vocabulary past ``max_uniq`` (one
-  retry at ``1 << 22``), -4 out of memory, -5 a ragged row; on each, and
-  on an overflow, the encode returns None.
+- ``chunk_encode.c`` (``chunk_encode``) is the port's only schema
+  encode.  It parses, bins and encodes a buffer's every schema column in
+  one pass straight into the encoder's matrices, with no Python string
+  objects: each chunk of ``encode_path_chunks``, whatever its size, each
+  buffer of the shared scan's ``encode_buffer_chunk``, and the one-shot
+  ``encode_path`` with its id column.  Its contract: the caller passes a
+  row capacity (a chunk's line budget, the row count ``csv_scan`` gives
+  where an id column needs its width metered, else a bound from the
+  buffer's length) and uninitialised outputs; the pass writes every
+  cell, skips blank lines and returns the row count, or
+  ``CHUNK_OVERFLOW`` (-6) before a row past the capacity.  Integer text
+  in a float column (a sign, 1 to 15 digits, trailing blanks) converts
+  exactly, bit for bit what ``strtod`` gives; other text goes through
+  ``strtod``.  Its other codes: -2 unparseable, -3 vocabulary past
+  ``max_uniq`` (one retry at ``1 << 22``), -4 out of memory, -5 a ragged
+  row; on each, and on an overflow, the encode returns None.
+- ``csv_ingest.c`` holds the field parsers and the categorical table the
+  encode shares, and the column parser ``csv_parse`` with its sizing
+  scan ``csv_scan``.
+
+The encode runs on the calling thread.  The only parallelism of a parse
+is ``ingest.parse.threads``, whose pool (core.parparse) runs one encode a
+chunk on each worker.
 
 ``chunk_encode.c`` includes ``csv_ingest.c``, so one compiler call
-(``cc -O3 -pthread -shared -fPIC``) builds the library into
+(``cc -O3 -shared -fPIC``) builds the library into
 ``avenir_tpu_torch/build/libcsv_ingest-<digest>.so``, where ``digest``
 covers both sources and the flags, so an edited source is rebuilt and a
 current build is reused.  Nothing is built at import: the first call
@@ -42,14 +41,13 @@ the fast path cannot take (a multi-character delimiter, ragged rows, an
 unparseable number) still returns None from the encode calls, and the
 callers fall back as the reference's do.
 
-:func:`parse_csv_columns_buffer` binds the source's column parser
-(``csv_parse``): the shared scan takes a job's few columns with it
-(core.multiscan's ``ChunkContext.columns``).
+:func:`parse_csv_columns_buffer` binds the column parser (``csv_parse``):
+the shared scan takes a job's few columns with it (core.multiscan's
+``ChunkContext.columns``).
 
-``ENCODE_CALLS`` counts the calls into the C encoders (one per buffer; a
-vocabulary-overflow retry adds one), so a run can show that
-its main path went through the C parser; ``ONE_PASS_CALLS`` counts those
-of them that took ``chunk_encode``.
+``ENCODE_CALLS`` counts the calls into ``chunk_encode`` (one per buffer;
+a vocabulary-overflow retry adds one), so a run can show that its main
+path went through the C parser.
 """
 
 from __future__ import annotations
@@ -69,27 +67,21 @@ SRC = _HERE / "csv_ingest.c"
 # includes SRC: the one translation unit the library is built from
 CHUNK_SRC = _HERE / "chunk_encode.c"
 BUILD_DIR = _HERE.parent / "build"
-CC_FLAGS = ("-O3", "-pthread", "-shared", "-fPIC")
+CC_FLAGS = ("-O3", "-shared", "-fPIC")
 COMPILERS = ("cc", "gcc", "g++")
 
 _lock = threading.Lock()
 _lib = None
 
-# column type codes shared with csv_ingest.c
+# column type codes shared with csv_ingest.c (BYTES: chunk_encode's id)
 SKIP, INT64, FLOAT64, BYTES = 0, 1, 2, 3
 
-# buffers at least this large take the multithreaded encode path
-MT_MIN_BYTES = 4 << 20
-# thread count override (None = min(8, cores)); tests force >1 so the
-# pthread path is exercised on any host
-MT_THREADS = None
-BUCKET, FLOATVAL, CAT = 1, 2, 4      # csv_encode column roles
+BUCKET, FLOATVAL, CAT = 1, 2, 4      # chunk_encode column roles
 Y_DEST = -2                          # feat_idx routing a CAT column to ycol
 
 CHUNK_OVERFLOW = -6                  # chunk_encode: rows past the capacity
 
 ENCODE_CALLS = 0
-ONE_PASS_CALLS = 0
 _count_lock = threading.Lock()
 
 
@@ -98,16 +90,15 @@ class NativeBuildError(RuntimeError):
 
 
 def reset_call_counts() -> None:
-    global ENCODE_CALLS, ONE_PASS_CALLS
+    global ENCODE_CALLS
     with _count_lock:
-        ENCODE_CALLS = ONE_PASS_CALLS = 0
+        ENCODE_CALLS = 0
 
 
-def _count_call(one_pass: bool = False) -> None:
-    global ENCODE_CALLS, ONE_PASS_CALLS
+def _count_call() -> None:
+    global ENCODE_CALLS
     with _count_lock:
         ENCODE_CALLS += 1
-        ONE_PASS_CALLS += one_pass
 
 
 def library_path() -> Path:
@@ -172,25 +163,6 @@ def get_lib():
             ctypes.c_int, ctypes.POINTER(ctypes.c_int),
             ctypes.POINTER(ctypes.c_int),
             ctypes.POINTER(ctypes.c_void_p), ctypes.c_longlong]
-        lib.csv_encode.restype = ctypes.c_int
-        lib.csv_encode.argtypes = [
-            ctypes.c_char_p, ctypes.c_longlong, ctypes.c_char,
-            ctypes.c_int,                        # n_cols
-            ctypes.POINTER(ctypes.c_int),        # col_type
-            ctypes.POINTER(ctypes.c_int),        # feat_idx
-            ctypes.POINTER(ctypes.c_longlong),   # bucket_w
-            ctypes.c_int, ctypes.c_longlong,     # F, n_rows
-            ctypes.c_void_p, ctypes.c_void_p,    # x, values
-            ctypes.c_void_p,                     # ycol
-            ctypes.POINTER(ctypes.c_void_p),     # bytes_out
-            ctypes.POINTER(ctypes.c_int),        # bytes_width
-            ctypes.c_void_p, ctypes.c_void_p,    # uniq_start, uniq_len
-            ctypes.c_void_p, ctypes.c_int]       # n_uniq, max_uniq
-        lib.csv_encode_mt.restype = ctypes.c_int
-        lib.csv_encode_mt.argtypes = (list(lib.csv_encode.argtypes)
-                                      + [ctypes.c_int])  # n_threads
-        lib.chunk_count_rows.restype = ctypes.c_longlong
-        lib.chunk_count_rows.argtypes = [ctypes.c_char_p, ctypes.c_longlong]
         lib.chunk_encode.restype = ctypes.c_longlong
         lib.chunk_encode.argtypes = [
             ctypes.c_char_p, ctypes.c_longlong, ctypes.c_char,
@@ -202,7 +174,8 @@ def get_lib():
             ctypes.c_void_p, ctypes.c_void_p,    # x, values
             ctypes.c_void_p,                     # ycol
             ctypes.c_void_p, ctypes.c_void_p,    # uniq_start, uniq_len
-            ctypes.c_void_p, ctypes.c_int]       # n_uniq, max_uniq
+            ctypes.c_void_p, ctypes.c_int,       # n_uniq, max_uniq
+            ctypes.c_void_p, ctypes.c_int]       # ids, id_width
         _lib = lib
     return _lib
 
@@ -298,28 +271,25 @@ def encode_schema(path: str, col_specs, n_file_cols: int, n_feat: int,
 def encode_schema_buffer(buf: bytes, col_specs, n_file_cols: int,
                          n_feat: int, has_class: bool, id_ordinal: int = -1,
                          delim: str = ",", max_uniq: int = 1 << 16,
-                         n_threads: Optional[int] = None,
                          row_capacity: Optional[int] = None):
-    """Encode one in-memory buffer.  Each of ``col_specs`` is
-    ``(file_ordinal, role, feat_idx, extra)``: ``role`` BUCKET (``extra``
-    the bucket width), FLOATVAL or CAT, and ``feat_idx`` the destination
-    feature column (Y_DEST for the class attribute).
+    """Encode one in-memory buffer through ``chunk_encode``, on the
+    calling thread.  Each of ``col_specs`` is ``(file_ordinal, role,
+    feat_idx, extra)``: ``role`` BUCKET (``extra`` the bucket width),
+    FLOATVAL or CAT, and ``feat_idx`` the destination feature column
+    (Y_DEST for the class attribute, a CAT column).  ``id_ordinal``, where
+    given, is the column whose raw bytes come back as the row ids.
 
     Returns ``(n_rows, x, values, y, ids, cat_uniques)``, where ``x``
-    holds -1 in each float column and ``cat_uniques[ordinal]`` is the
+    holds -1 in each float column, ``ids`` is a fixed-width ``S`` array
+    (None without an id column) and ``cat_uniques[ordinal]`` is the
     first-seen list of raw byte values of each categorical column (the
     codes in ``x``/``y`` index into it), or None when the input does not
-    fit the fast path.
+    fit the fast path, or the specs do not write every output cell once.
 
-    A buffer that resolves to one thread and asks for no id column, with
-    specs that fill every feature column once, takes ``chunk_encode``'s
-    one pass (counted in ``ONE_PASS_CALLS``); ``row_capacity``, the
-    buffer's line budget where the caller knows it, sizes its outputs,
-    else a bound from the buffer's length does.  Other buffers take
-    ``csv_encode_mt``.  ``n_threads`` forces its pthread fan-out (the
-    parallel parse pool passes 1, so chunk-level and byte-range-level
-    parallelism do not multiply); None keeps the size-based rule
-    below."""
+    ``row_capacity``, the buffer's line budget where the caller knows it,
+    sizes the outputs, else a bound from the buffer's length does; with
+    an id column, ``csv_scan``'s row count does, as it meters the ids'
+    width."""
     lib = get_lib()
     if len(delim) != 1:
         return None
@@ -329,7 +299,7 @@ def encode_schema_buffer(buf: bytes, col_specs, n_file_cols: int,
     feat_idx = [-1] * n_file_cols
     bucket_w = [1] * n_file_cols
     for ordinal, role, fj, extra in col_specs:
-        if ordinal >= n_file_cols:
+        if ordinal >= n_file_cols or role not in (BUCKET, FLOATVAL, CAT):
             return None
         col_type[ordinal] = role
         feat_idx[ordinal] = fj
@@ -337,47 +307,39 @@ def encode_schema_buffer(buf: bytes, col_specs, n_file_cols: int,
             if extra <= 0:
                 return None
             bucket_w[ordinal] = extra
-    cat_ordinals = [o for o, t, _, _ in col_specs if t == CAT]
-
-    # the multithreaded encode for large buffers; its per-thread
-    # vocabulary scratch is n_cat * max_uniq * 16 B, so the large-vocab
-    # retry stays single-threaded and the thread count shrinks with the
-    # categorical column count to keep the scratch near 128 MB
-    forced_threads = n_threads
-    if n_threads is None:
-        n_threads = 1
-        if len(buf) >= MT_MIN_BYTES and max_uniq <= (1 << 16):
-            n_threads = MT_THREADS or min(8, os.cpu_count() or 1)
-            scratch_budget = 128 << 20
-            per_thread = max(len(cat_ordinals), 1) * max_uniq * 16
-            n_threads = max(min(n_threads, scratch_budget // per_thread), 1)
-    else:
-        n_threads = max(int(n_threads), 1)
-    args = (buf, bdelim, n_file_cols, col_type, feat_idx, bucket_w, n_feat,
-            has_class, cat_ordinals, max_uniq)
-    if (n_threads == 1 and id_ordinal < 0
-            and _fills_every_cell(col_specs, n_feat, has_class)):
-        res = _encode_one_pass(lib, *args, row_capacity)
-    else:
-        res = _encode_threads(lib, *args, id_ordinal, n_threads)
+    if id_ordinal >= n_file_cols:
+        return None
+    if id_ordinal >= 0:
+        col_type[id_ordinal] = BYTES
+    if not _fills_every_cell(col_type, feat_idx, n_feat, has_class):
+        return None
+    id_width = 0
+    if id_ordinal >= 0:
+        widths = (ctypes.c_int * n_file_cols)(*([0] * n_file_cols))
+        row_capacity = lib.csv_scan(buf, len(buf), bdelim, n_file_cols,
+                                    widths)
+        if row_capacity < 0:
+            return None
+        id_width = max(int(widths[id_ordinal]), 1)
+    args = (lib, buf, bdelim, col_type, feat_idx, bucket_w, n_feat,
+            has_class, row_capacity, id_width)
+    res = _encode_one_pass(*args, max_uniq)
     if res == -3 and max_uniq < (1 << 22):  # vocab overflow: one retry, 64x
-        return encode_schema_buffer(buf, col_specs, n_file_cols, n_feat,
-                                    has_class, id_ordinal, delim,
-                                    max_uniq=1 << 22,
-                                    n_threads=forced_threads,
-                                    row_capacity=row_capacity)
+        res = _encode_one_pass(*args, 1 << 22)
     return None if isinstance(res, int) else res
 
 
-def _fills_every_cell(col_specs, n_feat: int, has_class: bool) -> bool:
-    """True when the specs write every output cell ``chunk_encode``
+def _fills_every_cell(col_type, feat_idx, n_feat: int,
+                      has_class: bool) -> bool:
+    """True when the file columns write every output cell ``chunk_encode``
     leaves to them: each feature column once, and the class column
-    exactly when there is one."""
-    feats = sorted(fj for _, _, fj, _ in col_specs if fj != Y_DEST)
-    n_y = sum(fj == Y_DEST for _, _, fj, _ in col_specs)
-    return (feats == list(range(n_feat)) and n_y == int(bool(has_class))
-            and all(role in (BUCKET, FLOATVAL, CAT)
-                    for _, role, _, _ in col_specs))
+    exactly when there is one, from a categorical column."""
+    roles = [(t, j) for t, j in zip(col_type, feat_idx)
+             if t in (BUCKET, FLOATVAL, CAT)]
+    feats = sorted(j for _, j in roles if j != Y_DEST)
+    y_roles = [t for t, j in roles if j == Y_DEST]
+    return (feats == list(range(n_feat))
+            and y_roles == ([CAT] if has_class else []))
 
 
 def _cat_uniques(buf: bytes, cat_ordinals, uniq_start, uniq_len, n_uniq):
@@ -391,86 +353,36 @@ def _cat_uniques(buf: bytes, cat_ordinals, uniq_start, uniq_len, n_uniq):
     return out
 
 
-def _encode_one_pass(lib, buf, bdelim, n_file_cols, col_type, feat_idx,
-                     bucket_w, n_feat, has_class, cat_ordinals, max_uniq,
-                     row_capacity):
+def _encode_one_pass(lib, buf, bdelim, col_type, feat_idx, bucket_w, n_feat,
+                     has_class, row_capacity, id_width, max_uniq):
     """``chunk_encode`` into uninitialised outputs of ``row_capacity``
     rows, capped by the most rows ``buf`` can hold (a row of n columns
     takes at least max(n, 2) bytes with its newline).  Returns the result
     tuple or the negative code."""
-    bound = (len(buf) + 1) // max(n_file_cols, 2)
+    n_cols = len(col_type)
+    bound = (len(buf) + 1) // max(n_cols, 2)
     cap = bound if row_capacity is None else min(int(row_capacity), bound)
     x = np.empty((cap, n_feat), dtype=np.int32)
     values = np.empty((cap, n_feat), dtype=np.float64)
     y = np.empty(cap, dtype=np.int32) if has_class else None
+    ids = np.empty(cap, dtype=f"S{id_width}") if id_width else None
+    cat_ordinals = [o for o in range(n_cols) if col_type[o] == CAT]
     n_cat = max(len(cat_ordinals), 1)
     uniq_start = np.empty((n_cat, max_uniq), dtype=np.int64)
     uniq_len = np.empty((n_cat, max_uniq), dtype=np.int32)
     n_uniq = np.empty(n_cat, dtype=np.int32)
-    _count_call(one_pass=True)
+    _count_call()
     n = lib.chunk_encode(
-        buf, len(buf), bdelim, n_file_cols,
-        (ctypes.c_int * n_file_cols)(*col_type),
-        (ctypes.c_int * n_file_cols)(*feat_idx),
-        (ctypes.c_longlong * n_file_cols)(*bucket_w),
+        buf, len(buf), bdelim, n_cols,
+        (ctypes.c_int * n_cols)(*col_type),
+        (ctypes.c_int * n_cols)(*feat_idx),
+        (ctypes.c_longlong * n_cols)(*bucket_w),
         n_feat, cap, x.ctypes.data, values.ctypes.data,
         y.ctypes.data if y is not None else None,
         uniq_start.ctypes.data, uniq_len.ctypes.data, n_uniq.ctypes.data,
-        max_uniq)
+        max_uniq, ids.ctypes.data if ids is not None else None, id_width)
     if n < 0:
         return int(n)
     return (int(n), x[:n], values[:n], y[:n] if y is not None else None,
-            None, _cat_uniques(buf, cat_ordinals, uniq_start, uniq_len,
-                               n_uniq))
-
-
-def _encode_threads(lib, buf, bdelim, n_file_cols, col_type, feat_idx,
-                    bucket_w, n_feat, has_class, cat_ordinals, max_uniq,
-                    id_ordinal, n_threads):
-    """``csv_encode_mt`` (``csv_encode`` at one thread) into zeroed
-    outputs sized by a row count first: ``csv_scan``'s where an id
-    column needs its width metered, else the non-blank line count.
-    Returns the result tuple or the negative code."""
-    widths = (ctypes.c_int * n_file_cols)(*([0] * n_file_cols))
-    if id_ordinal < 0:
-        n_rows = lib.chunk_count_rows(buf, len(buf))
-    else:
-        n_rows = lib.csv_scan(buf, len(buf), bdelim, n_file_cols, widths)
-    if n_rows < 0:
-        return int(n_rows)
-
-    col_type = list(col_type)
-    ids = None
-    bytes_out = (ctypes.c_void_p * n_file_cols)(*([None] * n_file_cols))
-    if id_ordinal >= 0:
-        col_type[id_ordinal] = BYTES
-        ids = np.empty(n_rows, dtype=f"S{max(int(widths[id_ordinal]), 1)}")
-        bytes_out[id_ordinal] = ids.ctypes.data
-
-    x = np.zeros((n_rows, n_feat), dtype=np.int32)
-    values = np.zeros((n_rows, n_feat), dtype=np.float64)
-    y = np.empty(n_rows, dtype=np.int32) if has_class else None
-    uniq_start = np.zeros((n_file_cols, max_uniq), dtype=np.int64) \
-        if cat_ordinals else np.zeros((1, 1), dtype=np.int64)
-    uniq_len = np.zeros_like(uniq_start, dtype=np.int32)
-    n_uniq = np.zeros(n_file_cols, dtype=np.int32)
-    _count_call()
-    rc = lib.csv_encode_mt(
-        buf, len(buf), bdelim, n_file_cols,
-        (ctypes.c_int * n_file_cols)(*col_type),
-        (ctypes.c_int * n_file_cols)(*feat_idx),
-        (ctypes.c_longlong * n_file_cols)(*bucket_w),
-        n_feat, n_rows,
-        x.ctypes.data, values.ctypes.data,
-        y.ctypes.data if y is not None else None,
-        bytes_out, widths,
-        uniq_start.ctypes.data, uniq_len.ctypes.data, n_uniq.ctypes.data,
-        uniq_start.shape[1], n_threads)
-    if rc != 0:
-        return int(rc)
-    # csv_encode leaves a float column's x at 0; -1 marks it unbinned
-    x[:, [feat_idx[o] for o in range(n_file_cols)
-          if col_type[o] == FLOATVAL]] = -1
-    return (int(n_rows), x, values, y, ids,
-            _cat_uniques(buf, cat_ordinals, uniq_start[cat_ordinals],
-                         uniq_len[cat_ordinals], n_uniq[cat_ordinals]))
+            ids[:n] if ids is not None else None,
+            _cat_uniques(buf, cat_ordinals, uniq_start, uniq_len, n_uniq))

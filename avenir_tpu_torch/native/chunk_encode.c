@@ -1,35 +1,34 @@
-/* One-pass chunk encode: the per-chunk, one-thread form of csv_encode.
- *
- * csv_encode (csv_ingest.c) needs its row count before it starts, so a
- * caller either scans the buffer first (csv_scan) or counts its lines,
- * zeroes the output matrices, and fills the cells the encode leaves
- * alone afterwards.  chunk_encode does all of a chunk's work in one pass
- * over its bytes:
+/* The schema encode: a delimited byte buffer into the encoder's matrices
+ * in one pass, the only schema encode of the port.  It takes every
+ * chunk of the chunked encode, every buffer of the shared scan and the
+ * one-shot encode of a whole file with its id column; the parallelism
+ * of a parse is the caller's (ingest.parse.threads), never this file's.
  *
  *   - the caller sizes the outputs by a row capacity (a chunk's line
- *     budget, or a bound from its byte length); the pass skips blank
- *     lines, counts rows and returns the count, or CHUNK_OVERFLOW when
- *     the rows outnumber the capacity, before it writes past it;
+ *     budget, the row count csv_scan gives, or a bound from the byte
+ *     length); the pass skips blank lines, counts rows and returns the
+ *     count, or CHUNK_OVERFLOW when the rows outnumber the capacity,
+ *     before it writes past it;
  *   - it writes every output cell, so the caller allocates them
  *     uninitialised: a bin or a code in x, -1 in x for a float column,
  *     the raw value in values (0.0 for a categorical column), the class
- *     code in ycol;
+ *     code in ycol, and a row's id, zero-padded to id_width bytes, in
+ *     ids;
+ *   - bins truncate toward zero with C '/' (Java's rule), a CR is
+ *     stripped only at a line's end, blanks around integer fields are
+ *     tolerated, and categorical codes are the buffer's own first-seen
+ *     codes;
  *   - integer text in a float column (an optional sign, 1 to 15 digits,
  *     trailing blanks) converts exactly, with no strtod: every such
  *     value is below 2^53, so the double is the one strtod rounds to,
- *     and -0 gives -0.0 as strtod does.  Anything else still goes
- *     through csv_ingest.c's parse_float_field;
- *   - the vocabulary scratch holds the categorical columns only.
- *
- * Everything else is csv_encode's: bins truncate toward zero with C '/',
- * a CR is stripped only at a line's end, blanks around integer fields
- * are tolerated, categorical codes are the chunk's own first-seen codes,
- * and the error codes are encode_range's (-2 unparseable, -3 max_uniq
- * exceeded, -4 oom, -5 ragged line).
+ *     and -0 gives -0.0 as strtod does.  Anything else goes through
+ *     csv_ingest.c's parse_float_field;
+ *   - the error codes are -2 unparseable, -3 max_uniq exceeded, -4 out of
+ *     memory, -5 a ragged line.
  *
  * This file includes csv_ingest.c, so the two build as one translation
  * unit with one compiler call and share its field parsers and
- * categorical tables; csv_ingest.c itself stays the JAX package's copy.
+ * categorical tables.
  */
 
 #include "csv_ingest.c"
@@ -40,8 +39,9 @@
 
 #define CHUNK_OVERFLOW (-6)
 
-/* csv_encode's column roles (col_type) */
-enum { ROLE_SKIP = 0, ROLE_BUCKET = 1, ROLE_FLOAT = 2, ROLE_CAT = 4 };
+/* The column roles (col_type) */
+enum { ROLE_SKIP = 0, ROLE_BUCKET = 1, ROLE_FLOAT = 2, ROLE_ID = 3,
+       ROLE_CAT = 4 };
 
 /* Where the fields end: a bit mask of the stop bytes ('\n' and the
  * delimiter) of one 64-byte block at a time, taken sixteen bytes to an
@@ -222,31 +222,21 @@ static int parse_float_exact(const char *p, const char *e, double *out) {
     return parse_float_field(p, e, out);
 }
 
-/* Counts the rows csv_encode_mt needs up front: the non-blank lines,
- * with csv_ingest.c's own line counter. */
-long long chunk_count_rows(const char *buf, long long len) {
-    EncodeTask t;
-    memset(&t, 0, sizeof t);
-    t.buf = buf;
-    t.end = len;
-    count_worker(&t);
-    return t.n_rows;
-}
-
 /* Per file column (size n_cols): col_type 0 skip | 1 bucket | 2 float |
- * 4 categorical; feat_idx the destination column of x and values (-2
- * routes a categorical column to ycol); bucket_w the divisor of a bucket
- * column.  Every feature column 0..F-1 is the destination of exactly one
- * file column (the caller checks).  The k-th first-seen unique of the
- * i-th categorical column (in file order) is the byte range
- * uniq_start/uniq_len[i * max_uniq + k], and n_uniq[i] their count.
- * Returns the row count (at most row_cap), or a negative code. */
+ * 3 id | 4 categorical; feat_idx the destination column of x and values
+ * (-2 routes a categorical column to ycol); bucket_w the divisor of a
+ * bucket column.  Every feature column 0..F-1 is the destination of
+ * exactly one file column (the caller checks).  The id column, where
+ * there is one, goes to ids, id_width bytes a row.  The k-th first-seen
+ * unique of the i-th categorical column (in file order) is the byte
+ * range uniq_start/uniq_len[i * max_uniq + k], and n_uniq[i] their
+ * count.  Returns the row count (at most row_cap), or a negative code. */
 long long chunk_encode(const char *buf, long long len, char delim,
                        int n_cols, const int *col_type, const int *feat_idx,
                        const long long *bucket_w, int F, long long row_cap,
                        int32_t *x, double *values, int32_t *ycol,
                        long long *uniq_start, int *uniq_len, int *n_uniq,
-                       int max_uniq) {
+                       int max_uniq, char *ids, int id_width) {
     CatTable *tables = (CatTable *)calloc((size_t)n_cols, sizeof(CatTable));
     CatMemo *memo = (CatMemo *)malloc((size_t)n_cols * sizeof(CatMemo)
                                       << MEMO_BITS);
@@ -320,6 +310,11 @@ long long chunk_encode(const char *buf, long long len, char delim,
                     xr[j] = code;
                     vr[j] = 0.0;
                 }
+            } else if (t == ROLE_ID) {
+                long long fl = fe - p < id_width ? fe - p : id_width;
+                char *dst = ids + row * id_width;
+                memcpy(dst, p, (size_t)fl);
+                memset(dst + fl, 0, (size_t)(id_width - fl));
             }
             if (eol) {
                 if (c != n_cols - 1) rc = -5;        /* short row */

@@ -37,6 +37,12 @@ _MXU = ("the reference's one-hot MXU counting route, taken only on a TPU "
         "port counts with K1 and index_add_, which equal both of its "
         "branches")
 
+_ONE_ENCODE = ("the knobs of the reference's pthread fan-out of its native "
+               "encode over buffers of 4 MB or more; the port has one "
+               "encode, chunk_encode, on the calling thread, and spreads a "
+               "parse over threads only through ingest.parse.threads "
+               "(native/__init__.py)")
+
 #: ``reference module::name`` -> its counterpart in the port
 #: (``module.py::name``) or the reason the port has none.  Excluding a
 #: class excludes its methods.
@@ -59,6 +65,8 @@ CENSUS_EXCLUDED = {
         "it empties the reference's memo of jitted fold pairs; the port "
         "compiles no fold, so it keeps no such memo (core/pipeline.py:40-45)",
     "core/telemetry.py::profiled_jit": "core/telemetry.py::profiled_build",
+    "native/__init__.py::MT_MIN_BYTES": _ONE_ENCODE,
+    "native/__init__.py::MT_THREADS": _ONE_ENCODE,
     "ops/counting.py::count_on_mxu": _MXU,
     "ops/counting.py::masked_onehot": _MXU,
     "ops/counting.py::onehot_dtype": _MXU,

@@ -1,21 +1,23 @@
 """The port's native C ingest held against the JAX package's and against
 the port's own numpy encoder, on the CPU.
 
-The C source is the reference's, built by each package on its own.  The
+The port's one schema encode (``native/chunk_encode.c``) takes every
+chunk, every buffer and the one-shot encode with its id column.  The
 chunked and one-shot encodes must give the same ``x``, ``values`` (bit
-for bit), ``y``, row counts, chunking and vocabulary order as the
-reference's native encode and as the port's numpy encoder, at
-``ingest.parse.threads`` 1 and 4 and with the pthread encode forced on;
-inputs carry blank lines, a missing final newline and negative bins.
-Models trained through the port's CLI are byte-identical to the
+for bit), ``y``, ids, row counts, chunking and vocabulary order as the
+reference's native encode, with its pthread encode forced on, and as the
+port's numpy encoder, at ``ingest.parse.threads`` 1 and 4; inputs carry
+blank lines, a missing final newline and negative bins.  The port's one
+chunk reader (``pipeline.iter_byte_chunks_meta``) cuts the reference's
+chunks, in row and byte mode, from a resume offset and under a fault
+plan.  Models trained through the port's CLI are byte-identical to the
 reference's.
 
-The port's one-pass chunk encode (``native/chunk_encode.c``), which every
-one-thread buffer without an id column takes, is held bit for bit
-against the reference's native encode and the numpy encoder on its own
-inputs too: CRLF ends, blank lines only, integer and other text in a
-float column, rejected rows and their salvage, a vocabulary past
-``max_uniq``, and a row capacity the rows overflow.
+The encode is held bit for bit against the reference's native encode and
+the numpy encoder on its own inputs too: CRLF ends, blank lines only,
+integer and other text in a float column, rejected rows and their
+salvage, a vocabulary past ``max_uniq``, and a row capacity the rows
+overflow.
 """
 
 import ctypes
@@ -101,6 +103,10 @@ def inputs(tmp_path_factory):
                       {"blank_lines": True, "final_newline": False})):
         (d / f"{name}.csv").write_text(_text(rows, **kw))
         out[name] = str(d / f"{name}.csv")
+    # ids of 2 to 7 bytes: the fixed-width id column pads the short ones
+    short = [[r[0][:2 + i % 6]] + r[1:] for i, r in enumerate(rows)]
+    (d / "short-ids.csv").write_text(_text(short, blank_lines=True))
+    out["short-ids"] = str(d / "short-ids.csv")
     return out
 
 
@@ -131,18 +137,10 @@ def _assert_vocabs_equal(enc, other):
 
 @pytest.fixture
 def mt_forced(monkeypatch):
-    """The pthread encode on every buffer, with real threads, in both
-    packages."""
-    for mod in (native, jnative):
-        monkeypatch.setattr(mod, "MT_MIN_BYTES", 1)
-        monkeypatch.setattr(mod, "MT_THREADS", 3)
-
-
-def test_native_source_is_the_reference_copy():
-    with open(os.path.join(REPO, "avenir_tpu", "native", "csv_ingest.c"),
-              "rb") as fh:
-        ref = fh.read()
-    assert native.SRC.read_bytes() == ref
+    """The reference's pthread encode on every buffer, with real threads:
+    the oracle the port's one-thread encode is held against."""
+    monkeypatch.setattr(jnative, "MT_MIN_BYTES", 1)
+    monkeypatch.setattr(jnative, "MT_THREADS", 3)
 
 
 @pytest.mark.parametrize("name", ["plain", "blank", "no-final-newline",
@@ -200,7 +198,7 @@ def test_start_offset_and_offsets_match_reference(inputs, parse_threads):
     _assert_chunks_equal([c[:4] for c in got], [tuple(c[:4]) for c in want])
 
 
-@pytest.mark.parametrize("name", ["blank", "no-final-newline"])
+@pytest.mark.parametrize("name", ["blank", "no-final-newline", "short-ids"])
 def test_one_shot_encode_matches_reference_and_numpy(inputs, mt_forced,
                                                      name):
     path = inputs[name]
@@ -209,8 +207,13 @@ def test_one_shot_encode_matches_reference_and_numpy(inputs, mt_forced,
     ds = enc.encode_path(path, ",")
     assert native.ENCODE_CALLS == 1
     jds = jenc.encode_path(path, ",")
+    # the ids, byte for byte, in the reference's fixed-width array
+    assert ds.ids_raw.dtype == jds.ids_raw.dtype
+    assert ds.ids_raw.tobytes() == jds.ids_raw.tobytes()
     penc, _ = _encoders(inputs["schema"])
     pds = penc.encode(read_field_matrix(path, ","))
+    assert ds.ids == jds.ids == pds.ids
+    assert len(set(map(len, ds.ids))) == (6 if name == "short-ids" else 1)
     for other in (jds, pds):
         np.testing.assert_array_equal(ds.x, other.x)
         np.testing.assert_array_equal(ds.y, other.y)
@@ -420,10 +423,10 @@ def _float_cols(enc):
 
 
 def _assert_raw_equal(enc, got, want):
-    """The port's one pass against the reference's csv_encode: the same
-    rows, codes, uniques and value bits; the one pass writes -1 into a
-    float column's ``x`` itself, where csv_encode leaves 0 for the
-    caller's remap to fill."""
+    """The port's one pass against the reference's native encode: the
+    same rows, codes, uniques and value bits; the one pass writes -1 into
+    a float column's ``x`` itself, where the reference's encode leaves 0
+    for the caller's remap to fill."""
     gn, gx, gv, gy, _, gu = got
     wn, wx, wv, wy, _, wu = want
     assert gn == wn == len(gx) == len(gv) == len(gy)
@@ -449,7 +452,7 @@ def test_one_pass_matches_reference_and_numpy(inputs, one_pass_inputs,
     F = len(enc.feature_fields)
     native.reset_call_counts()
     got = native.encode_schema_buffer(buf, _specs(enc), 6, F, True)
-    assert native.ONE_PASS_CALLS == native.ENCODE_CALLS == 1
+    assert native.ENCODE_CALLS == 1
     want = jnative.encode_schema_buffer(buf, _specs(enc), 6, F, True)
     _assert_raw_equal(enc, got, want)
     # the numpy encoder over the same rows, through the remap
@@ -484,7 +487,7 @@ def test_one_pass_vocabulary_overflow_retries(inputs, tmp_path):
     F = len(enc.feature_fields)
     native.reset_call_counts()
     got = native.encode_schema_buffer(buf, _specs(enc), 6, F, True)
-    assert native.ONE_PASS_CALLS == native.ENCODE_CALLS == 2
+    assert native.ENCODE_CALLS == 2
     want = jnative.encode_schema_buffer(buf, _specs(enc), 6, F, True)
     _assert_raw_equal(enc, got, want)
     assert len(got[5][1]) == 70_000
@@ -519,7 +522,7 @@ def test_one_pass_rejects_and_salvages_as_reference(churn, tmp_path, bad):
     buf = path.read_bytes()
     native.reset_call_counts()
     assert native.encode_schema_buffer(buf, specs, 8, F, True) is None
-    assert native.ONE_PASS_CALLS == 1
+    assert native.ENCODE_CALLS == 1
     assert jnative.encode_schema_buffer(buf, specs, 8, F, True) is None
     with pytest.raises(ChunkedEncodeUnsupported, match="native encode"):
         list(enc.encode_path_chunks(str(path), ",", chunk_rows=300))
@@ -555,7 +558,7 @@ def test_chunked_one_pass_matches_reference_and_numpy(
     native.reset_call_counts()
     got = list(enc.encode_path_chunks(path, ",", parse_threads=parse_threads,
                                       **chunking))
-    assert native.ONE_PASS_CALLS == native.ENCODE_CALLS == len(got) > 3
+    assert native.ENCODE_CALLS == len(got) > 3
     want = [tuple(c) for c in jenc.encode_path_chunks(
         path, ",", parse_threads=parse_threads, **chunking)]
     _assert_chunks_equal(got, want)
@@ -597,14 +600,14 @@ def test_capacity_overflow_writes_nothing_past_it(inputs, cap):
     rc = lib.chunk_encode(buf, len(buf), b",", 6, *_c_args(enc, 6), F, cap,
                           x.ctypes.data, values.ctypes.data, y.ctypes.data,
                           uniq_start.ctypes.data, uniq_len.ctypes.data,
-                          n_uniq.ctypes.data, 1 << 16)
+                          n_uniq.ctypes.data, 1 << 16, None, 0)
     assert rc == native.CHUNK_OVERFLOW
     assert (x[cap:] == -7).all() and (values[cap:] == 7.25).all()
     assert (y[cap:] == -7).all()
     native.reset_call_counts()
     assert native.encode_schema_buffer(buf, _specs(enc), 6, F, True,
                                        row_capacity=cap) is None
-    assert native.ONE_PASS_CALLS == 1
+    assert native.ENCODE_CALLS == 1
     got = native.encode_schema_buffer(buf, _specs(enc), 6, F, True,
                                       row_capacity=100)
     want = jnative.encode_schema_buffer(buf, _specs(enc), 6, F, True)
@@ -625,21 +628,93 @@ def churn_big(tmp_path_factory):
 @pytest.mark.parametrize("route", ["one-pass", "pthreads", "one-shot"])
 def test_one_pass_counter_counts_its_chunks(churn_big, tmp_path,
                                             monkeypatch, route):
-    """A churn job at 65,536-row chunks makes one one-pass call a chunk;
-    a forced pthread buffer and the one-shot encode (id column) make
-    none."""
+    """A churn job at 65,536-row chunks makes one encode call a chunk; a
+    buffer of 4 MB or more, which the reference fans out over pthreads,
+    and the one-shot encode with its id column make one call each, at
+    one thread."""
     path = str(churn_big / "in.csv")
-    if route == "pthreads":
-        monkeypatch.setattr(native, "MT_MIN_BYTES", 1)
-        monkeypatch.setattr(native, "MT_THREADS", 3)
+    enc, jenc = _encoders(CHURN_SCHEMA)
     native.reset_call_counts()
+    if route == "pthreads":
+        buf = (churn_big / "in.csv").read_bytes()
+        assert len(buf) >= 4 << 20
+        monkeypatch.setattr(jnative, "MT_THREADS", 3)
+        specs, F = _specs(enc, 8), len(enc.feature_fields)
+        got = native.encode_schema_buffer(buf, specs, 8, F, True)
+        assert native.ENCODE_CALLS == 1
+        want = jnative.encode_schema_buffer(buf, specs, 8, F, True)
+        _assert_raw_equal(enc, got, want)
+        assert got[0] == 150_000
+        return
     if route == "one-shot":
-        enc, _ = _encoders(CHURN_SCHEMA)
-        assert enc.encode_path(path, ",").n_rows == 150_000
-        assert (native.ENCODE_CALLS, native.ONE_PASS_CALLS) == (1, 0)
+        ds = enc.encode_path(path, ",")
+        assert ds.n_rows == 150_000
+        assert native.ENCODE_CALLS == 1
+        jds = jenc.encode_path(path, ",")
+        np.testing.assert_array_equal(ds.x, jds.x)
+        assert ds.ids_raw.tobytes() == jds.ids_raw.tobytes()
         return
     assert cli_main(["BayesianDistribution", "-Dpipeline.chunk.rows=65536",
                      f"-Dfeature.schema.file.path={CHURN_SCHEMA}", path,
                      str(tmp_path / "model"), "--device", "cpu"]) == 0
     assert native.ENCODE_CALLS == 3
-    assert native.ONE_PASS_CALLS == (3 if route == "one-pass" else 0)
+
+
+@pytest.mark.parametrize("plan", [None, "corrupt@2"],
+                         ids=["no-faults", "corrupt"])
+@pytest.mark.parametrize("resume", [False, True],
+                         ids=["from-start", "start-offset"])
+@pytest.mark.parametrize("chunking", [{"chunk_rows": 300},
+                                      {"chunk_bytes": 8000}],
+                         ids=["rows", "bytes"])
+def test_chunk_reader_cuts_the_reference_chunks(churn, tmp_path,
+                                                monkeypatch, chunking,
+                                                resume, plan):
+    """The one chunk reader against the reference's chunked encode: the
+    same raw chunks, after the fault plan, with the same chunk indices
+    and end offsets, from the start and from a checkpointed offset."""
+    from avenir_tpu.core import faultinject as jfi
+    from avenir_tpu.core import pipeline as jpipeline
+    from avenir_tpu_torch.core import faultinject, pipeline
+
+    path = str(churn / "in.csv")
+    _, jenc = _encoders(CHURN_SCHEMA)
+    offset = 0
+    if resume:
+        offset = list(jenc.encode_path_chunks(path, ",", with_offsets=True,
+                                              **chunking))[1][5]
+    seen = {}
+    real = jpipeline.chunk_faults
+
+    def record(chunk, idx):
+        seen[idx] = real(chunk, idx)
+        return seen[idx]
+
+    monkeypatch.setattr(jpipeline, "chunk_faults", record)
+    try:
+        if plan is not None:
+            jfi.set_injector(jfi.FaultInjector(jfi.parse_plan(plan)))
+            faultinject.set_injector(faultinject.FaultInjector(
+                faultinject.parse_plan(plan)))
+        _, jenc = _encoders(CHURN_SCHEMA)
+        salvage = jax_salvage_chunk(
+            jenc, JaxQuarantine(str(tmp_path / "jq"), "100"), ",")
+        want = [(seen[c[4]], c[4], c[5]) for c in jenc.encode_path_chunks(
+            path, ",", start_offset=offset, with_offsets=True,
+            salvage=salvage, **chunking)]
+        got = list(pipeline.iter_byte_chunks_meta(
+            path, chunking.get("chunk_rows"), offset,
+            chunk_bytes=chunking.get("chunk_bytes", 48 << 20)))
+    finally:
+        jfi.set_injector(None)
+        faultinject.set_injector(None)
+    assert got == want
+    assert len(got) > 3
+    assert got[0][1] == (2 if resume else 0)
+    with open(path, "rb") as fh:
+        buf = fh.read()
+    pos = offset
+    for chunk, idx, end in got:
+        assert (chunk == buf[pos:end]) == (plan is None or idx != 2)
+        pos = end
+    assert pos == len(buf)
