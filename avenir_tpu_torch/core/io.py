@@ -303,6 +303,28 @@ def write_output(out_path: str, lines: Iterable[str],
     return w.file_path
 
 
+def write_output_blocks(out_path: str, blocks: Iterable[bytes]) -> str:
+    """``write_output`` of lines given as ASCII bytes, a block of whole
+    lines (each ending in a newline) at a time, through a binary
+    ``OutputWriter``: the same ``part-r-00000``, ``_MANIFEST`` and
+    ``_SUCCESS`` as ``write_output`` of the same lines.  An
+    :class:`ArtifactStore` that wants ``out_path`` is given the lines as
+    text, as ``write_output`` gives them."""
+    store = _ARTIFACTS
+    if store is not None and store.wants(out_path):
+        blocks = list(blocks)
+        file_path = os.path.join(out_path, "part-r-00000")
+        store.put(out_path, file_path, [
+            line for block in blocks
+            for line in block.decode().split("\n")[:-1]])
+        if not store.sink_file(out_path):
+            return file_path
+    with OutputWriter(out_path, binary=True) as w:
+        for block in blocks:
+            w.write_bytes(block)
+    return w.file_path
+
+
 def _sha1_file(path: str, chunk: int = 1 << 20) -> str:
     h = hashlib.sha1()
     with open(path, "rb") as fh:

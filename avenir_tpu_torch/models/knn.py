@@ -37,6 +37,18 @@ an unparseable number, a set with no rows, an input held in an artifact
 store) the job splits every line in Python instead; both readers give
 the same output bytes.
 
+The distance job's pair lines, where the columnar reader took the input
+and ``field.delim.out`` is ASCII with no NUL, are built as bytes from
+the engine's ``(dist, idx)`` arrays and the reader's byte columns
+(``_write_pair_columns``): the pairs chosen with array operations (a
+self-join's diagonal masked, each row's first ``output.top.matches``
+kept), the fields gathered into one fixed-width byte matrix a block of
+test rows at a time, the distances written as decimal digits, the
+padding dropped with one mask, each block written through a binary
+``OutputWriter``; ``COLUMNAR_EMITS`` counts those jobs.  The Python
+reader's sets, and any other delimiter, take the per-line emit
+(``_pair_lines``); both give the same bytes.
+
 The vote job, for a plain majority vote (classification without
 class-conditional weighting, class distribution, decision threshold or
 cost-based arbitration), reads the pair lines' bytes and parses the test
@@ -53,7 +65,8 @@ the serving adapter decides its few.
 Spans (``core.obs``): the distance job records ``ingest.read``,
 ``ingest.parse``, ``knn.distance`` (the ``pairwise_distances`` call:
 the operands' upload, K3, K3m and the copy back) and ``knn.emit`` (the
-pair lines, built and written); the vote job ``ingest.read`` (the part
+pair lines, built and written; ``columnar`` says which emit the job
+took); the vote job ``ingest.read`` (the part
 files' bytes, or their lines on the per-group path), ``ingest.parse``
 (the column parse, or each line split and grouped; ``columnar`` says
 which reader the job took) and ``knn.vote`` (the decisions, the
@@ -66,12 +79,13 @@ import math
 import os
 import threading
 from collections import defaultdict
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 
 from ..core.config import JobConfig
-from ..core.io import _input_files, read_lines, split_line, write_output
+from ..core.io import (_input_files, read_lines, split_line, write_output,
+                       write_output_blocks)
 from ..core.metrics import ConfusionMatrix, CostBasedArbitrator, Counters
 from ..core.obs import get_tracer, traced_run
 from ..core.schema import FeatureSchema
@@ -244,13 +258,10 @@ class SameTypeSimilarity:
                 lambda f: codes[f.ordinal][1])
             cls_ord = (cls_field.ordinal if include_class
                        and cls_field is not None else None)
-
-            def strings(cols, o):
-                return None if o is None else cols[o].astype(str).tolist()
             return _Sets(tnum, tcat, qnum, qcat, num_w, cat_w,
-                         strings(tr, id_field.ordinal),
-                         strings(te, id_field.ordinal),
-                         strings(tr, cls_ord), strings(te, cls_ord))
+                         tr[id_field.ordinal], te[id_field.ordinal],
+                         None if cls_ord is None else tr[cls_ord],
+                         None if cls_ord is None else te[cls_ord])
 
     @traced_run
     def run(self, in_path: str, out_path: str, mesh=None) -> Counters:
@@ -308,47 +319,187 @@ class SameTypeSimilarity:
                      int(stats["engine"] == "fused"))
         counters.set("Distance", "Re-resolved rows", stats["reresolved"])
 
-        with tracer.span("knn.emit", queries=n_test):
-            with_class = read.train_cls is not None
-            # Python ints, row by row: no numpy scalar a pair
-            idx_rows = idx.tolist() if idx is not None else None
-            lines: List[str] = []
-            for qi in range(n_test):
-                drow = dist[qi].tolist()
-                cols = (idx_rows[qi] if idx_rows is not None
-                        else range(n_train))
-                emitted = 0
-                for rank, ti in enumerate(cols):
-                    if not inter_set and ti == qi:
-                        continue   # self-join skips the diagonal
-                    if top_k and emitted == top_k:
-                        break
-                    d = drow[rank] if idx_rows is not None else drow[ti]
-                    parts = [read.train_ids[ti], read.test_ids[qi], str(d)]
-                    if with_class:
-                        parts.append(read.train_cls[ti])
-                        parts.append(read.test_cls[qi])
-                    lines.append(delim.join(parts))
-                    emitted += 1
-            counters.set("Basic", "Pairs emitted", len(lines))
-            write_output(out_path, lines)
+        # the columnar emit takes the columnar reader's byte columns and a
+        # delimiter that stays one byte a character and holds no NUL
+        columnar = (isinstance(read.train_ids, np.ndarray)
+                    and delim.isascii() and "\0" not in delim)
+        with tracer.span("knn.emit", queries=n_test, columnar=columnar):
+            if columnar:
+                pairs = _write_pair_columns(out_path, read, dist, idx, top_k,
+                                            inter_set, delim.encode())
+                _count("COLUMNAR_EMITS")
+            else:
+                lines = _pair_lines(_text_sets(read), dist, idx, top_k,
+                                    inter_set, delim)
+                pairs = len(lines)
+                write_output(out_path, lines)
+            counters.set("Basic", "Pairs emitted", pairs)
         return counters
 
 
 class _Sets(NamedTuple):
     """What the distance job's readers give: both sets' feature matrices
-    (``_assemble``), the weights, and each row's id and class text (the
-    class None where the pair lines carry none)."""
+    (``_assemble``), the weights, and each row's id and class (the class
+    None where the pair lines carry none): lists of text from the Python
+    reader, fixed-width bytes arrays from the columnar one."""
     tnum: np.ndarray
     tcat: np.ndarray
     qnum: np.ndarray
     qcat: np.ndarray
     num_w: np.ndarray
     cat_w: np.ndarray
-    train_ids: List[str]
-    test_ids: List[str]
-    train_cls: Optional[List[str]]
-    test_cls: Optional[List[str]]
+    train_ids: Union[List[str], np.ndarray]
+    test_ids: Union[List[str], np.ndarray]
+    train_cls: Union[List[str], np.ndarray, None]
+    test_cls: Union[List[str], np.ndarray, None]
+
+
+def _text_sets(read: _Sets) -> _Sets:
+    """``read`` with byte columns turned into lists of text, as the
+    per-line emit takes them."""
+    def text(col):
+        return (col.astype(str).tolist() if isinstance(col, np.ndarray)
+                else col)
+    return read._replace(train_ids=text(read.train_ids),
+                         test_ids=text(read.test_ids),
+                         train_cls=text(read.train_cls),
+                         test_cls=text(read.test_cls))
+
+
+def _pair_lines(read: _Sets, dist: np.ndarray, idx: Optional[np.ndarray],
+                top_k: Optional[int], inter_set: bool,
+                delim: str) -> List[str]:
+    """The per-line emit (the Python reader's sets, or an output
+    delimiter the columnar emit does not take): each test row's
+    candidates (``idx``'s row, or every training row where ``idx`` is
+    None) in rank order, a self-join skipping the row itself, the first
+    ``top_k`` kept; a line ``trainId, testId, distance, [trainClass,
+    testClass]`` each."""
+    n_train = len(read.train_ids)
+    with_class = read.train_cls is not None
+    # Python ints, row by row: no numpy scalar a pair
+    idx_rows = idx.tolist() if idx is not None else None
+    lines: List[str] = []
+    for qi in range(len(read.test_ids)):
+        drow = dist[qi].tolist()
+        cols = idx_rows[qi] if idx_rows is not None else range(n_train)
+        emitted = 0
+        for rank, ti in enumerate(cols):
+            if not inter_set and ti == qi:
+                continue   # self-join skips the diagonal
+            if top_k and emitted == top_k:
+                break
+            d = drow[rank] if idx_rows is not None else drow[ti]
+            parts = [read.train_ids[ti], read.test_ids[qi], str(d)]
+            if with_class:
+                parts.append(read.train_cls[ti])
+                parts.append(read.test_cls[qi])
+            lines.append(delim.join(parts))
+            emitted += 1
+    return lines
+
+
+#: candidate entries (query rows times candidates a row) of one block of
+#: the columnar emit: its working set is about 30 bytes an entry
+_EMIT_BLOCK_PAIRS = 1 << 21
+
+
+def _write_pair_columns(out_path: str, read: _Sets, dist: np.ndarray,
+                        idx: Optional[np.ndarray], top_k: Optional[int],
+                        inter_set: bool, delim: bytes) -> int:
+    """The columnar emit: ``_pair_lines``'s lines, byte for byte, built
+    as bytes from the engine's arrays and the columnar reader's byte
+    columns a block of query rows at a time (``_selected_pairs``,
+    ``_decimal``, ``_line_bytes``) and written by
+    ``write_output_blocks``.  Returns the count of lines."""
+    n_train, n_test = len(read.train_ids), len(read.test_ids)
+    step = max(_EMIT_BLOCK_PAIRS
+               // max(n_train if idx is None else idx.shape[1], 1), 1)
+    train_id, test_id = _byte_matrix(read.train_ids), _byte_matrix(
+        read.test_ids)
+    with_class = read.train_cls is not None
+    if with_class:
+        train_cls, test_cls = (_byte_matrix(read.train_cls),
+                               _byte_matrix(read.test_cls))
+    emitted = 0
+
+    def blocks():
+        nonlocal emitted
+        for lo in range(0, n_test, step):
+            q, rank, t = _selected_pairs(idx, n_train, lo,
+                                         min(lo + step, n_test), top_k,
+                                         inter_set)
+            emitted += len(q)
+            fields = [np.take(train_id, t, axis=0),
+                      np.take(test_id, q, axis=0), _decimal(dist[q, rank])]
+            if with_class:
+                fields += [np.take(train_cls, t, axis=0),
+                           np.take(test_cls, q, axis=0)]
+            yield _line_bytes(fields, delim)
+    write_output_blocks(out_path, blocks())
+    return emitted
+
+
+def _selected_pairs(idx: Optional[np.ndarray], n_train: int, lo: int,
+                    hi: int, top_k: Optional[int], inter_set: bool
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The pairs ``_pair_lines`` writes for test rows ``lo:hi``, in its
+    order (row by row, rank by rank), as ``(test row, rank, training
+    row)`` arrays: a self-join masks each row's own index, and ``top_k``
+    keeps a row's first ``top_k`` entries left."""
+    cand = (idx[lo:hi] if idx is not None
+            else np.broadcast_to(np.arange(n_train), (hi - lo, n_train)))
+    keep = (np.ones(cand.shape, bool) if inter_set
+            else cand != np.arange(lo, hi)[:, None])
+    if top_k:
+        keep &= np.cumsum(keep, axis=1) <= top_k
+    q, rank = np.nonzero(keep)
+    return q + lo, rank, cand[q, rank]
+
+
+def _byte_matrix(col: np.ndarray) -> np.ndarray:
+    """A fixed-width bytes column as a ``[n, width]`` uint8 matrix, NUL
+    after each value that is shorter than the width."""
+    return (np.ascontiguousarray(col).view(np.uint8)
+            .reshape(len(col), col.dtype.itemsize))
+
+
+def _decimal(values: np.ndarray) -> np.ndarray:
+    """Integers (int32 or narrower) as decimal text in a ``[n, width]``
+    uint8 matrix: each row, its NULs dropped, is ``str(int(value))`` (a
+    sign column first, then the digits right-aligned, NUL in every place
+    that holds neither)."""
+    v = values.astype(np.int64)
+    rest = np.abs(v)
+    width = len(str(int(rest.max()))) if len(v) else 1
+    text = np.zeros((len(v), width + 1), np.uint8)
+    text[:, 0] = np.where(v < 0, ord("-"), 0)
+    for j in range(width, 0, -1):
+        digit = rest % 10 + ord("0")
+        text[:, j] = digit if j == width else np.where(rest > 0, digit, 0)
+        rest //= 10
+    return text
+
+
+def _line_bytes(fields: List[np.ndarray], delim: bytes) -> bytes:
+    """Lines of ``fields`` (each a ``[n, width]`` uint8 matrix, NUL where
+    a value is shorter than the width) joined by ``delim`` and each ended
+    by a newline, as one bytes object: laid out in one matrix whose NULs
+    go with one mask, as the text holds none (``_parse_columns``)."""
+    sep = np.frombuffer(delim, np.uint8)
+    width = (sum(f.shape[1] for f in fields)
+             + len(sep) * (len(fields) - 1) + 1)
+    out = np.empty((len(fields[0]), width), np.uint8)
+    at = 0
+    for i, f in enumerate(fields):
+        if i:
+            out[:, at:at + len(sep)] = sep
+            at += len(sep)
+        out[:, at:at + f.shape[1]] = f
+        at += f.shape[1]
+    out[:, at] = ord("\n")
+    flat = out.reshape(-1)
+    return flat[flat != 0].tobytes()
 
 
 def _parse_columns(buf: bytes, delim: str, want: Dict[int, int],
@@ -668,7 +819,7 @@ class NearestNeighbor:
         if cols is not None:
             with tracer.span("knn.vote"):
                 self._vote_columns(cols, out_path, counters)
-            _count_columnar_vote()
+            _count("COLUMNAR_VOTES")
             return counters
         with tracer.span("knn.vote", groups=len(groups)):
             self._vote(groups, test_class, test_regr, out_path, counters)
@@ -889,13 +1040,15 @@ def _report_all(cm: ConfusionMatrix, predicted: np.ndarray,
     cm.false_neg += int((~pred_pos & ~act_neg).sum())
 
 
+#: distance jobs that took the columnar emit, and vote jobs that took the
+#: columnar vote
+COLUMNAR_EMITS = 0
 COLUMNAR_VOTES = 0
 _COUNT_LOCK = threading.Lock()
 
 
-def _count_columnar_vote() -> None:
-    """Add one to ``COLUMNAR_VOTES``, a vote job that took the columnar
-    path, under a lock, as ``ops.topk`` counts its launches."""
-    global COLUMNAR_VOTES
+def _count(name: str) -> None:
+    """Add one to the module counter ``name`` under a lock, as
+    ``ops.topk`` counts its launches."""
     with _COUNT_LOCK:
-        COLUMNAR_VOTES += 1
+        globals()[name] += 1

@@ -11,9 +11,9 @@ the e-learning kNN deployment held to the benchmark's plain reference.
 - The program (the sorted engine on the CPU) against
   ``portbench/refs/knn_elearn.py`` at 4,000 training x 400 test rows:
   no pair outside the one-unit contract, no prediction differing.
-- Three planted faults, each caught by that comparison: a distance off
+- Four planted faults, each caught by that comparison: a distance off
   by two units, a neighbour swapped for one at least two units farther,
-  a prediction flipped.
+  a training id one row off in a pair line, a prediction flipped.
 """
 
 import contextlib
@@ -252,6 +252,16 @@ def _neighbour_swapped(r):
     return pairs, None
 
 
+def _training_id_off_by_one(r):
+    """One line's training id gathered one row off, as an emit whose
+    index into the training ids slipped would give it."""
+    pairs = list(r["pairs"])
+    f = pairs[7].split(",")
+    f[0] = f"T{int(f[0][1:]) + 1:07d}"
+    pairs[7] = ",".join(f)
+    return pairs, None
+
+
 def _prediction_flipped(r):
     preds = list(r["preds"])
     head, _, last = preds[3].rpartition(",")
@@ -262,6 +272,7 @@ def _prediction_flipped(r):
 @pytest.mark.parametrize("fault,caught_by", [
     (_distance_off_by_two, "pairs_outside_contract"),
     (_neighbour_swapped, "pairs_outside_contract"),
+    (_training_id_off_by_one, "pairs_outside_contract"),
     (_prediction_flipped, "predictions_differing")])
 def test_planted_fault_is_caught(run_4000, fault, caught_by):
     pairs, preds = fault(run_4000)

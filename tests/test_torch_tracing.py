@@ -282,7 +282,8 @@ def test_knn_jobs_record_their_spans(tmp_path, monkeypatch, columnar):
     """The distance job records ``ingest.read``, ``ingest.parse``,
     ``knn.distance`` and ``knn.emit``, and the vote job ``ingest.read``,
     ``ingest.parse`` and ``knn.vote``, each once and inside its own job
-    span, on the native reader and on the Python one."""
+    span, on the native reader and on the Python one; ``knn.emit``'s
+    ``columnar`` says which emit the reader's sets took."""
     from avenir_tpu_torch.models import knn as tk
 
     rows = datagen.gen_elearn(120, seed=3)
@@ -321,6 +322,8 @@ def test_knn_jobs_record_their_spans(tmp_path, monkeypatch, columnar):
     parse = [s for s in spans if s.name == "ingest.parse"
              and _root(s, by_id).name == "job:SameTypeSimilarity"]
     assert parse[0].attrs["native"] is columnar
+    (emit,) = [s for s in spans if s.name == "knn.emit"]
+    assert emit.attrs["columnar"] is columnar
 
 
 @pytest.mark.parametrize("settings,ragged,columnar", [
