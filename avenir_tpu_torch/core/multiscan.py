@@ -27,7 +27,8 @@ Three layers, as the reference's:
   ``multiscan.fanout.width`` gauge a chunk, and each job's finalize.  A
   spec that withdraws mid-stream is dropped from the fan-out and reported,
   and :func:`run_multi` re-runs it standalone, so the workflow's outputs
-  are always complete and the same.
+  are always complete and the same; ``STANDALONE_RERUNS`` counts every
+  job run outside the scan, so a run can show that its fusion held.
 
 The encode and the copy run on the prefetch worker and the folds on the
 calling thread, both on the device's current (default) CUDA stream, so a
@@ -58,6 +59,11 @@ from .config import JobConfig, parse_properties
 from .metrics import Counters
 from .obs import get_tracer
 from . import pipeline, telemetry
+
+#: jobs that :func:`run_multi` ran outside the shared scan, whatever the
+#: reason (no FoldSpec, a withdrawal, a failed finalize, a withdrawal
+#: restored from a checkpoint), since the process started
+STANDALONE_RERUNS = 0
 
 
 class FoldSpec:
@@ -644,8 +650,10 @@ def run_multi(config: JobConfig, in_path: str, out_base: Optional[str],
     for failure in engine.failures:
         standalone.append((fused[failure.spec.name], failure.reason))
 
+    global STANDALONE_RERUNS
     first_error = None
     for e, reason in standalone:
+        STANDALONE_RERUNS += 1
         if log is not None:
             log(f"multiscan: job {e.jid!r} ({e.cls_name}) running "
                 f"standalone: {reason}")

@@ -11,9 +11,11 @@ order would differ).
   Output line: ``attr,condVal,sum,sumSq,count,mean,variance,stdDev``
   (read by ``correlation.NumericalAttrStatsManager``).
   ``NumericalAttrStats.fold_spec`` exports its host-only part of a shared
-  scan (core.multiscan): each chunk's attribute columns, taken by the
-  native column parser, are kept, and finalize runs the same moment code
-  over their concatenation.
+  scan (core.multiscan): each chunk's attribute columns and condition
+  column, taken by the native column parser as float64 and fixed-width
+  bytes, are kept, and finalize runs the same moment code over their
+  concatenation; the condition values are grouped with array operations
+  (``_cond_groups``), never one Python string a row.
 - ``discriminant.FisherDiscriminant``: per attribute with two
   class-conditional stats, the count-weighted pooled variance, the
   log-odds prior ``log(c0/c1)`` and the decision boundary
@@ -40,12 +42,31 @@ from ..core.obs import traced_run
 from ..device import resolve_device
 
 
-def _moment_rows(vals: np.ndarray, conds: List[str],
-                 attr: int) -> List[Tuple[str, np.ndarray]]:
-    """(condVal, [sum, sumSq, count, mean, variance, stdDev]) rows, with the
-    unconditioned "0" row first."""
-    out = []
+def _cond_groups(conds: np.ndarray) -> List[Tuple[str, np.ndarray]]:
+    """(condVal, row selection) of each distinct condition value of the
+    array ``conds`` (text, or the native parser's fixed-width bytes), in
+    the order ``sorted(set(...))`` gives the decoded text: UTF-8 bytes
+    sort as their code points.  Values of one or two bytes sort as
+    big-endian integers, so one ``bincount`` finds them; wider ones take
+    ``np.unique``."""
+    conds = np.asarray(conds)
+    k = conds.dtype.itemsize
+    if conds.dtype.kind == "S" and k <= 2:
+        codes = conds.view(f">u{k}")
+        present = np.flatnonzero(np.bincount(codes, minlength=1))
+        keys = present.astype(f">u{k}").view(f"S{k}").tolist()
+        return [(key.decode(), codes == v) for key, v in zip(keys, present)]
+    uniq, inv = np.unique(conds, return_inverse=True)
+    inv = inv.reshape(-1)
+    return [(u.decode() if isinstance(u, bytes) else str(u), inv == i)
+            for i, u in enumerate(uniq.tolist())]
 
+
+def _moment_rows(vals: np.ndarray, groups: List[Tuple[str, np.ndarray]]
+                 ) -> List[Tuple[str, np.ndarray]]:
+    """(condVal, [sum, sumSq, count, mean, variance, stdDev]) rows, with the
+    unconditioned "0" row first, then one row a group of ``_cond_groups``
+    (``vals[sel]`` keeps the rows' order, so the sums are a row loop's)."""
     def stats(v):
         cnt = len(v)
         s = float(v.sum()); s2 = float((v * v).sum())
@@ -53,20 +74,19 @@ def _moment_rows(vals: np.ndarray, conds: List[str],
         var = s2 / cnt - mean * mean
         return np.asarray([s, s2, cnt, mean, var, math.sqrt(max(var, 0.0))])
 
-    out.append(("0", stats(vals)))
-    for cond in sorted(set(conds)):
-        sel = np.asarray([c == cond for c in conds])
-        out.append((cond, stats(vals[sel])))
-    return out
+    return [("0", stats(vals))] + [(cond, stats(vals[sel]))
+                                   for cond, sel in groups]
 
 
-def _stats_lines(attrs: List[int], vals_by_attr, conds: List[str],
+def _stats_lines(attrs: List[int], vals_by_attr, conds: np.ndarray,
                  delim: str) -> List[str]:
-    """NumericalAttrStats output lines from per-attribute value arrays
-    (shared by the standalone job and the shared-scan FoldSpec)."""
+    """NumericalAttrStats output lines from per-attribute value arrays and
+    the condition column as an array (shared by the standalone job and the
+    shared-scan FoldSpec)."""
+    groups = _cond_groups(conds)
     out = []
     for a in attrs:
-        for cond, row in _moment_rows(np.asarray(vals_by_attr[a]), conds, a):
+        for cond, row in _moment_rows(np.asarray(vals_by_attr[a]), groups):
             body = delim.join(str(v) for v in row)
             out.append(f"{a}{delim}{cond}{delim}{body}")
     return out
@@ -91,8 +111,8 @@ class NumericalAttrStats:
                    for l in read_lines(in_path)]
         vals_by_attr = {a: np.asarray([float(r[a]) for r in records])
                         for a in attrs}
-        conds = ([r[cond_ord] for r in records] if cond_ord >= 0
-                 else ["0"] * len(records))
+        conds = np.asarray([r[cond_ord] for r in records] if cond_ord >= 0
+                           else ["0"] * len(records), dtype=str)
         write_output(out_path, _stats_lines(attrs, vals_by_attr, conds,
                                             delim))
         counters.set("Stats", "Attributes", len(attrs))
@@ -106,11 +126,13 @@ class NumericalAttrStats:
 
 class _StatsFoldSpec(MultiScanFoldSpec):
     """NumericalAttrStats' host-only part of the shared scan: each chunk's
-    attribute columns parse to float64 and are kept (a few columns, small
-    beside the input the scan no longer re-reads); finalize concatenates
-    them and emits through ``_moment_rows``, the standalone job's code, so
-    the sums run over the same whole array and the output is the same.
-    The fold certificate (core.algebra) holds its split invariance."""
+    attribute columns parse to float64 and its condition column stays the
+    parser's fixed-width bytes (a few columns, small beside the input the
+    scan no longer re-reads); finalize concatenates them and emits through
+    ``_stats_lines``, the standalone job's code, so the sums run over the
+    same whole array and the output is the same.  No Python object is
+    made per row.  The fold certificate (core.algebra) holds its split
+    invariance."""
 
     local_fn = None
 
@@ -123,45 +145,26 @@ class _StatsFoldSpec(MultiScanFoldSpec):
         self.cond_ord = cfg.get_int("cond.attr.ord", -1)
         self.delim = cfg.field_delim_out()
         self._vals: Dict[int, list] = {a: [] for a in self.attrs}
-        self._conds: List[str] = []
+        self._conds: List[np.ndarray] = []
 
     def encode(self, ctx):
         cols = self._native_columns(ctx)
         if cols is not None:
             n, vals, conds = cols
-            if n == 0:
-                return None
-            for a in self.attrs:
-                self._vals[a].append(vals[a])
-            self._conds.extend(conds)
-            return ()
-        chunk = ctx.fields()
-        if isinstance(chunk, np.ndarray) and chunk.ndim == 2:
-            n = chunk.shape[0]
-            if n == 0:
-                return None
-            for a in self.attrs:
-                self._vals[a].append(chunk[:, a].astype(np.float64))
-            if self.cond_ord >= 0:
-                self._conds.extend(chunk[:, self.cond_ord].tolist())
-            else:
-                self._conds.extend(["0"] * n)
         else:
-            if not chunk:
-                return None
-            for a in self.attrs:
-                self._vals[a].append(
-                    np.asarray([float(r[a]) for r in chunk]))
-            if self.cond_ord >= 0:
-                self._conds.extend(str(r[self.cond_ord]) for r in chunk)
-            else:
-                self._conds.extend(["0"] * len(chunk))
+            n, vals, conds = self._field_columns(ctx.fields())
+        if n == 0:
+            return None
+        for a in self.attrs:
+            self._vals[a].append(vals[a])
+        self._conds.append(conds if conds is not None
+                           else np.full(n, b"0", dtype="S1"))
         return ()   # host-only: chunk consumed, nothing to fold
 
     def _native_columns(self, ctx):
-        """(n, {attr: float64 array}, cond list) by the native column
-        parser (C ``strtod``: the values ``float()`` gives), or None to
-        fall back to the field matrix."""
+        """(n, {attr: float64 array}, cond bytes array or None) by the
+        native column parser (C ``strtod``: the values ``float()`` gives),
+        or None to fall back to the field matrix."""
         from .. import native
 
         want = list(self.attrs)
@@ -176,10 +179,24 @@ class _StatsFoldSpec(MultiScanFoldSpec):
             return None
         n = len(cols[self.attrs[0]]) if self.attrs else 0
         vals = {a: cols[a] for a in self.attrs}
-        if self.cond_ord >= 0:
-            conds = [s.decode() for s in cols[self.cond_ord].tolist()]
+        return n, vals, cols.get(self.cond_ord)
+
+    def _field_columns(self, chunk):
+        """The same from the chunk's fields (a field matrix, or per-line
+        field lists where the chunk is ragged), the condition column
+        encoded to UTF-8 bytes."""
+        if isinstance(chunk, np.ndarray) and chunk.ndim == 2:
+            n = chunk.shape[0]
+            vals = {a: chunk[:, a].astype(np.float64) for a in self.attrs}
+            conds = chunk[:, self.cond_ord] if self.cond_ord >= 0 else None
         else:
-            conds = ["0"] * n
+            n = len(chunk)
+            vals = {a: np.asarray([float(r[a]) for r in chunk])
+                    for a in self.attrs}
+            conds = (np.asarray([r[self.cond_ord] for r in chunk], dtype=str)
+                     if self.cond_ord >= 0 else None)
+        if conds is not None:
+            conds = np.char.encode(conds, "utf-8")
         return n, vals, conds
 
     def finalize(self, carry) -> Counters:
@@ -187,8 +204,10 @@ class _StatsFoldSpec(MultiScanFoldSpec):
         vals_by_attr = {
             a: (np.concatenate(v) if v else np.zeros(0))
             for a, v in self._vals.items()}
+        conds = (np.concatenate(self._conds) if self._conds
+                 else np.zeros(0, dtype="S1"))
         write_output(self.out_path, _stats_lines(
-            self.attrs, vals_by_attr, self._conds, self.delim))
+            self.attrs, vals_by_attr, conds, self.delim))
         counters.set("Stats", "Attributes", len(self.attrs))
         return counters
 
@@ -211,12 +230,13 @@ class FisherDiscriminant:
 
         records = [split_line(l, cfg.field_delim_regex())
                    for l in read_lines(in_path)]
-        conds = [r[cond_ord] for r in records]
+        groups = _cond_groups(np.asarray([r[cond_ord] for r in records],
+                                         dtype=str))
 
         out = []
         for a in attrs:
             vals = np.asarray([float(r[a]) for r in records])
-            rows = _moment_rows(vals, conds, a)
+            rows = _moment_rows(vals, groups)
             # the stats lines (NumericalAttrStats' output, emitted by the
             # shared reducer path in the reference)
             for cond, row in rows:

@@ -529,3 +529,43 @@ def test_fold_specs_construct_and_pickle_without_tensors(work, tmp_path):
     nb_text = job_class("BayesianDistribution")(
         JobConfig({"tabular.input": "false"}), device="cpu")
     assert nb_text.fold_spec(str(tmp_path / "t")) is None
+
+
+def test_fold_span_per_job_per_chunk(work, tmp_path):
+    """A traced fused pass of ``resource/multiscan``'s four jobs records
+    one ``multiscan.encode`` span a job a chunk and one ``multiscan.fold``
+    span a job with a device fold a chunk (the stats job is host-only)."""
+    jids = ["nb", "mi", "corr", "stats"]
+    tr = obs.configure(enabled=True)
+    tr.clear()
+    _fused(_manifest(work["dir"], PIPE, jids), work["in"], tmp_path / "f")
+    chunks = -(-467 // int(PIPE["pipeline.chunk.rows"]))
+    for name, want in (("multiscan.encode", dict.fromkeys(jids, chunks)),
+                       ("multiscan.fold", {"nb": chunks, "mi": chunks,
+                                           "corr": chunks})):
+        got = {}
+        for s in tr.spans(name):
+            got[s.attrs["job"]] = got.get(s.attrs["job"], 0) + 1
+        assert got == want, name
+
+
+@pytest.mark.parametrize("late,reruns", [(None, 0), ("purple", 1)])
+def test_standalone_reruns_counter(tmp_path, late, reruns):
+    """``STANDALONE_RERUNS`` rises once for a job that withdraws
+    mid-stream (Cramer meeting a color outside its declared cardinality
+    in a later chunk, whose standalone re-run raises its KeyError) and
+    stays where it was on a clean pass."""
+    rows = _rows(150, seed=29)
+    if late is not None:
+        rows[120][1] = late
+    in_dir = _write_workload(tmp_path, rows)
+    pipe = {"pipeline.chunk.rows": "64", "pipeline.prefetch.depth": "2"}
+    props = _manifest(tmp_path, pipe, ["corr", "stats"])
+    before = multiscan.STANDALONE_RERUNS
+    msgs = []
+    with (pytest.raises(KeyError, match=late) if late
+          else contextlib.nullcontext()):
+        _fused(props, in_dir, tmp_path / "f", log=msgs.append)
+    assert multiscan.STANDALONE_RERUNS - before == reruns, msgs
+    assert [m.split("'")[1] for m in msgs if "running standalone" in m] == \
+        (["corr"] if late else [])
